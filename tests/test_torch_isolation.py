@@ -1,0 +1,122 @@
+"""The port stands alone and never falls back silently:
+- no module of libreasr_tpu_torch, nor chip_smoke.py, imports jax, flax
+  or the JAX package;
+- entry points default to cuda and raise without it;
+- the kernel wrapper takes its plain twin only for CPU tensors, and a
+  failed kernel build raises;
+- on a machine with a card, the kernel matches its twin (marked `cuda`,
+  skipped here)."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import libreasr_tpu_torch
+from libreasr_tpu_torch.api import ASRBundle
+from libreasr_tpu_torch.ops.kernels import build
+from libreasr_tpu_torch.ops.kernels import lstm as klstm
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "libreasr_tpu_torch")
+GOLDEN = os.path.join(ROOT, "tests", "fixtures", "golden", "model.tar.gz")
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|libreasr_tpu)(\.|\s|$)", re.M)
+
+
+def _port_sources():
+    for d, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_jax_imports_in_sources():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            for m in FORBIDDEN.finditer(f.read()):
+                offenders.append(f"{os.path.relpath(path, ROOT)}: {m.group(0).strip()}")
+    assert not offenders, offenders
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import libreasr_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'libreasr_tpu'))\n"
+        "assert len(mods) >= 14, mods\n"
+        "print('OK', len(mods), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.startswith("OK")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        libreasr_tpu_torch.resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ASRBundle.from_bundle(GOLDEN, extract_to=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ASRBundle.from_config(seed=0)
+    assert libreasr_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_wrapper_has_no_fallback_off_the_cpu():
+    x = torch.empty((2, 3, 16), device="meta")
+    h = torch.empty((2, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        klstm.lstm_seq(x, torch.empty((4, 16), device="meta"), h, h)
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\necho 'error: no such architecture' >&2\nexit 3\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="no such architecture"):
+        build.build(["lstm_seq"])
+    assert not any(f.endswith(".so") for f in os.listdir(tmp_path / "build"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,h", [(10, 20, 96), (3, 5, 100), (16, 30, 1024)])
+def test_kernel_matches_twin_on_cuda(n, t, h):
+    """Tolerance as in chip_smoke.py: summation order, and the bf16
+    rounding flips of h that it can cause (max 4e-3, mean 2e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(n + t + h)
+    wx = torch.tensor(rng.standard_normal((n, t, 4 * h)), dtype=torch.float32).cuda()
+    r = torch.tensor(rng.standard_normal((h, 4 * h)) / np.sqrt(h),
+                     dtype=torch.float32).cuda()
+    h0 = torch.tensor(rng.standard_normal((n, h)) * 0.5, dtype=torch.float32).cuda()
+    c0 = torch.tensor(rng.standard_normal((n, h)) * 0.5, dtype=torch.float32).cuda()
+    for stream_c, name in ((False, "lstm_seq"), (True, "lstm_seq_cseq")):
+        before = klstm.LAUNCHES[name]
+        got = klstm.lstm_seq(wx, r, h0, c0, stream_c=stream_c)
+        want = klstm.lstm_seq_reference(wx, r, h0, c0, stream_c)
+        torch.cuda.synchronize()
+        assert klstm.LAUNCHES[name] == before + t
+        for a, b in zip(got, want):
+            if a is None:
+                assert b is None
+                continue
+            d = (a - b).abs()
+            assert float(d.max()) <= 4e-3 and float(d.mean()) <= 2e-4
