@@ -3,23 +3,29 @@
     bundle = ASRBundle.from_bundle("model.tar.gz")       # on cuda
     text, metrics = bundle.transcribe(pcm)              # [S] float32
     texts, metrics = bundle.transcribe_batch(audio, sample_lengths)
+    bundle.quantize().save("model-int8.tar.gz")         # int8 towers
 
-The port of the JAX package's api.py for the offline greedy path.
+The port of the JAX package's api.py for the offline greedy path. It
+loads every bundle kind the JAX package writes for greedy serving:
+char and BPE tokenizers, float32 and int8-quantized towers.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from . import resolve_device
-from .checkpoint import load_bundle, read_bundle_conf
+from .checkpoint import load_bundle, read_bundle_conf, save_bundle
 from .config import parse_and_apply_config
-from .convert import load_jax_variables
+from .convert import export_variables, load_jax_variables
 from .data.language import get_language
 from .models.decode import DecoderFns, greedy_decode
 from .models.transducer import Transducer, TransducerConfig
 from .ops.frontend import FrontendConfig, features_batch
+from .ops.quant import quantize_rnn_cells
 
 
 class ASRBundle:
@@ -36,37 +42,62 @@ class ASRBundle:
     @classmethod
     def from_config(cls, conf: dict | None = None, *, lang_name: str = "",
                     seed: int = 0, device=None) -> "ASRBundle":
-        """A seeded random model from a config (default: base.yaml)."""
+        """A seeded random model from a config (default: base.yaml); a
+        config with "quantized_cells" gets those weights quantized."""
         device = resolve_device(device)
         conf = conf or parse_and_apply_config(inference=True, lang=lang_name)
         tok = conf.get("tokenizer", {})
         lang, _ = get_language(
             model_file=tok.get("model_file") if tok.get("use_bpe") else None
         )
-        model = Transducer(TransducerConfig.from_config(conf), seed=seed,
-                           device=device)
-        return cls(conf, model, lang, device)
+        cfg = TransducerConfig.from_config(conf)
+        model = Transducer(dataclasses.replace(cfg, quantized_cells=False),
+                           seed=seed, device=device)
+        bundle = cls(conf, model, lang, device)
+        return bundle.quantize() if cfg.quantized_cells else bundle
 
     @classmethod
     def from_bundle(cls, path: str, *, lang_name: str = "en",
                     extract_to: str = "./tmp", device=None) -> "ASRBundle":
-        """Load a release tar.gz bundle written by the JAX package."""
+        """Load a release tar.gz bundle written by the JAX package or by
+        `save`. A config with "quantized_cells" builds int8 cells."""
         device = resolve_device(device)
         conf = read_bundle_conf(path, lang_name) or parse_and_apply_config(
             inference=True, lang=lang_name
         )
-        if conf.get("quantized_cells"):
-            raise NotImplementedError(
-                "libreasr_tpu_torch: int8-quantized bundles are not ported yet")
         variables, tok, _, _ = load_bundle(path, lang_name, extract_to=extract_to)
         lang, _ = get_language(model_file=tok)
         model = Transducer(TransducerConfig.from_config(conf))
         load_jax_variables(model, variables)
         return cls(conf, model.to(device), lang, device)
 
-    def decoder_fns(self) -> DecoderFns:
-        return DecoderFns(predict_step=self.model.predict,
-                          joint_step=self.model.joint_step)
+    def quantize(self) -> "ASRBundle":
+        """int8-quantize the RNN towers in place: every cell matrix of
+        the encoder and predictor (ops.quant.quantize_rnn_cells), marked
+        by conf["quantized_cells"] so that `save` round-trips it.
+        Biases, h0, norms, projections and the embedding stay float32."""
+        variables = quantize_rnn_cells(export_variables(self.model))
+        self.conf["quantized_cells"] = True
+        model = Transducer(dataclasses.replace(self.cfg, quantized_cells=True))
+        load_jax_variables(model, variables)
+        self.model = model.to(self.device)
+        self.cfg = model.cfg
+        return self
+
+    def save(self, path: str, *, lang_name: str = "en",
+             tokenizer_file: str | None = None) -> str:
+        """Write this bundle as a release tar.gz in the JAX package's
+        layout (its from_bundle loads it); the tokenizer defaults to the
+        one this bundle was loaded with."""
+        tok = tokenizer_file or getattr(self.lang, "model_file", None)
+        return save_bundle(path, lang_name, export_variables(self.model),
+                           self.conf, tokenizer_file=tok)
+
+    def decoder_fns(self, quantized: bool = False) -> DecoderFns:
+        """Decode endpoints; quantized=True runs the joint as int8
+        products, its weights quantized now (Joint.int8_step)."""
+        joint = self.model.joint.int8_step() if quantized else self.model.joint_step
+        return DecoderFns(predict_step=self.model.predict, joint_step=joint)
 
     def encode(self, feats, lengths=None, state=None):
         """feats [N, T, F] -> (enc_out [N, T, H], per-layer states)."""

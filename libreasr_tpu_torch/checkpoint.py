@@ -4,15 +4,19 @@ tokenizer.labpe-model and lm.msgpack, as the JAX package writes them.
 The weights are flax msgpack: a nested map whose array leaves are
 msgpack ext type 1 holding a msgpack-packed (shape, dtype-name,
 row-major bytes) triple; numpy scalars are ext type 3 with the same
-payload. Decoded here with msgpack and numpy alone; flax's other ext
-type (2, Python complex numbers) never occurs in model weights.
+payload. Decoded and encoded here with msgpack and numpy alone; flax's
+other ext type (2, Python complex numbers) never occurs in model
+weights, and no weight comes near the 1 GiB above which flax splits an
+array into chunks.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import tarfile
+import tempfile
 
 import msgpack
 import numpy as np
@@ -40,11 +44,58 @@ def _ext_hook(code: int, data: bytes):
     raise ValueError(f"unsupported msgpack ext type {code} in flax weights")
 
 
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")),
+                         use_bin_type=True)
+
+
+def _ext_pack(x):
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(_EXT_NDARRAY, _ndarray_to_bytes(x))
+    if isinstance(x, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(x)))
+    raise TypeError(f"cannot serialize {type(x).__name__} into flax weights")
+
+
+def _sorted(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def msgpack_serialize(tree: dict) -> bytes:
+    """flax `msgpack_serialize`: nested dict of numpy leaves -> bytes.
+    Maps are written in sorted key order, as flax (through JAX's pytree
+    flattening) writes them, so the bytes equal flax's."""
+    return msgpack.packb(_sorted(tree), default=_ext_pack, strict_types=True)
+
+
 def msgpack_restore(data: bytes) -> dict:
     """flax `msgpack_restore`: bytes -> nested dict of numpy leaves."""
     return msgpack.unpackb(
         data, ext_hook=_ext_hook, raw=False, strict_map_key=False
     )
+
+
+def save_bundle(out_path: str, lang_name: str, variables: dict, conf: dict,
+                tokenizer_file: str | None = None) -> str:
+    """Write a release tar.gz as the JAX package's save_bundle does:
+    {lang}/model.msgpack (the variables dict of numpy arrays), the
+    resolved {lang}/config.json and, when given, the tokenizer model as
+    {lang}/tokenizer.labpe-model."""
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, lang_name)
+        os.makedirs(d)
+        with open(os.path.join(d, "model.msgpack"), "wb") as f:
+            f.write(msgpack_serialize(variables))
+        if tokenizer_file and os.path.exists(tokenizer_file):
+            shutil.copy(tokenizer_file, os.path.join(d, "tokenizer.labpe-model"))
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(conf, f, indent=2)
+        with tarfile.open(out_path, "w:gz") as tar:
+            tar.add(d, arcname=lang_name)
+    return out_path
 
 
 def read_bundle_conf(path: str, lang_name: str) -> dict:

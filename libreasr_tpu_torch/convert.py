@@ -1,16 +1,24 @@
-"""JAX variables -> the port's modules.
+"""JAX variables <-> the port's modules.
 
 The port names its submodules and parameters after the flax modules,
 so the flax path `params/encoder/rnn_stack/layer0/cell/kernel` is the
 torch parameter `encoder.rnn_stack.layer0.cell.kernel`, and
-`batch_stats/.../norm0/mean` the buffer `....norm0.mean`. Layouts are
-the same on both sides; nothing is transposed.
+`batch_stats/.../norm0/mean` the buffer `....norm0.mean`. An int8 cell
+matrix is stored as `.../cell/kernel/q` (int8) and `.../scale`
+(float32), the torch buffers `...cell.kernel.q` and `...cell.kernel.scale`.
+Layouts are the same on both sides; nothing is transposed.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .models.modules import MaskedBatchNorm, QuantizedWeight
+
+# the JAX package keeps the batch-norm running statistics in their own
+# collection; every other leaf is a parameter
+_COLLECTIONS = ("params", "batch_stats")
 
 
 def flatten_variables(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -29,13 +37,14 @@ def flatten_variables(tree, prefix: str = "") -> dict[str, np.ndarray]:
 def load_jax_variables(model: torch.nn.Module, variables: dict) -> None:
     """Copy a JAX variables dict ({"params": ..., "batch_stats": ...} of
     numpy arrays, as checkpoint.load_bundle returns it) into `model`.
-    Every tensor of the model must be filled, and every leaf used, with
-    matching shapes."""
+    Every saved tensor of the model must be filled, and every leaf used,
+    with matching shapes. int8 leaves fill int8 tensors and nothing
+    else; every other leaf is copied as float32. Quantized cells then
+    remake their kernel layouts."""
     leaves = {}
-    for collection in ("params", "batch_stats"):
+    for collection in _COLLECTIONS:
         leaves.update(flatten_variables(variables.get(collection, {})))
-    targets = dict(model.named_parameters())
-    targets.update(model.named_buffers())
+    targets = model.state_dict(keep_vars=True)
     missing = sorted(set(targets) - set(leaves))
     unused = sorted(set(leaves) - set(targets))
     if missing or unused:
@@ -47,4 +56,27 @@ def load_jax_variables(model: torch.nn.Module, variables: dict) -> None:
         src = leaves[name]
         if tuple(src.shape) != tuple(t.shape):
             raise ValueError(f"{name}: shape {src.shape} != {tuple(t.shape)}")
-        t.copy_(torch.from_numpy(np.array(src, np.float32)))
+        if (src.dtype == np.int8) != (t.dtype == torch.int8):
+            raise TypeError(f"{name}: leaf is {src.dtype}, tensor {t.dtype}")
+        t.copy_(torch.from_numpy(np.array(src, np.int8 if t.dtype == torch.int8
+                                          else np.float32)))
+    for m in model.modules():
+        if isinstance(m, QuantizedWeight):
+            m.repack()
+
+
+@torch.no_grad()
+def export_variables(model: torch.nn.Module) -> dict:
+    """The inverse of load_jax_variables: the model's saved tensors as a
+    nested {"params": ..., "batch_stats": ...} dict of numpy arrays in
+    the JAX layout (float32, int8 for quantized matrices)."""
+    stats = {f"{name}.{b}" for name, m in model.named_modules()
+             if isinstance(m, MaskedBatchNorm) for b in ("mean", "var")}
+    out = {c: {} for c in _COLLECTIONS}
+    for name, t in model.state_dict().items():
+        node = out["batch_stats" if name in stats else "params"]
+        *path, leaf = name.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = t.detach().cpu().numpy().copy()
+    return {c: tree for c, tree in out.items() if tree}

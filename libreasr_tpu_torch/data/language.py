@@ -1,4 +1,4 @@
-"""Char-level vocabulary, the same contract as the JAX package:
+"""Vocabularies. Char level, the same contract as the JAX package:
 id 0 = <BLK> (blank/pad), 1 = <s>, 2 = </s> (EOS, and the predictor's
 BOS), 3 = <UNK>, then space and punctuation, then a-z."""
 
@@ -34,13 +34,13 @@ class CharLanguage:
 
 
 def get_language(tokens=None, model_file: str | None = None):
-    """Returns (lang, vocab_sz). Only the char vocabulary is ported; a
-    BPE tokenizer model raises."""
+    """Returns (lang, vocab_sz): a BPELanguage over a LABPE1 tokenizer
+    model when `model_file` is given, else the char vocabulary."""
     if model_file:
-        raise NotImplementedError(
-            "libreasr_tpu_torch: BPE tokenizers are not ported yet "
-            f"(bundle tokenizer {model_file!r}); only char bundles load"
-        )
+        from .bpe import BPELanguage
+
+        lang = BPELanguage(model_file)
+        return lang, len(lang)
     tokens = tokens or DEFAULT_TOKENS
     vocab = dict(zip(tokens, range(len(tokens))))
     for i, c in enumerate(string.ascii_lowercase):

@@ -9,6 +9,10 @@ kernels [I, 3H] in order z,r,g.
 
 Seeded initialisation draws from an explicit torch.Generator on the
 CPU, so one seed gives the same weights on every device.
+
+int8-quantized cells hold each matrix as the JAX bundles store it: an
+int8 `q` and a float32 `scale` buffer under the matrix's name
+(`cell.kernel.q`, `cell.kernel.scale`, ...).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import rnn as rnn_ops
-from ..ops.kernels.lstm import lstm_pack
+from ..ops.kernels.lstm import lstm_pack, pack_k4
+from ..ops.quant import QuantizedTensor, int8_matmul, quantize
 
 # shortest sequence the sequence kernel takes; shorter ones (streaming
 # chunks, the predictor's single steps) run on the scan cells, as in
@@ -83,17 +88,45 @@ class Embed(nn.Module):
         return self.embedding[ids]
 
 
-class Cell(nn.Module):
-    """The recurrent matrices of one layer in the JAX layout."""
+class QuantizedWeight(nn.Module):
+    """An int8 matrix [I, O]: buffers `q` (int8) and `scale` (float32
+    [1, O]). With `packed`, also the LSTM sequence kernel's k-packed
+    copy of q, a buffer that is not saved and is remade by `repack`
+    whenever q is loaded."""
 
-    def __init__(self, rnn_type, input_sz, hidden_sz, gen):
+    def __init__(self, in_sz, out_sz, *, packed=False):
+        super().__init__()
+        self.register_buffer("q", torch.zeros((in_sz, out_sz), dtype=torch.int8))
+        self.register_buffer("scale", torch.ones((1, out_sz)))
+        self.register_buffer("packed", pack_k4(self.q) if packed else None,
+                             persistent=False)
+
+    def repack(self) -> None:
+        if self.packed is not None:
+            self.packed = pack_k4(self.q)
+
+    def tensor(self) -> QuantizedTensor:
+        return QuantizedTensor(self.q, self.scale, self.packed)
+
+
+class Cell(nn.Module):
+    """The recurrent matrices of one layer in the JAX layout, float32
+    parameters or, with `quantized`, int8 QuantizedWeights."""
+
+    def __init__(self, rnn_type, input_sz, hidden_sz, gen, *, quantized=False):
         super().__init__()
         self.rnn_type = rnn_type
         g = 4 if rnn_type == "LSTM" else 3
-        self.kernel = nn.Parameter(_xavier_uniform((input_sz, g * hidden_sz), gen))
-        self.recurrent_kernel = nn.Parameter(
-            _xavier_uniform((hidden_sz, g * hidden_sz), gen)
-        )
+        if quantized:
+            self.kernel = QuantizedWeight(input_sz, g * hidden_sz)
+            self.recurrent_kernel = QuantizedWeight(
+                hidden_sz, g * hidden_sz, packed=rnn_type == "LSTM")
+        else:
+            self.kernel = nn.Parameter(
+                _xavier_uniform((input_sz, g * hidden_sz), gen))
+            self.recurrent_kernel = nn.Parameter(
+                _xavier_uniform((hidden_sz, g * hidden_sz), gen)
+            )
         bias = torch.zeros(g * hidden_sz)
         if rnn_type == "LSTM":
             bias[2 * hidden_sz : 3 * hidden_sz] = 1.0  # forget gate (i,g,f,o)
@@ -102,10 +135,11 @@ class Cell(nn.Module):
             self.recurrent_bias = nn.Parameter(torch.zeros(g * hidden_sz))
 
     def params(self):
+        k, r = (w.tensor() if isinstance(w, QuantizedWeight) else w
+                for w in (self.kernel, self.recurrent_kernel))
         if self.rnn_type == "LSTM":
-            return rnn_ops.LSTMParams(self.kernel, self.recurrent_kernel, self.bias)
-        return rnn_ops.GRUParams(self.kernel, self.recurrent_kernel, self.bias,
-                                 self.recurrent_bias)
+            return rnn_ops.LSTMParams(k, r, self.bias)
+        return rnn_ops.GRUParams(k, r, self.bias, self.recurrent_bias)
 
 
 class RNNLayer(nn.Module):
@@ -113,11 +147,13 @@ class RNNLayer(nn.Module):
     [n_state, 1, H].
 
     Dispatch as in the JAX package: an LSTM in pack mode over at least
-    MIN_KERNEL_STEPS steps runs on the sequence kernel (its plain twin
-    for CPU tensors); everything else runs on the scan cells."""
+    MIN_KERNEL_STEPS steps runs on the sequence kernel (the int8 one for
+    quantized cells; their plain twins for CPU tensors); everything else
+    runs on the scan cells."""
 
     def __init__(self, input_sz, hidden_sz, gen, *, rnn_type="LSTM",
-                 compute_dtype=None, length_mode="pack", use_kernel=False):
+                 compute_dtype=None, length_mode="pack", use_kernel=False,
+                 quantized=False):
         super().__init__()
         if rnn_type not in rnn_ops.CELLS:
             raise NotImplementedError(
@@ -128,7 +164,7 @@ class RNNLayer(nn.Module):
         self.length_mode = length_mode
         self.use_kernel = use_kernel
         self.n_state = rnn_ops.CELLS[rnn_type][1]
-        self.cell = Cell(rnn_type, input_sz, hidden_sz, gen)
+        self.cell = Cell(rnn_type, input_sz, hidden_sz, gen, quantized=quantized)
         self.h0 = nn.Parameter(torch.zeros(self.n_state, 1, hidden_sz))
 
     def initial_state(self, batch: int):
@@ -177,7 +213,7 @@ class RNNStack(nn.Module):
     def __init__(self, input_sz, hidden_sz, num_layers, gen, *,
                  rnn_type="LSTM", reduction_indices=(), reduction_factors=(),
                  rezero=False, norm="batch", compute_dtype=None,
-                 length_mode="pack", use_kernel=False):
+                 length_mode="pack", use_kernel=False, quantized=False):
         super().__init__()
         self.num_layers = num_layers
         self.reduction = dict(zip(reduction_indices, reduction_factors))
@@ -187,7 +223,7 @@ class RNNStack(nn.Module):
             self.add_module(f"layer{i}", RNNLayer(
                 in_sz, hidden_sz, gen, rnn_type=rnn_type,
                 compute_dtype=compute_dtype, length_mode=length_mode,
-                use_kernel=use_kernel,
+                use_kernel=use_kernel, quantized=quantized,
             ))
             if norm == "batch":
                 self.add_module(f"norm{i}", MaskedBatchNorm(hidden_sz))
@@ -224,7 +260,8 @@ class Encoder(nn.Module):
 
     def __init__(self, feature_sz, hidden_sz, out_sz, gen, *, num_layers=6,
                  rnn_type="LSTM", norm="batch", reduction_indices=(),
-                 reduction_factors=(), compute_dtype=None, use_kernel=False):
+                 reduction_factors=(), compute_dtype=None, use_kernel=False,
+                 quantized=False):
         super().__init__()
         self.input_norm = LayerNorm(feature_sz)
         self.rnn_stack = RNNStack(
@@ -232,7 +269,7 @@ class Encoder(nn.Module):
             norm=norm, reduction_indices=reduction_indices,
             reduction_factors=reduction_factors, compute_dtype=compute_dtype,
             length_mode="haste" if rnn_type == "NBRC" else "pack",
-            use_kernel=use_kernel,
+            use_kernel=use_kernel, quantized=quantized,
         )
         self.proj = Dense(hidden_sz, out_sz, gen) if hidden_sz != out_sz else None
 
@@ -250,7 +287,7 @@ class Predictor(nn.Module):
 
     def __init__(self, vocab_sz, embed_sz, hidden_sz, out_sz, gen, *,
                  num_layers=2, blank=0, rnn_type="NBRC", norm="batch",
-                 compute_dtype=None):
+                 compute_dtype=None, quantized=False):
         super().__init__()
         self.blank = blank
         self.embed = Embed(vocab_sz, embed_sz, gen)
@@ -259,6 +296,7 @@ class Predictor(nn.Module):
             hidden_sz, hidden_sz, num_layers, gen, rnn_type=rnn_type,
             norm=norm, compute_dtype=compute_dtype,
             length_mode="haste" if rnn_type == "NBRC" else "pack",
+            quantized=quantized,
         )
         self.proj = Dense(hidden_sz, out_sz, gen) if hidden_sz != out_sz else None
 
@@ -288,3 +326,19 @@ class Joint(nn.Module):
     def forward(self, h_pred, h_enc):
         x = self.pred_proj(h_pred) + self.enc_proj(h_enc)
         return self.out(torch.tanh(x))
+
+    def int8_step(self):
+        """The int8 joint of the JAX package's decoder_fns(quantized=True):
+        the three kernels quantized now, at bind time, and run as dynamic
+        int8 products (compute_dtype ignored); biases stay float32.
+        Returns joint_step(h_pred, h_enc) -> logits."""
+        q_pred, q_enc, q_out = (quantize(d.kernel) for d in
+                                (self.pred_proj, self.enc_proj, self.out))
+        b_pred, b_out = self.pred_proj.bias.float(), self.out.bias.float()
+
+        def joint_step(h_pred, h_enc):
+            hidden = torch.tanh(int8_matmul(h_pred, q_pred)
+                                + int8_matmul(h_enc, q_enc) + b_pred)
+            return int8_matmul(hidden, q_out) + b_out
+
+        return joint_step

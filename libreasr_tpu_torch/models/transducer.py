@@ -34,6 +34,8 @@ class TransducerConfig:
     pred_rnn_type: str = "NBRC"
     pred_norm: str = "batch"
     compute_dtype: Any = None
+    # the towers' cell matrices are int8 (a bundle's "quantized_cells")
+    quantized_cells: bool = False
 
     @classmethod
     def from_config(cls, conf: dict) -> "TransducerConfig":
@@ -66,6 +68,7 @@ class TransducerConfig:
             pred_rnn_type=pred["rnn_type"],
             pred_norm=pred.get("norm", "batch"),
             compute_dtype=torch.bfloat16 if compute == "bfloat16" else None,
+            quantized_cells=bool(conf.get("quantized_cells", False)),
         )
 
 
@@ -84,12 +87,13 @@ class Transducer(nn.Module):
             norm=c.enc_norm, reduction_indices=c.enc_reduction_indices,
             reduction_factors=c.enc_reduction_factors,
             compute_dtype=c.compute_dtype, use_kernel=c.enc_use_kernel,
+            quantized=c.quantized_cells,
         )
         self.predictor = Predictor(
             c.vocab_sz, c.embed_sz, c.hidden_sz, c.out_sz, gen,
             num_layers=c.pred_num_layers, blank=c.blank,
             rnn_type=c.pred_rnn_type, norm=c.pred_norm,
-            compute_dtype=c.compute_dtype,
+            compute_dtype=c.compute_dtype, quantized=c.quantized_cells,
         )
         self.joint = Joint(c.out_sz, c.joint_sz, c.vocab_sz, gen,
                            compute_dtype=c.compute_dtype)

@@ -2,8 +2,8 @@
 
 Each source `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into
 `build/lib<name>-<hash>.so` (a plain C interface, loaded with ctypes).
-The hash covers the source and the flags, so an edited source is never
-served by a stale library. Builds of several sources run in parallel.
+The hash covers the source, every header `csrc/*.cuh` and the flags, so
+an edited source or header is never served by a stale library. Builds of several sources run in parallel.
 A failed build raises; nothing falls back to the plain versions.
 """
 
@@ -48,8 +48,10 @@ def source_path(name: str) -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -16,7 +16,9 @@ each length.
 `compute_dtype` (e.g. torch.bfloat16) rounds both matmul operands to
 that type and accumulates in float32, as the JAX `_mm` does with
 preferred_element_type=float32: the rounded values are widened back to
-float32 before the product, which is exact for bf16 operands.
+float32 before the product, which is exact for bf16 operands. An
+int8-quantized weight (ops.quant.QuantizedTensor) runs the dynamic int8
+product `int8_matmul` instead and ignores `compute_dtype`, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from .quant import QuantizedTensor, int8_matmul
 
 
 class LSTMParams(NamedTuple):
@@ -45,8 +49,17 @@ def round_to(x: torch.Tensor, dtype) -> torch.Tensor:
     return x if dtype is None else x.to(dtype).float()
 
 
+def _weight(w, compute_dtype):
+    """A weight as `_mm` takes it: rounded to the compute type once, or
+    quantized as it is."""
+    return w if isinstance(w, QuantizedTensor) else round_to(w, compute_dtype)
+
+
 def _mm(a, b, compute_dtype):
-    return round_to(a, compute_dtype) @ round_to(b, compute_dtype)
+    """a @ b for a weight `b` already passed through `_weight`."""
+    if isinstance(b, QuantizedTensor):
+        return int8_matmul(a, b)
+    return round_to(a, compute_dtype) @ b
 
 
 def _gated(t: int, lengths, new, old):
@@ -61,13 +74,13 @@ def lstm_scan(x, state, params: LSTMParams, *, lengths=None,
     """x: [N, T, I]; state: (h, c) each [N, H].
     Returns (y [N, T, H], (h, c))."""
     h, c = state
-    wx = _mm(x, params.kernel, compute_dtype) + params.bias
-    r = round_to(params.recurrent_kernel, compute_dtype)
+    wx = _mm(x, _weight(params.kernel, compute_dtype), compute_dtype) + params.bias
+    r = _weight(params.recurrent_kernel, compute_dtype)
     haste = length_mode == "haste"
     sh, sc = h, c
     ys = []
     for t in range(x.shape[1]):
-        v = round_to(h, compute_dtype) @ r + wx[:, t]
+        v = _mm(h, r, compute_dtype) + wx[:, t]
         i, g, f, o = v.chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -88,13 +101,13 @@ def gru_scan(x, state, params: GRUParams, *, lengths=None,
              compute_dtype=None, length_mode: str = "pack"):
     """x: [N, T, I]; state: (h,) [N, H]. Covers GRU and NBRC."""
     (h,) = state
-    wx = _mm(x, params.kernel, compute_dtype) + params.bias
-    r = round_to(params.recurrent_kernel, compute_dtype)
+    wx = _mm(x, _weight(params.kernel, compute_dtype), compute_dtype) + params.bias
+    r = _weight(params.recurrent_kernel, compute_dtype)
     haste = length_mode == "haste"
     sh = h
     ys = []
     for t in range(x.shape[1]):
-        rh = round_to(h, compute_dtype) @ r + params.recurrent_bias
+        rh = _mm(h, r, compute_dtype) + params.recurrent_bias
         wz, wr, wg = wx[:, t].chunk(3, dim=-1)
         rz, rr, rg = rh.chunk(3, dim=-1)
         z = torch.sigmoid(wz + rz)

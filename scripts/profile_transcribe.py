@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Device-time profile of the port's transcribe_batch on one GPU.
 
-    python3 scripts/profile_transcribe.py [--seed 0] [--n 16] [--seconds 6]
+    python3 scripts/profile_transcribe.py [--seed 0] [--n 16] [--seconds 6] [--int8]
 
 Builds the full-width model of config/base.yaml with seeded random
-weights (as chip_smoke.py does), warms it up, then traces one
+weights (as chip_smoke.py does; with --int8, its towers quantized by
+ASRBundle.quantize), warms it up, then traces one
 transcribe_batch and one encode with torch.profiler. Prints one JSON
 line per traced call: host wall time, summed device kernel time, the
 device's idle share (1 - kernel time / wall time; the port runs on one
@@ -63,6 +64,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=16)
     ap.add_argument("--seconds", type=float, default=6.0)
+    ap.add_argument("--int8", action="store_true",
+                    help="quantize the towers (int8 cells, kernel C)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import numpy as np
@@ -81,6 +84,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     bundle = ASRBundle.from_config(parse_and_apply_config(inference=True),
                                    seed=args.seed, device="cuda")
+    if args.int8:
+        bundle.quantize()
     sr = bundle.frontend.sr
     rng = np.random.default_rng(args.seed)
     s = int(args.seconds * sr)
@@ -94,8 +99,10 @@ def main() -> int:
                                       bundle.frontend)
     for _ in range(2):  # warm-up: kernel build, allocator, cuBLAS handles
         bundle.transcribe_batch(audio, lengths)
-    trace(lambda: bundle.transcribe_batch(audio, lengths), "transcribe_batch", card)
-    trace(lambda: bundle.encode(feats, flens), "encode", card)
+    tag = "_int8" if args.int8 else ""
+    trace(lambda: bundle.transcribe_batch(audio, lengths),
+          "transcribe_batch" + tag, card)
+    trace(lambda: bundle.encode(feats, flens), "encode" + tag, card)
     return 0
 
 

@@ -1,6 +1,7 @@
 """The port's offline API on the CPU: exact golden transcripts, and the
 same token ids and alignment scores as the JAX package's
-transcribe_batch program on the same bundle and audio.
+transcribe_batch program on the same bundle and audio, for the char
+and the BPE golden bundles.
 
 At 1 s the golden clips give T = 12 encoder frames (scan path on both
 sides). Zero-padded to 3 s with the true lengths they give T = 37, and
@@ -65,10 +66,24 @@ def test_transcribe_single_and_int16(golden):
     assert texts == TEXTS
 
 
-def test_bpe_bundle_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="BPE"):
-        ASRBundle.from_bundle(os.path.join(FIXTURES, "model_bpe.tar.gz"),
-                              extract_to=str(tmp_path), device="cpu")
+@pytest.mark.parametrize("samples", [16000, 48000])
+def test_bpe_bundle_exact_and_tokens_match_jax(golden, samples, tmp_path,
+                                               monkeypatch):
+    monkeypatch.setenv("LIBREASR_FORCE_PALLAS", "1")
+    _, _, audio = golden
+    path = os.path.join(FIXTURES, "model_bpe.tar.gz")
+    tb = ASRBundle.from_bundle(path, extract_to=str(tmp_path / "t"), device="cpu")
+    jb = JaxBundle.from_bundle(path, extract_to=str(tmp_path / "j"))
+    padded = np.zeros((8, samples), np.float32)
+    padded[:, :16000] = audio
+    lengths = np.full(8, 16000)
+    texts, _ = tb.transcribe_batch(padded, lengths)
+    assert texts == TEXTS
+    toks, tok_lens, _ = tb.decode_tokens(padded, lengths)
+    jtoks, jlens, _ = jb._decode_program(False, 3, 256)(
+        jb.variables, None, padded, lengths)
+    np.testing.assert_array_equal(tok_lens, np.asarray(jlens))
+    np.testing.assert_array_equal(toks, np.asarray(jtoks))
 
 
 def test_from_config_padding_invariance():

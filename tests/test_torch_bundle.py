@@ -83,3 +83,48 @@ def test_msgpack_ext_types_roundtrip():
 def test_read_bundle_conf_missing_lang_is_empty():
     path = os.path.join(FIXTURES, "model.tar.gz")
     assert torch_ckpt.read_bundle_conf(path, "de") == {}
+
+
+def test_msgpack_serialize_matches_flax():
+    """The port's writer gives flax's bytes, and flax reads them back."""
+    rng = np.random.default_rng(1)
+    tree = {
+        "params": {
+            "cell": {"kernel": {"q": rng.integers(-127, 128, (4, 8)).astype(np.int8),
+                                "scale": rng.random((1, 8)).astype(np.float32)},
+                     "bias": rng.standard_normal(8).astype(np.float32)},
+            "h0": np.zeros((2, 1, 4), np.float32),
+        },
+        "step": np.int32(7),
+    }
+    data = torch_ckpt.msgpack_serialize(tree)
+    assert data == serialization.msgpack_serialize(tree)
+    back = serialization.msgpack_restore(data)
+    for k, v in flatten_variables(tree).items():
+        got = flatten_variables(back)[k]
+        assert got.dtype == v.dtype, k
+        np.testing.assert_array_equal(got, v, err_msg=k)
+    with pytest.raises(TypeError, match="cannot serialize"):
+        torch_ckpt.msgpack_serialize({"x": object()})
+
+
+def test_save_bundle_layout_reads_in_jax(tmp_path):
+    path = os.path.join(FIXTURES, "model_bpe.tar.gz")
+    variables, tok, _, conf = torch_ckpt.load_bundle(
+        path, "en", extract_to=str(tmp_path / "src"))
+    out = torch_ckpt.save_bundle(str(tmp_path / "out" / "b.tar.gz"), "en",
+                                 variables, conf, tokenizer_file=tok)
+    assert jax_ckpt.read_bundle_conf(out, "en") == conf
+    _, template = init_transducer(
+        TransducerConfig.from_config(conf), jax.random.PRNGKey(0)
+    )
+    ref, ref_tok, ref_lm, _ = jax_ckpt.load_bundle(
+        out, "en", template, extract_to=str(tmp_path / "jax"))
+    want = flatten_variables(variables)
+    have = _flat_jax(ref)
+    assert sorted(have) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(have[k], v, err_msg=k)
+    with open(tok, "rb") as a, open(ref_tok, "rb") as b:
+        assert a.read() == b.read()
+    assert ref_lm is None  # the port has no LM to write

@@ -2,10 +2,12 @@
 - no module of libreasr_tpu_torch, nor chip_smoke.py, imports jax, flax
   or the JAX package;
 - entry points default to cuda and raise without it;
-- the kernel wrapper takes its plain twin only for CPU tensors, and a
+- the kernel wrappers take their plain twins only for CPU tensors, and a
   failed kernel build raises;
-- on a machine with a card, the kernel matches its twin (marked `cuda`,
-  skipped here)."""
+- a library is named by the hash of its source and every header, so an
+  edited header never serves a stale build;
+- on a machine with a card, the kernels match their twins (marked
+  `cuda`, skipped here)."""
 
 import os
 import re
@@ -53,7 +55,9 @@ def test_importing_every_module_loads_no_jax():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'libreasr_tpu'))\n"
-        "assert len(mods) >= 14, mods\n"
+        "assert len(mods) >= 16, mods\n"
+        "assert {'libreasr_tpu_torch.ops.quant', 'libreasr_tpu_torch.data.bpe'}"
+        " <= set(mods), mods\n"
         "print('OK', len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -71,6 +75,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
         ASRBundle.from_bundle(GOLDEN, extract_to=str(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ASRBundle.from_config(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ASRBundle.from_config({"quantized_cells": True}, seed=0)
     assert libreasr_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
@@ -81,9 +87,25 @@ def test_wrapper_has_no_fallback_off_the_cpu():
     h = torch.empty((2, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         klstm.lstm_seq(x, torch.empty((4, 16), device="meta"), h, h)
+    rq = torch.empty((4, 16), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        klstm.lstm_seq_int8(x, rq, torch.empty((1, 16), device="meta"), h, h)
 
 
-def test_failed_build_raises(monkeypatch, tmp_path):
+def test_library_name_hashes_headers(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// kernel\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    before = build.library_path("k")
+    (csrc / "common.cuh").write_text("// header\n")
+    with_header = build.library_path("k")
+    (csrc / "common.cuh").write_text("// header, edited\n")
+    assert len({before, with_header, build.library_path("k")}) == 3
+
+
+@pytest.mark.parametrize("name", ["lstm_seq", "lstm_seq_int8"])
+def test_failed_build_raises(name, monkeypatch, tmp_path):
     nvcc = tmp_path / "bin" / "nvcc"
     nvcc.parent.mkdir()
     nvcc.write_text("#!/bin/sh\necho 'error: no such architecture' >&2\nexit 3\n")
@@ -91,7 +113,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="no such architecture"):
-        build.build(["lstm_seq"])
+        build.build([name])
     assert not any(f.endswith(".so") for f in os.listdir(tmp_path / "build"))
 
 
@@ -120,3 +142,32 @@ def test_kernel_matches_twin_on_cuda(n, t, h):
                 continue
             d = (a - b).abs()
             assert float(d.max()) <= 4e-3 and float(d.mean()) <= 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,h", [(10, 20, 96), (3, 5, 98), (16, 30, 1024)])
+def test_int8_kernel_matches_twin_on_cuda(n, t, h):
+    """Tolerance as in chip_smoke.py (INT8_TOL): the pre-activations are
+    computed alike bit for bit; expf/tanhf against PyTorch's can flip an
+    element of the quantized h (max 4e-3, mean 2e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from libreasr_tpu_torch.ops.quant import quantize
+
+    rng = np.random.default_rng(n + t + h)
+    wx = torch.tensor(rng.standard_normal((n, t, 4 * h)), dtype=torch.float32).cuda()
+    r = quantize(torch.tensor(rng.standard_normal((h, 4 * h)) / np.sqrt(h),
+                              dtype=torch.float32).cuda())
+    h0 = torch.tensor(rng.standard_normal((n, h)) * 0.5, dtype=torch.float32).cuda()
+    c0 = torch.tensor(rng.standard_normal((n, h)) * 0.5, dtype=torch.float32).cuda()
+    before = klstm.LAUNCHES["lstm_seq_int8"]
+    got = klstm.lstm_seq_int8(wx, r.q, r.scale, h0, c0,
+                              rq_packed=klstm.pack_k4(r.q))
+    want = klstm.lstm_seq_int8_reference(wx, r.q, r.scale, h0, c0)
+    torch.cuda.synchronize()
+    assert klstm.LAUNCHES["lstm_seq_int8"] == before + t
+    for a, b in zip(got, want):
+        d = (a - b).abs()
+        assert float(d.max()) <= 4e-3 and float(d.mean()) <= 2e-4
+    with pytest.raises(ValueError, match="rq_packed"):
+        klstm.lstm_seq_int8(wx, r.q, r.scale, h0, c0)
