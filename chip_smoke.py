@@ -31,7 +31,22 @@ Phases, one line each (any failure raises and exits non-zero):
      transcribe_batch on the same clips: 6 x 74 int8 kernel launches and
      none of the bf16-R kernel; its encoder output is held against the
      same int8 model on the CPU (tolerance INT8_ENC_TOL), and the path
-     is timed.
+     is timed;
+ 10. kernel_joint: the joint log-prob kernels F, G, H against their twins
+     on the card, with bf16 and float32 W_out, at a golden-like shape,
+     one with U1 > 96 and every dimension off its tile, and the main
+     path's (N 16, T 49, U1 41, J 1024, V 2048), with ragged lengths and
+     a label equal to the blank (tolerances JOINT_*); then
+     rnnt_loss_fused on the kernels against its chunked path on the card
+     (loss relative error < 1e-3, every gradient's cosine > 0.999);
+ 11. train_full_width: the training main path, 4 Learner steps of the
+     config/base.yaml model (bf16 compute, encoder on its scan cells,
+     accumulation over 2 batches) on 16 ragged 2.5-4 s clips: losses
+     finite, F/G/H once a step each, A/B/C never, parameters updated on
+     steps 2 and 4 only; step time and its split, peak memory;
+ 12. train_small_cuda_vs_cpu: 2 steps of a small float32 model from the
+     same weights and batches on cuda and on the CPU (tolerances SMALL_*);
+ 13. joint_timing: F, G, H and their twins timed at the main path's shape.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -642,6 +657,383 @@ def phase_full_width_int8(seed: int, card: str, worst_err: float) -> dict:
     return row
 
 
+# joint kernels F, G, H vs their twins: both compute the same float32
+# sums over J (logits) and V (dlogits @ W_out^T) and over rows (dW, db)
+# in another order, and both round h and dlogits to W_out's type. The
+# order difference (~1e-6 relative in float32) and a tanhf/expf ulp
+# against PyTorch's can flip a bf16 rounding of h or dlogits, which moves
+# one term of a sum by 2**-9 of itself: a few 1e-5 of the lp values
+# (~|8|) and of each gradient's largest entry. Bounds: lp and lse 2e-3
+# absolute; every gradient 2e-3 of its largest entry. A wrong index,
+# mask or one-hot shows as errors of 1e-1 and more.
+JOINT_LP_TOL = 2e-3
+JOINT_GRAD_TOL = 2e-3
+# fused loss on the kernels against the chunked path on the card, the
+# rule of scripts/check_kernels.py for the TPU kernels
+FUSED_REL_TOL = 1e-3
+FUSED_MIN_COS = 0.999
+# (N, T, U1, J, V): golden-like; U1 above 96 with T, U1, J and V off
+# every tile (BT 4/2, BU 8, J chunk 64, V tiles 64/32); the main path
+JOINT_CASES = [(3, 13, 9, 96, 40), (2, 11, 101, 200, 300),
+               (16, 49, 41, 1024, 2048)]
+
+
+def _joint_inputs(n, t, u1, j, v, gen, w_dtype):
+    """Seeded projections and weights at the joint's scale, ragged frame
+    and label lengths (one of each full), a label equal to the blank, and
+    the loss's own cotangents (zero outside each lattice)."""
+    import torch
+
+    from libreasr_tpu_torch.ops.kernels.joint_lp import joint_lp_fwd_reference
+    from libreasr_tpu_torch.ops.rnnt_loss import (
+        backward_betas, forward_alphas, occupancies, terminal_gather,
+    )
+
+    enc = torch.randn((n, t, j), generator=gen) * 0.5
+    pred = torch.randn((n, u1, j), generator=gen) * 0.5
+    w = (torch.randn((j, v), generator=gen) / j ** 0.5).to(w_dtype)
+    b = torch.randn((v,), generator=gen) * 0.1
+    labels = torch.randint(1, v, (n, u1 - 1), generator=gen).to(torch.int32)
+    labels[0, 0] = 0
+    fl = torch.randint(max(1, t // 2), t + 1, (n,), generator=gen)
+    yl = torch.randint(0, u1, (n,), generator=gen)
+    fl[0], yl[-1] = t, u1 - 1
+    cuda = [x.cuda() for x in (enc, pred, w, b, labels)]
+    lpb, lpe = joint_lp_fwd_reference(*cuda)
+    fl, yl = fl.cuda(), yl.cuda()
+    alpha, lpe_m = forward_alphas(lpb, lpe, yl)
+    beta = backward_betas(lpb, lpe_m, fl, yl)
+    log_z = terminal_gather(alpha, lpb, fl, yl)
+    occ_b, occ_e = occupancies(lpb, lpe_m, alpha, beta, fl, yl, log_z)
+    return (*cuda, (-occ_b).contiguous(), (-occ_e).contiguous(), fl, yl)
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    den = float(a.norm() * b.norm())
+    return float(a @ b) / den if den > 0 else 1.0
+
+
+def phase_kernel_joint(seed: int) -> dict:
+    """F, G, H against their twins on the card, in bf16 and float32
+    W_out, at JOINT_CASES; then rnnt_loss_fused on the kernels against
+    the chunked path. Returns the largest error per kernel."""
+    import torch
+
+    from libreasr_tpu_torch.ops import fused_loss as fl_mod
+    from libreasr_tpu_torch.ops.kernels import joint_lp as kj
+
+    gen = torch.Generator().manual_seed(seed + 3)
+    worst = {"joint_lp_fwd": 0.0, "joint_lp_dx": 0.0, "joint_lp_dw": 0.0}
+    for n, t, u1, j, v in JOINT_CASES:
+        for w_dtype in (torch.bfloat16, torch.float32):
+            enc, pred, w, b, lab, gb, ge, _, _ = _joint_inputs(
+                n, t, u1, j, v, gen, w_dtype)
+            got_f = kj.joint_lp_fwd(enc, pred, w, b, lab)
+            ref_f = kj.joint_lp_fwd_reference(enc, pred, w, b, lab)
+            got_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)
+            ref_g = kj.joint_lp_dx_reference(enc, pred, w, b, lab, gb, ge)
+            got_h = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, got_g[2])
+            ref_h = kj.joint_lp_dw_reference(enc, pred, w, b, lab, gb, ge,
+                                             ref_g[2])
+            torch.cuda.synchronize()
+
+            def abs_err(a, r):
+                return float((a - r).abs().max()) if r.numel() else 0.0
+
+            def rel_err(a, r):
+                return abs_err(a, r) / max(float(r.abs().max()), 1e-30)
+
+            errs = {
+                "lp_blank": abs_err(got_f[0], ref_f[0]),
+                "lp_emit": abs_err(got_f[1], ref_f[1]),
+                "lse": abs_err(got_g[2], ref_g[2]),
+                "d_enc_proj": rel_err(got_g[0], ref_g[0]),
+                "d_pred_proj": rel_err(got_g[1], ref_g[1]),
+                "d_w_out": rel_err(got_h[0], ref_h[0]),
+                "d_b_out": rel_err(got_h[1], ref_h[1]),
+            }
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (*got_f, *got_g, *got_h))
+            log("kernel_joint", n=n, t=t, u1=u1, j=j, v=v,
+                w_dtype=str(w_dtype), finite=finite, err=errs,
+                tol_lp_abs=JOINT_LP_TOL, tol_grad_rel=JOINT_GRAD_TOL)
+            worst["joint_lp_fwd"] = max(worst["joint_lp_fwd"], errs["lp_blank"],
+                                        errs["lp_emit"])
+            worst["joint_lp_dx"] = max(worst["joint_lp_dx"], errs["lse"],
+                                       errs["d_enc_proj"], errs["d_pred_proj"])
+            worst["joint_lp_dw"] = max(worst["joint_lp_dw"], errs["d_w_out"],
+                                       errs["d_b_out"])
+            bad = {k: e for k, e in errs.items() if not e <= (
+                JOINT_LP_TOL if k in ("lp_blank", "lp_emit", "lse")
+                else JOINT_GRAD_TOL)}
+            if bad or not finite:
+                raise AssertionError(f"joint kernels vs twins at "
+                                     f"{(n, t, u1, j, v, w_dtype)}: {bad}")
+
+    # the fused loss: kernels against the chunked path, on the card
+    for n, t, u1, j, v in JOINT_CASES:
+        for cdt in (torch.bfloat16, None):
+            h = 48
+            x = [torch.randn(s, generator=gen) * sc for s, sc in (
+                ((n, t, h), 1.0), ((n, u1, h), 1.0), ((h, j), h ** -0.5),
+                ((j,), 0.1), ((h, j), h ** -0.5), ((j, v), j ** -0.5),
+                ((v,), 0.1))]
+            lab = torch.randint(1, v, (n, u1 - 1), generator=gen)
+            lab[0, 0] = 0
+            fl = torch.randint(max(1, t // 2), t + 1, (n,), generator=gen)
+            yl = torch.randint(0, u1, (n,), generator=gen)
+            fl[0], yl[-1] = t, u1 - 1
+            out = {}
+            for route in ("kernels", "chunked"):
+                ts = [a.cuda().requires_grad_() for a in x]
+                loss = fl_mod._fused(ts[0], ts[1], fl_mod.JointParams(*ts[2:]),
+                                     lab.cuda(), fl.cuda(), yl.cuda(), 0, 16,
+                                     cdt, route)
+                loss.sum().backward()
+                out[route] = (loss.detach(), [a.grad for a in ts])
+            lk, gk = out["kernels"]
+            lc, gc = out["chunked"]
+            rel = float(((lk - lc).abs() / lc.abs().clamp_min(1e-9)).max())
+            cos = [_cosine(a, b) for a, b in zip(gk, gc)]
+            log("kernel_joint_fused", n=n, t=t, u1=u1, j=j, v=v,
+                compute_dtype=str(cdt), loss_rel_err=rel, grad_cosines=cos,
+                tol_rel=FUSED_REL_TOL, min_cos=FUSED_MIN_COS)
+            if not rel < FUSED_REL_TOL or not min(cos) > FUSED_MIN_COS:
+                raise AssertionError(f"fused loss kernels vs chunked at "
+                                     f"{(n, t, u1, j, v, cdt)}: {rel} {cos}")
+    return worst
+
+
+def joint_bound_ms(kind: str, n, t, u1, j, v, w_bytes: int = 2):
+    """Least time for one call of F ("fwd"), G ("dx") or H ("dw") at the
+    main path's shape: each input read once, each output written once,
+    against the bf16 tensor rate for the products the function needs on
+    its R = N T U1 rows (F: the logits, 2 R J V flops; G and H: the
+    logits and one more product of that size each)."""
+    r, u = n * t * u1, u1 - 1
+    inputs = 4 * n * t * j + 4 * n * u1 * j + w_bytes * j * v + 4 * v + 4 * n * u
+    cot = 4 * r + 4 * n * t * u
+    nbytes = {"fwd": inputs + 4 * r + 4 * n * t * u,
+              "dx": inputs + cot + 4 * n * t * j + 4 * n * u1 * j + 4 * r,
+              "dw": inputs + cot + 4 * r + 4 * j * v + 4 * v}[kind]
+    flops = (2.0 if kind == "fwd" else 4.0) * r * j * v
+    tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def joint_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
+    """F, G and H timed at the main path's shape (bf16 W_out), beside
+    their twins; the rows of the kernels line. cuBLAS's bf16 product of
+    the same [R, J] x [J, V] shape is printed as context: no single
+    PyTorch call computes these kernels' function."""
+    import torch
+
+    from libreasr_tpu_torch.ops.kernels import joint_lp as kj
+
+    n, t, u1, j, v = JOINT_CASES[-1]
+    gen = torch.Generator().manual_seed(seed + 4)
+    enc, pred, w, b, lab, gb, ge, _, _ = _joint_inputs(n, t, u1, j, v, gen,
+                                                      torch.bfloat16)
+    _, _, lse = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)
+    calls = {
+        "joint_lp_fwd": ("fwd", 134, lambda: kj.joint_lp_fwd(enc, pred, w, b, lab),
+                         lambda: kj.joint_lp_fwd_reference(enc, pred, w, b, lab)),
+        "joint_lp_dx": ("dx", 162, lambda: kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge),
+                        lambda: kj.joint_lp_dx_reference(enc, pred, w, b, lab, gb, ge)),
+        "joint_lp_dw": ("dw", 236,
+                        lambda: kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse),
+                        lambda: kj.joint_lp_dw_reference(enc, pred, w, b, lab, gb,
+                                                         ge, lse)),
+    }
+    a = torch.randn((n * t * u1, j), device="cuda").bfloat16()
+    cublas_ms = cuda_ms(lambda: a @ w, reps=20)
+    rows, times = [], {}
+    with torch.inference_mode():
+        for name, (kind, line, kernel, twin) in calls.items():
+            ms = cuda_ms(kernel, reps=10)
+            plain_ms = cuda_ms(twin, reps=3, warmup=1)
+            bound, bound_by = joint_bound_ms(kind, n, t, u1, j, v)
+            times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "libreasr_tpu_torch/csrc/joint_lp.cu",
+                "replaces": f"libreasr_tpu/ops/pallas/joint_lp.py:{line}",
+                "launches": launches[name], "max_abs_err": worst[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": None,
+            })
+    log("joint_timing", n=n, t=t, u1=u1, j=j, v=v, rows=n * t * u1,
+        w_dtype="bfloat16", kernels=times,
+        context_cublas_bf16_rows_x_w_ms=cublas_ms)
+    return rows
+
+
+TRAIN_STEPS = 4
+
+
+def _train_batches(cfg, frontend, seed: int, n: int = 16, steps: int = TRAIN_STEPS):
+    """Seeded ragged 2.5-4 s clips of noise (the 4 s bucket, one clip
+    full) with 20-40 random labels in [1, V), on the card."""
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch.training.learner import Batch
+
+    rng = np.random.default_rng(seed)
+    s, u = 4 * frontend.sr, 40
+    out = []
+    for _ in range(steps):
+        lengths = rng.integers(s * 5 // 8, s + 1, n)
+        lengths[0] = s
+        audio = (rng.standard_normal((n, s)) * 0.1).astype(np.float32)
+        audio *= np.arange(s)[None, :] < lengths[:, None]
+        ylen = rng.integers(20, u + 1, n)
+        labels = rng.integers(1, cfg.vocab_sz, (n, u))
+        labels *= np.arange(u)[None, :] < ylen[:, None]
+        out.append(Batch(*(torch.from_numpy(x).cuda()
+                           for x in (audio, lengths, labels, ylen))))
+    return out
+
+
+def _timed(name: str, fn, times: dict):
+    import torch
+
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return run
+
+
+def train_conf(accumulate: int = 2) -> dict:
+    """config/base.yaml for training, with the encoder on its scan cells
+    (use_pallas_train false: kernels D, E are not ported), gradient
+    accumulation over 2 batches and a short schedule."""
+    from libreasr_tpu_torch.config import parse_and_apply_config
+
+    conf = parse_and_apply_config()
+    conf["model"]["encoder"]["use_pallas_train"] = False
+    conf["accumulate_n_batches"] = accumulate
+    conf["training"]["total_steps"] = 8
+    return conf
+
+
+def phase_train_full_width(seed: int, card: str) -> dict:
+    """The main path: 4 Learner steps of the base.yaml model; returns the
+    joint kernels' launch counts from that run."""
+    import torch
+
+    from libreasr_tpu_torch.ops.kernels import joint_lp as kj
+    from libreasr_tpu_torch.ops.kernels import lstm as klstm
+    from libreasr_tpu_torch.training.learner import Learner
+
+    learner = Learner.from_config(train_conf(), device="cuda", seed=seed)
+    cfg = learner.cfg
+    batches = _train_batches(cfg, learner.frontend, seed)
+    times: dict = {}
+    for part, label in (("features", "frontend"), ("forward", "forward"),
+                        ("loss", "loss"), ("backward", "backward"),
+                        ("optimize", "optimizer")):
+        setattr(learner, part, _timed(label, getattr(learner, part), times))
+    losses, changed = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    klstm.reset_launches()
+    kj.reset_launches()
+    for b in batches:
+        before = [p.detach().clone() for p in learner.params]
+        step = _timed("step", learner.step, times)
+        metrics = step(b)
+        losses.append(float(metrics["loss"]))
+        changed.append(any(not torch.equal(a, p.detach())
+                           for a, p in zip(before, learner.params)))
+        del before
+    torch.cuda.synchronize()
+    joint_launches, lstm_launches = dict(kj.LAUNCHES), dict(klstm.LAUNCHES)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    t_enc = int(learner.frontend.out_length(torch.tensor(4 * learner.frontend.sr)))
+    med = {k: statistics.median(v[1:]) for k, v in times.items()}
+    log("train_full_width", card=card, n=16, t_enc=t_enc, u=40,
+        hidden=cfg.hidden_sz, vocab=cfg.vocab_sz, enc_layers=cfg.enc_num_layers,
+        compute_dtype=str(cfg.compute_dtype), losses=losses,
+        params_changed=changed, joint_launches=joint_launches,
+        lstm_launches=lstm_launches, step_ms_median_last3=med.pop("step"),
+        split_ms_median_last3=med, step_ms_runs=times["step"],
+        peak_memory_mib=peak_mib)
+    import math
+
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if joint_launches != {k: TRAIN_STEPS for k in kj.LAUNCHES}:
+        raise AssertionError(f"joint kernel launches {joint_launches}")
+    if any(lstm_launches.values()):
+        raise AssertionError(f"eval LSTM kernels ran in training: {lstm_launches}")
+    if changed != [i % 2 == 1 for i in range(TRAIN_STEPS)]:
+        raise AssertionError(f"parameters changed at steps {changed}, "
+                             "expected on accumulation boundaries only")
+    return joint_launches
+
+
+# small model, cuda vs cpu: float32 compute, so the two differ only in
+# summation order (cuBLAS, the joint kernels' SIMT float32 products and
+# the DP against PyTorch's CPU kernels): loss 1e-4 relative, every
+# gradient 1e-3 of its largest entry, parameters 1e-5 absolute after 2
+# steps (each step moves a parameter by at most ~lr = 5e-4 here).
+SMALL_LOSS_TOL = 1e-4
+SMALL_GRAD_TOL = 1e-3
+SMALL_PARAM_TOL = 1e-5
+
+
+def phase_train_small_cuda_vs_cpu(seed: int) -> None:
+    import torch
+
+    from libreasr_tpu_torch.training.learner import Learner
+
+    conf = train_conf(accumulate=1)
+    m = conf["model"]
+    m.update(hidden_sz=64, out_sz=48, joint_sz=40, embed_sz=32, vocab_sz=50)
+    m["encoder"].update(num_layers=2, dropout=0.0)
+    m["predictor"].update(num_layers=1, dropout=0.0)
+    conf["dtypes"]["compute"] = "float32"
+    conf["transforms"]["features"] = [
+        s for s in conf["transforms"]["features"]
+        if s["name"] in ("LogMelSpectrogram", "StackDownsample")]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        learner = Learner.from_config(conf, device=dev, seed=seed)
+        grads = []
+        backward = learner.backward
+
+        def keep(loss, backward=backward, grads=grads):
+            out = backward(loss)
+            grads.append([g.detach().cpu() for g in out[0]])
+            return out
+
+        learner.backward = keep
+        batches = _train_batches(learner.cfg, learner.frontend, seed, n=4,
+                                 steps=2)
+        losses = [float(learner.step(tuple(x.to(dev) for x in b))["loss"])
+                  for b in batches]
+        runs[dev] = (losses, grads, [p.detach().cpu() for p in learner.params])
+    (lc, gc, pc), (lh, gh, ph) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for sa, sb in zip(gc, gh) for a, b in zip(sa, sb))
+    param_abs = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+    log("train_small_cuda_vs_cpu", losses_cuda=lc, losses_cpu=lh,
+        loss_rel_err=loss_rel, grad_rel_err=grad_rel, param_abs_err=param_abs,
+        tol_loss_rel=SMALL_LOSS_TOL, tol_grad_rel=SMALL_GRAD_TOL,
+        tol_param_abs=SMALL_PARAM_TOL)
+    if not (loss_rel <= SMALL_LOSS_TOL and grad_rel <= SMALL_GRAD_TOL
+            and param_abs <= SMALL_PARAM_TOL):
+        raise AssertionError("small train step: cuda and cpu disagree")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -670,6 +1062,14 @@ def main() -> int:
     phase_golden_bpe()
     torch.cuda.synchronize()
     rows.append(phase_full_width_int8(args.seed, card, worst_int8))
+    torch.cuda.synchronize()
+    worst_joint = phase_kernel_joint(args.seed)
+    torch.cuda.synchronize()
+    joint_launches = phase_train_full_width(args.seed, card)
+    torch.cuda.synchronize()
+    phase_train_small_cuda_vs_cpu(args.seed)
+    torch.cuda.synchronize()
+    rows += joint_rows(args.seed, worst_joint, joint_launches)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,7 @@ class ASRBundle:
 
     def __init__(self, conf: dict, model: Transducer, lang, device):
         self.conf = conf
-        self.model = model
+        self.model = model.eval().requires_grad_(False)
         self.lang = lang
         self.device = device
         self.cfg: TransducerConfig = model.cfg
@@ -80,7 +80,7 @@ class ASRBundle:
         self.conf["quantized_cells"] = True
         model = Transducer(dataclasses.replace(self.cfg, quantized_cells=True))
         load_jax_variables(model, variables)
-        self.model = model.to(self.device)
+        self.model = model.to(self.device).eval().requires_grad_(False)
         self.cfg = model.cfg
         return self
 

@@ -1,4 +1,4 @@
-"""Network building blocks as torch.nn modules (eval path).
+"""Network building blocks as torch.nn modules.
 
 Submodule and parameter names follow the JAX package's flax modules, so
 a flax variable path such as `encoder/rnn_stack/layer0/cell/kernel`
@@ -13,6 +13,12 @@ CPU, so one seed gives the same weights on every device.
 int8-quantized cells hold each matrix as the JAX bundles store it: an
 int8 `q` and a float32 `scale` buffer under the matrix's name
 (`cell.kernel.q`, `cell.kernel.scale`, ...).
+
+Training mode (`module.train()`) follows the JAX modules' train=True:
+batch norms normalise with the masked batch statistics of the valid
+frames and update their running statistics; each tower's output
+dropout draws its mask from an explicit torch.Generator; recurrent
+layers run the differentiable scan cells, never the eval kernels.
 """
 
 from __future__ import annotations
@@ -31,6 +37,21 @@ from ..ops.quant import QuantizedTensor, int8_matmul, quantize
 # chunks, the predictor's single steps) run on the scan cells, as in
 # the JAX package
 MIN_KERNEL_STEPS = 16
+# the JAX package's training LSTM kernels (D, E) take R only up to this
+# many bytes in the compute dtype (modules.py:_pallas_train_eligible)
+MAX_TRAIN_KERNEL_R_BYTES = 9 * 2**20
+
+
+def dropout(x, rate: float, generator):
+    """flax nn.Dropout in training: zero with probability `rate`, scale
+    the rest by 1 / (1 - rate); the mask comes from `generator`."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    return torch.where(u.to(x.device) < keep, x / keep, torch.zeros_like(x))
 
 
 def _xavier_uniform(shape, gen):
@@ -146,14 +167,17 @@ class RNNLayer(nn.Module):
     """One recurrent layer with a learnable initial state h0
     [n_state, 1, H].
 
-    Dispatch as in the JAX package: an LSTM in pack mode over at least
-    MIN_KERNEL_STEPS steps runs on the sequence kernel (the int8 one for
-    quantized cells; their plain twins for CPU tensors); everything else
-    runs on the scan cells."""
+    Dispatch as in the JAX package: in eval, an LSTM in pack mode over at
+    least MIN_KERNEL_STEPS steps runs on the sequence kernel (the int8 one
+    for quantized cells; their plain twins for CPU tensors); in training
+    everything runs on the differentiable scan cells, except where the
+    JAX package would take its training kernels D and E
+    (`use_train_kernel`): off the CPU that raises, since D and E are not
+    ported yet (on the CPU the scan cells are their plain twin)."""
 
     def __init__(self, input_sz, hidden_sz, gen, *, rnn_type="LSTM",
                  compute_dtype=None, length_mode="pack", use_kernel=False,
-                 quantized=False):
+                 quantized=False, use_train_kernel=False):
         super().__init__()
         if rnn_type not in rnn_ops.CELLS:
             raise NotImplementedError(
@@ -163,6 +187,7 @@ class RNNLayer(nn.Module):
         self.compute_dtype = compute_dtype
         self.length_mode = length_mode
         self.use_kernel = use_kernel
+        self.use_train_kernel = use_train_kernel
         self.n_state = rnn_ops.CELLS[rnn_type][1]
         self.cell = Cell(rnn_type, input_sz, hidden_sz, gen, quantized=quantized)
         self.h0 = nn.Parameter(torch.zeros(self.n_state, 1, hidden_sz))
@@ -172,14 +197,30 @@ class RNNLayer(nn.Module):
                      for i in range(self.n_state))
 
     def kernel_eligible(self, x) -> bool:
-        return (self.use_kernel and self.rnn_type == "LSTM"
-                and self.length_mode == "pack"
+        return (self.use_kernel and not self.training
+                and self.rnn_type == "LSTM" and self.length_mode == "pack"
                 and x.shape[1] >= MIN_KERNEL_STEPS)
+
+    def train_kernel_eligible(self, x) -> bool:
+        """Where the JAX package trains through its Pallas kernels D/E."""
+        itemsize = 2 if self.compute_dtype == torch.bfloat16 else 4
+        return (self.use_train_kernel and self.training
+                and self.rnn_type == "LSTM" and self.length_mode == "pack"
+                and x.shape[1] >= MIN_KERNEL_STEPS
+                and self.hidden_sz * 4 * self.hidden_sz * itemsize
+                <= MAX_TRAIN_KERNEL_R_BYTES)
 
     def forward(self, x, state=None, lengths=None):
         if state is None:
             state = self.initial_state(x.shape[0])
         params = self.cell.params()
+        if x.device.type != "cpu" and self.train_kernel_eligible(x):
+            raise NotImplementedError(
+                "libreasr_tpu_torch: the LSTM training kernels D and E "
+                "(ops/pallas/lstm.py _train_fwd_call/_train_bwd_call) are not "
+                "ported yet (ROADMAP queue 2); set "
+                "model.encoder.use_pallas_train: false to train on the scan "
+                "cells")
         if self.kernel_eligible(x):
             return lstm_pack(x, tuple(state), params, lengths)
         scan = rnn_ops.lstm_scan if self.rnn_type == "LSTM" else rnn_ops.gru_scan
@@ -189,20 +230,38 @@ class RNNLayer(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval BatchNorm over features with running statistics (the JAX
-    package's MaskedBatchNorm at eval: the mask only matters in
-    training)."""
+    """BatchNorm over features (the JAX package's MaskedBatchNorm). In
+    eval it normalises with the running statistics; in training with the
+    batch statistics of the valid frames (t < length), and moves the
+    running statistics to m * running + (1 - m) * batch, m = momentum."""
 
-    def __init__(self, feat, eps: float = 1e-5):
+    def __init__(self, feat, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(feat))
         self.bias = nn.Parameter(torch.zeros(feat))
         self.register_buffer("mean", torch.zeros(feat))
         self.register_buffer("var", torch.ones(feat))
 
-    def forward(self, x):
-        y = (x - self.mean) * torch.rsqrt(self.var + self.eps)
+    def forward(self, x, lengths=None):
+        mean, var = self.mean, self.var
+        if self.training:
+            xf = x.float()
+            if lengths is None:
+                mean = xf.mean(dim=(0, 1))
+                var = xf.var(dim=(0, 1), unbiased=False)
+            else:
+                mask = (torch.arange(x.shape[1], device=x.device)[None, :]
+                        < lengths[:, None]).float()[..., None]
+                denom = torch.clamp(mask.sum(), min=1.0)
+                mean = (xf * mask).sum(dim=(0, 1)) / denom
+                var = ((xf - mean) ** 2 * mask).sum(dim=(0, 1)) / denom
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return (y * self.scale + self.bias).to(x.dtype)
 
 
@@ -213,7 +272,8 @@ class RNNStack(nn.Module):
     def __init__(self, input_sz, hidden_sz, num_layers, gen, *,
                  rnn_type="LSTM", reduction_indices=(), reduction_factors=(),
                  rezero=False, norm="batch", compute_dtype=None,
-                 length_mode="pack", use_kernel=False, quantized=False):
+                 length_mode="pack", use_kernel=False, quantized=False,
+                 use_train_kernel=False):
         super().__init__()
         self.num_layers = num_layers
         self.reduction = dict(zip(reduction_indices, reduction_factors))
@@ -224,6 +284,7 @@ class RNNStack(nn.Module):
                 in_sz, hidden_sz, gen, rnn_type=rnn_type,
                 compute_dtype=compute_dtype, length_mode=length_mode,
                 use_kernel=use_kernel, quantized=quantized,
+                use_train_kernel=use_train_kernel,
             ))
             if norm == "batch":
                 self.add_module(f"norm{i}", MaskedBatchNorm(hidden_sz))
@@ -245,7 +306,9 @@ class RNNStack(nn.Module):
                 x, state=None if state is None else state[i], lengths=lengths
             )
             norm = getattr(self, f"norm{i}", None)
-            if norm is not None:
+            if isinstance(norm, MaskedBatchNorm):
+                x = norm(x, lengths)
+            elif norm is not None:
                 x = norm(x)
             if self.rezero and residual is not None and residual.shape == x.shape:
                 x = x + residual
@@ -255,14 +318,15 @@ class RNNStack(nn.Module):
 
 
 class Encoder(nn.Module):
-    """input LayerNorm -> RNN stack -> projection (dropout is a no-op
-    at eval)."""
+    """input LayerNorm -> RNN stack -> dropout (training only) ->
+    projection."""
 
     def __init__(self, feature_sz, hidden_sz, out_sz, gen, *, num_layers=6,
                  rnn_type="LSTM", norm="batch", reduction_indices=(),
                  reduction_factors=(), compute_dtype=None, use_kernel=False,
-                 quantized=False):
+                 quantized=False, dropout=0.0, use_train_kernel=False):
         super().__init__()
+        self.dropout = dropout
         self.input_norm = LayerNorm(feature_sz)
         self.rnn_stack = RNNStack(
             feature_sz, hidden_sz, num_layers, gen, rnn_type=rnn_type,
@@ -270,13 +334,16 @@ class Encoder(nn.Module):
             reduction_factors=reduction_factors, compute_dtype=compute_dtype,
             length_mode="haste" if rnn_type == "NBRC" else "pack",
             use_kernel=use_kernel, quantized=quantized,
+            use_train_kernel=use_train_kernel,
         )
         self.proj = Dense(hidden_sz, out_sz, gen) if hidden_sz != out_sz else None
 
-    def forward(self, x, state=None, lengths=None):
+    def forward(self, x, state=None, lengths=None, generator=None):
         x = x.reshape(x.shape[0], x.shape[1], -1)
         x = self.input_norm(x)
         x, state = self.rnn_stack(x, state=state, lengths=lengths)
+        if self.training:
+            x = dropout(x, self.dropout, generator)
         if self.proj is not None:
             x = self.proj(x)
         return x, state
@@ -287,9 +354,10 @@ class Predictor(nn.Module):
 
     def __init__(self, vocab_sz, embed_sz, hidden_sz, out_sz, gen, *,
                  num_layers=2, blank=0, rnn_type="NBRC", norm="batch",
-                 compute_dtype=None, quantized=False):
+                 compute_dtype=None, quantized=False, dropout=0.0):
         super().__init__()
         self.blank = blank
+        self.dropout = dropout
         self.embed = Embed(vocab_sz, embed_sz, gen)
         self.ffn = Dense(embed_sz, hidden_sz, gen) if embed_sz != hidden_sz else None
         self.rnn_stack = RNNStack(
@@ -300,12 +368,14 @@ class Predictor(nn.Module):
         )
         self.proj = Dense(hidden_sz, out_sz, gen) if hidden_sz != out_sz else None
 
-    def forward(self, y, state=None, lengths=None):
+    def forward(self, y, state=None, lengths=None, generator=None):
         emb = self.embed(y)
         emb = torch.where((y == self.blank)[..., None], torch.zeros_like(emb), emb)
         if self.ffn is not None:
             emb = self.ffn(emb)
         x, state = self.rnn_stack(emb, state=state, lengths=lengths)
+        if self.training:
+            x = dropout(x, self.dropout, generator)
         if self.proj is not None:
             x = self.proj(x)
         return x, state

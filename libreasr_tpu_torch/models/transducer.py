@@ -1,6 +1,8 @@
-"""RNN-Transducer (eval): encoder, predictor and joint, with the lattice
+"""RNN-Transducer: encoder, predictor and joint, with the lattice
 forward and the decode-facing endpoints of the JAX package's
-models/transducer.py."""
+models/transducer.py. A model starts in eval mode, as the JAX modules
+default to train=False; `train()` switches it to the training path
+(training/learner.py)."""
 
 from __future__ import annotations
 
@@ -30,12 +32,28 @@ class TransducerConfig:
     enc_reduction_factors: tuple = ()
     # the encoder's LSTM layers run on the sequence kernel (T >= 16)
     enc_use_kernel: bool = True
+    # training would run the JAX package's LSTM training kernels D/E,
+    # not ported yet: on CUDA that raises (modules.RNNLayer)
+    enc_use_train_kernel: bool = True
+    enc_dropout: float = 0.05
     pred_num_layers: int = 2
     pred_rnn_type: str = "NBRC"
     pred_norm: str = "batch"
+    pred_dropout: float = 0.05
     compute_dtype: Any = None
     # the towers' cell matrices are int8 (a bundle's "quantized_cells")
     quantized_cells: bool = False
+    # cross-batch state carry and tmp-BOS probabilities (training)
+    use_tmp_state_pcent: float = 0.99
+    use_tmp_bos: bool = False
+    use_tmp_bos_pcent: float = 0.2
+
+    @property
+    def reduction_factor(self) -> int:
+        r = 1
+        for f in self.enc_reduction_factors:
+            r *= f
+        return r
 
     @classmethod
     def from_config(cls, conf: dict) -> "TransducerConfig":
@@ -46,7 +64,12 @@ class TransducerConfig:
                 "libreasr_tpu_torch: LayerNorm-LSTM cells are not ported yet")
         if m.get("zoneout", enc.get("zoneout", 0.0)):
             raise NotImplementedError(
-                "libreasr_tpu_torch: eval zoneout is not ported yet")
+                "libreasr_tpu_torch: zoneout is not ported yet (ROADMAP "
+                "queue 2, with kernels D and E)")
+        if m.get("dropconnect", enc.get("dropconnect", 0.0)):
+            raise NotImplementedError(
+                "libreasr_tpu_torch: DropConnect is not ported yet (ROADMAP "
+                "queue 2, with kernels D and E)")
         if m["joint"]["method"] != "concat":
             raise NotImplementedError(
                 "libreasr_tpu_torch: only the concat joint is ported")
@@ -64,11 +87,17 @@ class TransducerConfig:
             enc_reduction_indices=tuple(enc.get("reduction_indices", ())),
             enc_reduction_factors=tuple(enc.get("reduction_factors", ())),
             enc_use_kernel=enc.get("use_pallas", True),
+            enc_use_train_kernel=enc.get("use_pallas_train", True),
+            enc_dropout=enc.get("dropout", 0.05),
             pred_num_layers=pred["num_layers"],
             pred_rnn_type=pred["rnn_type"],
             pred_norm=pred.get("norm", "batch"),
+            pred_dropout=pred.get("dropout", 0.05),
             compute_dtype=torch.bfloat16 if compute == "bfloat16" else None,
             quantized_cells=bool(conf.get("quantized_cells", False)),
+            use_tmp_state_pcent=enc.get("use_tmp_state_pcent", 0.99),
+            use_tmp_bos=m.get("use_tmp_bos", False),
+            use_tmp_bos_pcent=m.get("use_tmp_bos_pcent", 0.2),
         )
 
 
@@ -87,42 +116,46 @@ class Transducer(nn.Module):
             norm=c.enc_norm, reduction_indices=c.enc_reduction_indices,
             reduction_factors=c.enc_reduction_factors,
             compute_dtype=c.compute_dtype, use_kernel=c.enc_use_kernel,
-            quantized=c.quantized_cells,
+            quantized=c.quantized_cells, dropout=c.enc_dropout,
+            use_train_kernel=c.enc_use_train_kernel,
         )
         self.predictor = Predictor(
             c.vocab_sz, c.embed_sz, c.hidden_sz, c.out_sz, gen,
             num_layers=c.pred_num_layers, blank=c.blank,
             rnn_type=c.pred_rnn_type, norm=c.pred_norm,
             compute_dtype=c.compute_dtype, quantized=c.quantized_cells,
+            dropout=c.pred_dropout,
         )
         self.joint = Joint(c.out_sz, c.joint_sz, c.vocab_sz, gen,
                            compute_dtype=c.compute_dtype)
         self.eval()
-        self.requires_grad_(False)  # the port is eval-only
         if device is not None:
             self.to(device)
 
     def forward(self, x, y, xl=None, yl=None, bos_tokens=None,
-                enc_state=None, pred_state=None):
+                enc_state=None, pred_state=None, generator=None):
         """Lattice forward. x: [N, T, F]; y: [N, U] labels; xl/yl:
-        lengths; bos_tokens: optional [N, 1] replacing the BOS column.
+        lengths; bos_tokens: optional [N, 1] replacing the BOS column;
+        generator: the dropout masks' source in training.
         Returns (logits [N, T, U+1, V], (enc_state, pred_state))."""
-        enc_out, enc_state = self.encoder(x, state=enc_state, lengths=xl)
+        enc_out, enc_state = self.encoder(x, state=enc_state, lengths=xl,
+                                          generator=generator)
         if bos_tokens is None:
             bos_tokens = torch.full((y.shape[0], 1), self.cfg.bos,
                                     dtype=y.dtype, device=y.device)
         yconcat = torch.cat([bos_tokens, y], dim=1)
         pred_out, pred_state = self.predictor(yconcat, state=pred_state,
-                                              lengths=yl)
+                                              lengths=yl, generator=generator)
         logits = self.joint(pred_out[:, None, :, :].float(),
                             enc_out[:, :, None, :].float())
         return logits, (enc_state, pred_state)
 
-    def encode(self, x, state=None, lengths=None):
-        return self.encoder(x, state=state, lengths=lengths)
+    def encode(self, x, state=None, lengths=None, generator=None):
+        return self.encoder(x, state=state, lengths=lengths, generator=generator)
 
-    def predict(self, y, state=None, lengths=None):
-        return self.predictor(y, state=state, lengths=lengths)
+    def predict(self, y, state=None, lengths=None, generator=None):
+        return self.predictor(y, state=state, lengths=lengths,
+                              generator=generator)
 
     def joint_step(self, h_pred, h_enc):
         return self.joint(h_pred, h_enc)

@@ -1,4 +1,4 @@
-"""Log-mel frontend on a padded batch (eval path).
+"""Log-mel frontend on a padded batch, with SpecAugment for training.
 
 Same numerics as the JAX package's ops/frontend.py: n_fft 1024, 25 ms
 Hann window, 10 ms hop, center reflect padding, power spectrogram as
@@ -8,12 +8,18 @@ with stride 8 (feature-major, stack-minor) into 1280-dim frames.
 The DFT matmuls run in full float32: the package turns TF32 off on
 import, and the JAX package pins the same products to
 Precision.HIGHEST.
+
+SpecAugment (the JAX package's cut_frames, mask_time, mask_freq) is
+split into a draw, from an explicit torch.Generator, and an apply that
+takes the drawn integers: a torch generator cannot give jax.random's
+bits, so tests hand the JAX package's draws to the apply functions.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -110,6 +116,49 @@ def stacked_length(t_frames, *, n_stack: int = 10, downsample: int = 8):
     return torch.clamp((t_frames - n_stack) // downsample + 1, min=0)
 
 
+# ---------------------------------------------------------------------------
+# SpecAugment: draws and their application (batched, mask-based)
+# ---------------------------------------------------------------------------
+
+
+class AugmentDraws(NamedTuple):
+    """The random integers of one SpecAugment pass over a batch."""
+
+    front: torch.Tensor | None   # [N] frames cut at the front
+    back: torch.Tensor | None    # [N] frames cut at the back
+    time: torch.Tensor | None    # [N, time_masks] time mask starts
+    freq: torch.Tensor | None    # [N, freq_masks] frequency mask starts
+
+
+def cut_frames(x, lengths, front, back):
+    """Roll each row left by `front` frames and shorten it by front +
+    back (at least 1 frame stays). x: [N, T, F]. Returns (x, lengths)."""
+    t = x.shape[1]
+    idx = (torch.arange(t, device=x.device)[None, :] + front[:, None]) % t
+    x = torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+    return x, torch.clamp(lengths - front - back, min=1)
+
+
+def _mask_axis(x, starts, size: int, axis: int):
+    """Fill [start, start + size) of `axis` with each row's mean over
+    time and frequency; starts: [N, num_masks]."""
+    fill = x.mean(dim=(1, 2), keepdim=True)
+    pos = torch.arange(x.shape[axis], device=x.device)
+    hit = ((pos[None, None, :] >= starts[:, :, None])
+           & (pos[None, None, :] < starts[:, :, None] + size)).any(dim=1)
+    shape = [x.shape[0], 1, 1]
+    shape[axis] = x.shape[axis]
+    return torch.where(hit.reshape(shape), fill, x)
+
+
+def mask_time(x, starts, size: int):
+    return _mask_axis(x, starts, size, 1)
+
+
+def mask_freq(x, starts, size: int):
+    return _mask_axis(x, starts, size, 2)
+
+
 @dataclass(frozen=True)
 class FrontendConfig:
     sr: int = 16000
@@ -119,6 +168,13 @@ class FrontendConfig:
     n_mels: int = 128
     n_stack: int = 10
     downsample: int = 8
+    # SpecAugment
+    cut_max_front: int = 1
+    cut_max_back: int = 1
+    time_masks: int = 4
+    time_mask_size: int = 2
+    freq_masks: int = 4
+    freq_mask_size: int = 4
 
     @property
     def hop(self) -> int:
@@ -130,6 +186,10 @@ class FrontendConfig:
 
     @classmethod
     def from_config(cls, conf: dict) -> "FrontendConfig":
+        """SpecAugment follows the config's feature stages, as in the JAX
+        package: a stage present turns its augmentation on with its
+        args, a stage absent turns it off; without a feature list the
+        defaults stand."""
         if conf.get("deltas", 0):
             raise NotImplementedError(
                 "libreasr_tpu_torch: delta features are not ported yet"
@@ -142,29 +202,88 @@ class FrontendConfig:
             win_length=conf.get("win_length", 0.025),
             hop_length=conf.get("hop_length", 0.01),
         )
-        for stage in (conf.get("transforms") or {}).get("features") or ():
-            if (stage or {}).get("name") == "StackDownsample":
-                args = stage.get("args") or {}
-                kw.update(n_stack=args.get("n_stack", 10),
-                          downsample=args.get("downsample", 8))
+        feats = (conf.get("transforms") or {}).get("features")
+        if feats:
+            def stage(name):
+                for st in feats:
+                    if (st or {}).get("name") == name:
+                        return st.get("args") or {}
+                return None
+
+            cut, mt, mf = stage("CutFrames"), stage("MaskTime"), stage("MaskFreq")
+            kw.update(
+                cut_max_front=cut.get("max_front", 1) if cut is not None else 0,
+                cut_max_back=cut.get("max_back", 1) if cut is not None else 0,
+                time_masks=mt.get("num_masks", 4) if mt is not None else 0,
+                time_mask_size=mt.get("size", 2) if mt is not None else 0,
+                freq_masks=mf.get("num_masks", 4) if mf is not None else 0,
+                freq_mask_size=mf.get("size", 4) if mf is not None else 0,
+            )
+            sd = stage("StackDownsample")
+            if sd is not None:
+                kw.update(n_stack=sd.get("n_stack", 10),
+                          downsample=sd.get("downsample", 8))
         return cls(**kw)
 
     def out_length(self, n_samples):
         return stacked_length(num_frames(n_samples, self.hop),
                               n_stack=self.n_stack, downsample=self.downsample)
 
+    def draw_augment(self, n: int, t: int, generator) -> AugmentDraws:
+        """SpecAugment's integers for a batch of n rows of t mel frames,
+        from `generator` on its device, with jax.random.randint's ranges."""
+        dev = generator.device
+
+        def randint(high, shape):
+            return torch.randint(0, high, shape, generator=generator, device=dev)
+
+        cut = self.cut_max_front or self.cut_max_back
+        return AugmentDraws(
+            front=randint(self.cut_max_front + 1, (n,)) if cut else None,
+            back=randint(self.cut_max_back + 1, (n,)) if cut else None,
+            time=(randint(max(t - self.time_mask_size, 1), (n, self.time_masks))
+                  if self.time_masks and self.time_mask_size else None),
+            freq=(randint(max(self.n_mels - self.freq_mask_size, 1),
+                          (n, self.freq_masks))
+                  if self.freq_masks and self.freq_mask_size else None),
+        )
+
+
+def spec_augment(mel, frame_len, cfg: FrontendConfig, draws: AugmentDraws):
+    """Cut frames, then mask time, then frequency, as the JAX package's
+    features_batch(augment=True) does. mel: [N, T, n_mels]."""
+    if draws.front is not None:
+        mel, frame_len = cut_frames(mel, frame_len, draws.front, draws.back)
+    if draws.time is not None:
+        mel = mask_time(mel, draws.time, cfg.time_mask_size)
+    if draws.freq is not None:
+        mel = mask_freq(mel, draws.freq, cfg.freq_mask_size)
+    return mel, frame_len
+
 
 def features_batch(audio: torch.Tensor, sample_lengths: torch.Tensor,
-                   cfg: FrontendConfig):
+                   cfg: FrontendConfig, *, augment: bool = False,
+                   generator=None, draws: AugmentDraws | None = None):
     """audio: [N, S] float pcm, or int16 pcm (scaled by 1/32768 here);
-    sample_lengths: [N] integer. Returns (features [N, T', feature_sz],
-    frame_lengths [N] int64, clipped to [1, T'])."""
+    sample_lengths: [N] integer. With `augment`, SpecAugment runs on the
+    log-mel frames with `draws`, or with integers drawn from `generator`.
+    Returns (features [N, T', feature_sz], frame_lengths [N] int64,
+    clipped to [1, T'])."""
     if not audio.is_floating_point():
         audio = audio.float() * (1.0 / 32768.0)
     mel = log_mel_spectrogram(
         audio, sr=cfg.sr, n_fft=cfg.n_fft, win_length=cfg.win_length,
         hop_length=cfg.hop_length, n_mels=cfg.n_mels,
     )
+    frame_len = num_frames(sample_lengths.long(), cfg.hop)
+    if augment:
+        if draws is None:
+            if generator is None:
+                raise ValueError("features_batch: augment needs a generator "
+                                 "or draws")
+            draws = cfg.draw_augment(mel.shape[0], mel.shape[1], generator)
+        mel, frame_len = spec_augment(mel, frame_len, cfg, draws)
     feats = stack_downsample(mel, n_stack=cfg.n_stack, downsample=cfg.downsample)
-    out_len = cfg.out_length(sample_lengths.long())
+    out_len = stacked_length(frame_len, n_stack=cfg.n_stack,
+                             downsample=cfg.downsample)
     return feats, torch.clamp(out_len, 1, feats.shape[1])

@@ -1,4 +1,4 @@
-"""Recurrent cells as plain PyTorch loops over time (eval only).
+"""Recurrent cells as plain PyTorch loops over time, differentiable.
 
 Parameter layouts are the JAX package's (haste-compatible), not
 nn.LSTM/nn.GRU's:

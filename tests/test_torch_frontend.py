@@ -111,3 +111,100 @@ def test_pieces_and_config():
     (jf, jl), (tf, tl) = _both(audio, np.array([6000, 3000]), conf)
     np.testing.assert_array_equal(tl, jl)
     np.testing.assert_allclose(tf, jf, rtol=0, atol=ATOL)
+
+
+def _jax_draws(key, n, t, cfg):
+    """The integers JAX's features_batch(augment=True) draws from `key`."""
+    import jax
+
+    k1, k2, k3 = jax.random.split(key, 3)
+    kf, kb = jax.random.split(k1)
+    return tfe.AugmentDraws(*(torch.tensor(np.asarray(a)).long() for a in (
+        jax.random.randint(kf, (n,), 0, cfg.cut_max_front + 1),
+        jax.random.randint(kb, (n,), 0, cfg.cut_max_back + 1),
+        jax.random.randint(k2, (n, cfg.time_masks), 0,
+                           max(t - cfg.time_mask_size, 1)),
+        jax.random.randint(k3, (n, cfg.freq_masks), 0,
+                           max(cfg.n_mels - cfg.freq_mask_size, 1)),
+    )))
+
+
+AUG_CONFS = [
+    {},
+    {"transforms": {"features": [
+        {"name": "LogMelSpectrogram"},
+        {"name": "CutFrames", "args": {"max_front": 3, "max_back": 2}},
+        {"name": "MaskTime", "args": {"num_masks": 2, "size": 5}},
+        {"name": "MaskFreq", "args": {"num_masks": 3, "size": 7}},
+        {"name": "StackDownsample", "args": {"n_stack": 10, "downsample": 8}},
+    ]}},
+]
+
+
+@pytest.mark.parametrize("conf", AUG_CONFS, ids=["defaults", "custom"])
+def test_spec_augment_with_jax_draws_matches(conf):
+    """JAX's draws applied by the port: the same frames cut, the same
+    time and frequency bands filled with each row's mean, the same
+    lengths. Tolerance ATOL, the frontend's own (DFT summation order)."""
+    import jax
+
+    rng = np.random.default_rng(7)
+    audio = (rng.standard_normal((3, 9000)) * 0.2).astype(np.float32)
+    lengths = np.array([9000, 6000, 2500])
+    audio *= np.arange(9000)[None, :] < lengths[:, None]
+    jcfg = jfe.FrontendConfig.from_config(conf)
+    tcfg = tfe.FrontendConfig.from_config(conf)
+    for k in ("cut_max_front", "cut_max_back", "time_masks", "time_mask_size",
+              "freq_masks", "freq_mask_size"):
+        assert getattr(tcfg, k) == getattr(jcfg, k), k
+    key = jax.random.PRNGKey(11)
+    jf, jl = jfe.features_batch(audio, lengths, jcfg, rng=key, augment=True)
+    t_mel = int(jfe.num_frames(9000, jcfg.hop))
+    draws = _jax_draws(key, 3, t_mel, tcfg)
+    tf, tl = tfe.features_batch(torch.from_numpy(audio), torch.from_numpy(lengths),
+                                tcfg, augment=True, draws=draws)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=0, atol=ATOL)
+    plain, _ = tfe.features_batch(torch.from_numpy(audio), torch.from_numpy(lengths),
+                                  tcfg)
+    assert not np.allclose(plain.numpy(), tf.numpy())
+
+
+def test_spec_augment_pieces_and_draws():
+    """cut_frames, mask_time and mask_freq equal JAX's on the same
+    integers (the fill is a float32 mean, summed in another order: 1e-6);
+    the port's own draws stay in JAX's ranges."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((4, 30, 16)).astype(np.float32)
+    lengths = np.array([30, 20, 3, 1])
+    front, back = np.array([0, 1, 2, 1]), np.array([1, 0, 2, 1])
+    starts_t = rng.integers(0, 28, (4, 3))
+    starts_f = rng.integers(0, 12, (4, 2))
+    tx, tl = tfe.cut_frames(torch.from_numpy(x), torch.from_numpy(lengths),
+                            torch.from_numpy(front), torch.from_numpy(back))
+    t_idx = (np.arange(30)[None, :] + front[:, None]) % 30
+    jx = np.take_along_axis(x, t_idx[:, :, None], axis=1)
+    np.testing.assert_array_equal(tx.numpy(), jx)
+    np.testing.assert_array_equal(tl.numpy(), np.maximum(lengths - front - back, 1))
+    for fn, jfn, starts, size, axis in (
+            (tfe.mask_time, jfe._mask_axis, starts_t, 2, 1),
+            (tfe.mask_freq, jfe._mask_axis, starts_f, 4, 2)):
+        got = fn(torch.from_numpy(x), torch.from_numpy(starts), size).numpy()
+        pos = np.arange(x.shape[axis])
+        hit = ((pos[None, None] >= starts[:, :, None])
+               & (pos[None, None] < starts[:, :, None] + size)).any(1)
+        shape = [4, 1, 1]
+        shape[axis] = x.shape[axis]
+        want = np.where(hit.reshape(shape), np.asarray(jnp.mean(x, axis=(1, 2),
+                                                                keepdims=True)), x)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    cfg = tfe.FrontendConfig()
+    d = cfg.draw_augment(64, 50, torch.Generator().manual_seed(0))
+    assert d.front.max() <= 1 and d.back.max() <= 1 and d.front.min() >= 0
+    assert d.time.shape == (64, 4) and 0 <= d.time.min() and d.time.max() < 48
+    assert d.freq.shape == (64, 4) and d.freq.max() < 124
+    off = tfe.FrontendConfig(cut_max_front=0, cut_max_back=0, time_masks=0,
+                             freq_masks=0)
+    assert off.draw_augment(2, 50, torch.Generator()) == (None, None, None, None)

@@ -6,6 +6,9 @@
   failed kernel build raises;
 - a library is named by the hash of its source and every header, so an
   edited header never serves a stale build;
+- a model in training never runs the eval kernels, and where the JAX
+  package would train through its kernels D and E (not ported yet) the
+  port raises off the CPU instead of taking the scan silently;
 - on a machine with a card, the kernels match their twins (marked
   `cuda`, skipped here)."""
 
@@ -20,8 +23,11 @@ import torch
 
 import libreasr_tpu_torch
 from libreasr_tpu_torch.api import ASRBundle
+from libreasr_tpu_torch.config import parse_and_apply_config
 from libreasr_tpu_torch.ops.kernels import build
+from libreasr_tpu_torch.ops.kernels import joint_lp as kjoint
 from libreasr_tpu_torch.ops.kernels import lstm as klstm
+from libreasr_tpu_torch.training.learner import Learner
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "libreasr_tpu_torch")
@@ -56,8 +62,11 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'libreasr_tpu'))\n"
         "assert len(mods) >= 16, mods\n"
-        "assert {'libreasr_tpu_torch.ops.quant', 'libreasr_tpu_torch.data.bpe'}"
-        " <= set(mods), mods\n"
+        "assert {'libreasr_tpu_torch.ops.quant', 'libreasr_tpu_torch.data.bpe',"
+        " 'libreasr_tpu_torch.ops.rnnt_loss', 'libreasr_tpu_torch.ops.fused_loss',"
+        " 'libreasr_tpu_torch.ops.kernels.joint_lp',"
+        " 'libreasr_tpu_torch.training.learner',"
+        " 'libreasr_tpu_torch.training.optimizers'} <= set(mods), mods\n"
         "print('OK', len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -77,6 +86,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
         ASRBundle.from_config(seed=0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ASRBundle.from_config({"quantized_cells": True}, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Learner.from_config(parse_and_apply_config(), seed=0)
     assert libreasr_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
@@ -90,6 +101,14 @@ def test_wrapper_has_no_fallback_off_the_cpu():
     rq = torch.empty((4, 16), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         klstm.lstm_seq_int8(x, rq, torch.empty((1, 16), device="meta"), h, h)
+    enc, pred = torch.empty((2, 5, 8), device="meta"), torch.empty((2, 4, 8), device="meta")
+    w, b = torch.empty((8, 6), device="meta"), torch.empty((6,), device="meta")
+    lab = torch.empty((2, 3), dtype=torch.int32, device="meta")
+    g = torch.empty((2, 5, 4), device="meta")
+    for fn, args in ((kjoint.joint_lp_fwd, ()), (kjoint.joint_lp_dx, (g, g[..., :3])),
+                     (kjoint.joint_lp_dw, (g, g[..., :3], g))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(enc, pred, w, b, lab, *args)
 
 
 def test_library_name_hashes_headers(monkeypatch, tmp_path):
@@ -104,7 +123,7 @@ def test_library_name_hashes_headers(monkeypatch, tmp_path):
     assert len({before, with_header, build.library_path("k")}) == 3
 
 
-@pytest.mark.parametrize("name", ["lstm_seq", "lstm_seq_int8"])
+@pytest.mark.parametrize("name", ["lstm_seq", "lstm_seq_int8", "joint_lp"])
 def test_failed_build_raises(name, monkeypatch, tmp_path):
     nvcc = tmp_path / "bin" / "nvcc"
     nvcc.parent.mkdir()
@@ -171,3 +190,81 @@ def test_int8_kernel_matches_twin_on_cuda(n, t, h):
         assert float(d.max()) <= 4e-3 and float(d.mean()) <= 2e-4
     with pytest.raises(ValueError, match="rq_packed"):
         klstm.lstm_seq_int8(wx, r.q, r.scale, h0, c0)
+
+
+def test_training_kernel_path_raises_off_the_cpu():
+    """use_pallas_train (the JAX default) in training off the CPU names
+    the missing kernels D and E; in eval, or on the CPU, it does not."""
+    from libreasr_tpu_torch.models.modules import RNNLayer
+
+    layer = RNNLayer(8, 16, torch.Generator().manual_seed(0),
+                     use_train_kernel=True).to("meta").train()
+    x = torch.empty((2, 16, 8), device="meta")
+    with pytest.raises(NotImplementedError, match="kernels D and E"):
+        layer(x)
+    short = torch.empty((2, 15, 8), device="meta")  # below the kernel's T
+    assert layer(short)[0].shape == (2, 15, 16)
+    cpu = RNNLayer(8, 16, torch.Generator().manual_seed(0),
+                   use_train_kernel=True).train()
+    assert cpu(torch.zeros((2, 16, 8)))[0].shape == (2, 16, 16)
+
+
+def test_training_encoder_never_runs_the_eval_kernels(monkeypatch):
+    """An encoder whose layers take the sequence kernels in eval trains
+    through the scan cells: with the kernel wrappers made to raise, a
+    training forward still runs, and its gradient reaches every cell
+    matrix, bias and learnable h0."""
+    from libreasr_tpu_torch.models.modules import Encoder
+
+    def boom(*a, **k):
+        raise AssertionError("eval kernel called")
+
+    monkeypatch.setattr(klstm, "lstm_seq", boom)
+    monkeypatch.setattr(klstm, "lstm_seq_int8", boom)
+    enc = Encoder(12, 16, 10, torch.Generator().manual_seed(0), num_layers=2,
+                  use_kernel=True, dropout=0.0)
+    x = torch.randn((3, 20, 12), generator=torch.Generator().manual_seed(1))
+    lengths = torch.tensor([20, 17, 16])
+    with pytest.raises(AssertionError, match="eval kernel"):
+        enc.eval()(x, lengths=lengths)
+    out, _ = enc.train()(x, lengths=lengths)
+    out.pow(2).sum().backward()
+    for name, p in enc.named_parameters():
+        if ".layer" in name:
+            assert p.grad is not None and p.grad.abs().max() > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,t,u1,j,v", [(3, 13, 9, 96, 40), (2, 11, 101, 200, 300)])
+def test_joint_kernels_match_twins_on_cuda(n, t, u1, j, v, w_dtype):
+    """F, G, H against their twins; tolerances as in chip_smoke.py
+    (JOINT_LP_TOL, JOINT_GRAD_TOL: summation order and the bf16
+    rounding flips it can cause)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(n + t + u1)
+
+    def rnd(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            dtype=torch.float32).cuda()
+
+    enc, pred = rnd(n, t, j, scale=0.5), rnd(n, u1, j, scale=0.5)
+    w = rnd(j, v, scale=j ** -0.5).to(getattr(torch, w_dtype))
+    b = rnd(v, scale=0.1)
+    lab = torch.tensor(rng.integers(0, v, (n, u1 - 1)), dtype=torch.int32).cuda()
+    lab[0, 0] = 0
+    gb, ge = rnd(n, t, u1, scale=0.1), rnd(n, t, u1 - 1, scale=0.1)
+    before = dict(kjoint.LAUNCHES)
+    got = [*kjoint.joint_lp_fwd(enc, pred, w, b, lab),
+           *kjoint.joint_lp_dx(enc, pred, w, b, lab, gb, ge)]
+    got += kjoint.joint_lp_dw(enc, pred, w, b, lab, gb, ge, got[4])
+    want = [*kjoint.joint_lp_fwd_reference(enc, pred, w, b, lab),
+            *kjoint.joint_lp_dx_reference(enc, pred, w, b, lab, gb, ge)]
+    want += kjoint.joint_lp_dw_reference(enc, pred, w, b, lab, gb, ge, want[4])
+    torch.cuda.synchronize()
+    assert all(kjoint.LAUNCHES[k] == before[k] + 1 for k in before)
+    for i, (a, r) in enumerate(zip(got, want)):
+        err = float((a - r).abs().max())
+        bound = 2e-3 if i in (0, 1, 4) else 2e-3 * float(r.abs().max())
+        assert err <= bound, (i, err)

@@ -84,7 +84,7 @@ def _pair(conf, seed):
 
 def _np(a):
     if isinstance(a, torch.Tensor):
-        return a.float().numpy()
+        return a.detach().float().numpy()
     return np.asarray(a, np.float32)
 
 
