@@ -39,14 +39,32 @@ Phases, one line each (any failure raises and exits non-zero):
      a label equal to the blank (tolerances JOINT_*); then
      rnnt_loss_fused on the kernels against its chunked path on the card
      (loss relative error < 1e-3, every gradient's cosine > 0.999);
- 11. train_full_width: the training main path, 4 Learner steps of the
-     config/base.yaml model (bf16 compute, encoder on its scan cells,
-     accumulation over 2 batches) on 16 ragged 2.5-4 s clips: losses
-     finite, F/G/H once a step each, A/B/C never, parameters updated on
-     steps 2 and 4 only; step time and its split, peak memory;
- 12. train_small_cuda_vs_cpu: 2 steps of a small float32 model from the
-     same weights and batches on cuda and on the CPU (tolerances SMALL_*);
- 13. joint_timing: F, G, H and their twins timed at the main path's shape.
+ 11. kernel_train: the LSTM training kernels D (forward) and E (backward)
+     against their twins on the card, bf16 and float32 R, at the main
+     path's shape (N 16, T 49, H 1024), a golden-like one (N 3, T 37,
+     H 96) and a ragged one (N 13, H 100: off the 8-row batch tile and
+     the 8-column vector path) (tolerances TRAIN_*);
+ 12. train_full_width: the training main path, 4 Learner steps of the
+     config/base.yaml model as written (bf16 compute, the encoder's LSTM
+     layers on kernels D and E; accumulation over 2 batches and an
+     8-step schedule) on 16 ragged 2.5-4 s clips: losses finite, D 6 x 49
+     and E 6 x 50 launches a step, F/G/H once a step each, A/B/C never,
+     parameters updated on steps 2 and 4 only; step time and its split,
+     peak memory;
+ 13. train_scan_route: the earlier path, the encoder on its scan cells
+     (use_pallas_train false), 3 steps from the same weights and batches:
+     its first step's loss and every gradient against the D/E route's
+     (TRAIN_ROUTE_*), and its step time;
+ 14. train_small_cuda_vs_cpu: 2 steps of a small float32 model (float32 R
+     on kernels D and E on the card, their twins on the CPU) from the same
+     weights and batches (tolerances SMALL_*);
+ 15. train_cli: `python -m libreasr_tpu_torch.train` (its main, in this
+     process) at full width on a corpus of noise WAVs written here: 2
+     steps with an eval and a bundle export, then a resume to step 3;
+     the bundle reloads on cuda and transcribes;
+ 16. joint_timing and train_kernel_timing: F, G, H and D, E timed at the
+     main path's shapes beside their twins and, for D and E, cuDNN's bf16
+     LSTM in training (forward, backward) as the yardstick.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -103,6 +121,23 @@ INT8_TOL_MEAN = KERNEL_TOL_MEAN
 # (int8_matmul, the input projections, is bit-exact on both devices)
 INT8_ENC_TOL_MAX = KERNEL_TOL
 INT8_ENC_TOL_MEAN = KERNEL_TOL_MEAN
+# training kernels D, E vs their twins. D is kernel B's recurrence with
+# the pre-activations streamed out: with bf16 R the same bf16 flips of h
+# spread through R (measured on an H100 at N 16, T 49, H 1024: max 9.6e-4
+# on v); with float32 R nothing is rounded and the two differ in
+# summation order alone (~1e-7). E rounds dv to bf16 before dv @ R^T, so
+# a summation-order difference in one step's dh can flip a bf16 rounding
+# of dv at the next, which spreads through R^T the same way (measured:
+# 1.1e-3 of the largest dh0). E is held relative to each output's
+# largest entry: its values scale with the cotangents. A wrong gate,
+# index or reverse-time hand-over shows as errors of 1e-1 and more.
+TRAIN_FWD_TOL = KERNEL_TOL
+TRAIN_FWD_TOL_MEAN = KERNEL_TOL_MEAN
+TRAIN_BWD_TOL = 4e-3
+TRAIN_BWD_TOL_MEAN = 2e-4
+# (N, T, H): golden-like, ragged (N off the 8-row tile, H off the vector
+# path), the main path's
+TRAIN_KERNEL_CASES = [(3, 37, 96), (13, 37, 100), (16, 49, 1024)]
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -910,26 +945,47 @@ def _timed(name: str, fn, times: dict):
     return run
 
 
-def train_conf(accumulate: int = 2) -> dict:
-    """config/base.yaml for training, with the encoder on its scan cells
-    (use_pallas_train false: kernels D, E are not ported), gradient
-    accumulation over 2 batches and a short schedule."""
+def train_conf(accumulate: int = 2, use_train_kernel: bool = True) -> dict:
+    """config/base.yaml for training: the model block as written (the
+    encoder's LSTM layers on kernels D and E), gradient accumulation over
+    2 batches and an 8-step schedule, so that 4 steps update twice;
+    use_train_kernel False puts the encoder on its scan cells."""
     from libreasr_tpu_torch.config import parse_and_apply_config
 
     conf = parse_and_apply_config()
-    conf["model"]["encoder"]["use_pallas_train"] = False
+    if not use_train_kernel:
+        conf["model"]["encoder"]["use_pallas_train"] = False
     conf["accumulate_n_batches"] = accumulate
     conf["training"]["total_steps"] = 8
     return conf
 
 
+def _keep_first_grads(learner) -> list:
+    """Make `learner` keep (a copy of) the gradients of its next step."""
+    kept = []
+    backward = learner.backward
+
+    def keep(loss):
+        out = backward(loss)
+        if not kept:
+            kept.extend(g.detach().clone() for g in out[0])
+        return out
+
+    learner.backward = keep
+    return kept
+
+
 def phase_train_full_width(seed: int, card: str) -> dict:
-    """The main path: 4 Learner steps of the base.yaml model; returns the
-    joint kernels' launch counts from that run."""
+    """The main path: 4 Learner steps of the base.yaml model. Returns
+    the launch counts of that run, the first step's loss and gradients,
+    and the step's median time."""
+    import math
+
     import torch
 
     from libreasr_tpu_torch.ops.kernels import joint_lp as kj
     from libreasr_tpu_torch.ops.kernels import lstm as klstm
+    from libreasr_tpu_torch.ops.kernels import lstm_train as klt
     from libreasr_tpu_torch.training.learner import Learner
 
     learner = Learner.from_config(train_conf(), device="cuda", seed=seed)
@@ -940,10 +996,12 @@ def phase_train_full_width(seed: int, card: str) -> dict:
                         ("loss", "loss"), ("backward", "backward"),
                         ("optimize", "optimizer")):
         setattr(learner, part, _timed(label, getattr(learner, part), times))
+    grads = _keep_first_grads(learner)
     losses, changed = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     klstm.reset_launches()
+    klt.reset_launches()
     kj.reset_launches()
     for b in batches:
         before = [p.detach().clone() for p in learner.params]
@@ -955,28 +1013,81 @@ def phase_train_full_width(seed: int, card: str) -> dict:
         del before
     torch.cuda.synchronize()
     joint_launches, lstm_launches = dict(kj.LAUNCHES), dict(klstm.LAUNCHES)
+    train_launches = dict(klt.LAUNCHES)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     t_enc = int(learner.frontend.out_length(torch.tensor(4 * learner.frontend.sr)))
     med = {k: statistics.median(v[1:]) for k, v in times.items()}
+    step_ms = med.pop("step")
+    layers = cfg.enc_num_layers
+    want_train = {"lstm_train_fwd": TRAIN_STEPS * layers * t_enc,
+                  "lstm_train_bwd": TRAIN_STEPS * layers * (t_enc + 1)}
     log("train_full_width", card=card, n=16, t_enc=t_enc, u=40,
-        hidden=cfg.hidden_sz, vocab=cfg.vocab_sz, enc_layers=cfg.enc_num_layers,
+        hidden=cfg.hidden_sz, vocab=cfg.vocab_sz, enc_layers=layers,
         compute_dtype=str(cfg.compute_dtype), losses=losses,
         params_changed=changed, joint_launches=joint_launches,
-        lstm_launches=lstm_launches, step_ms_median_last3=med.pop("step"),
-        split_ms_median_last3=med, step_ms_runs=times["step"],
-        peak_memory_mib=peak_mib)
-    import math
-
+        lstm_launches=lstm_launches, train_kernel_launches=train_launches,
+        expected_train_kernel_launches=want_train,
+        step_ms_median_last3=step_ms, split_ms_median_last3=med,
+        step_ms_runs=times["step"], peak_memory_mib=peak_mib)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite train loss: {losses}")
     if joint_launches != {k: TRAIN_STEPS for k in kj.LAUNCHES}:
         raise AssertionError(f"joint kernel launches {joint_launches}")
     if any(lstm_launches.values()):
         raise AssertionError(f"eval LSTM kernels ran in training: {lstm_launches}")
+    if train_launches != want_train:
+        raise AssertionError(f"training LSTM kernel launches {train_launches}, "
+                             f"expected {want_train}")
     if changed != [i % 2 == 1 for i in range(TRAIN_STEPS)]:
         raise AssertionError(f"parameters changed at steps {changed}, "
                              "expected on accumulation boundaries only")
-    return joint_launches
+    return {"launches": {**joint_launches, **train_launches},
+            "loss0": losses[0], "grads0": grads, "step_ms": step_ms}
+
+
+# the scan route against the D/E route, one step from the same weights,
+# batch and random draws, bf16 compute: the forward differs in summation
+# order and the bf16 flips it causes; the backward also in where bf16
+# rounds (the scan's autograd rounds dh = dv @ R^T to bf16, kernel E
+# rounds dv before the product). Loss 1e-3 relative; every gradient
+# tensor's cosine against the other route's at least 0.999.
+TRAIN_ROUTE_LOSS_REL = 1e-3
+TRAIN_ROUTE_MIN_COS = 0.999
+
+
+def phase_train_scan_route(seed: int, card: str, ref: dict) -> None:
+    """The encoder on its scan cells (the earlier path), 3 steps of the
+    main path's batches: step 1 against the D/E route's step 1, and the
+    step time (median of steps 2-3)."""
+    import torch
+
+    from libreasr_tpu_torch.ops.kernels import lstm_train as klt
+    from libreasr_tpu_torch.training.learner import Learner
+
+    learner = Learner.from_config(train_conf(use_train_kernel=False),
+                                  device="cuda", seed=seed)
+    batches = _train_batches(learner.cfg, learner.frontend, seed, steps=3)
+    grads = _keep_first_grads(learner)
+    klt.reset_launches()
+    times: dict = {}
+    losses = [float(_timed("step", learner.step, times)(b)["loss"])
+              for b in batches]
+    launches = dict(klt.LAUNCHES)
+    names = [n for n, _ in learner.model.named_parameters()]
+    cos = {n: _cosine(a, b) for n, a, b in zip(names, grads, ref["grads0"])}
+    loss_rel = abs(losses[0] - ref["loss0"]) / abs(ref["loss0"])
+    scan_ms = statistics.median(times["step"][1:])
+    log("train_scan_route", card=card, losses=losses, loss0_de_route=ref["loss0"],
+        loss_rel_err=loss_rel, grad_cos_min=min(cos.values()),
+        grad_cos_lowest={n: c for n, c in sorted(cos.items(), key=lambda x: x[1])[:6]},
+        train_kernel_launches=launches, step_ms_runs=times["step"],
+        scan_step_ms_median_last2=scan_ms, de_route_step_ms_median_last3=ref["step_ms"],
+        tol_loss_rel=TRAIN_ROUTE_LOSS_REL, min_cos=TRAIN_ROUTE_MIN_COS)
+    if any(launches.values()):
+        raise AssertionError(f"the scan route launched D/E: {launches}")
+    if not (loss_rel <= TRAIN_ROUTE_LOSS_REL
+            and min(cos.values()) >= TRAIN_ROUTE_MIN_COS):
+        raise AssertionError("scan route and D/E route disagree")
 
 
 # small model, cuda vs cpu: float32 compute, so the two differ only in
@@ -990,8 +1101,11 @@ SMALL_PARAM_TOL = 1e-5
 
 
 def phase_train_small_cuda_vs_cpu(seed: int) -> None:
+    """float32 compute, so R is float32 on kernels D and E (T 49) on the
+    card and on their twins on the CPU."""
     import torch
 
+    from libreasr_tpu_torch.ops.kernels import lstm_train as klt
     from libreasr_tpu_torch.training.learner import Learner
 
     conf = train_conf(accumulate=1)
@@ -1004,6 +1118,7 @@ def phase_train_small_cuda_vs_cpu(seed: int) -> None:
         s for s in conf["transforms"]["features"]
         if s["name"] in ("LogMelSpectrogram", "StackDownsample")]
     runs = {}
+    klt.reset_launches()
     for dev in ("cuda", "cpu"):
         learner = Learner.from_config(conf, device=dev, seed=seed)
         grads = []
@@ -1020,6 +1135,7 @@ def phase_train_small_cuda_vs_cpu(seed: int) -> None:
         losses = [float(learner.step(tuple(x.to(dev) for x in b))["loss"])
                   for b in batches]
         runs[dev] = (losses, grads, [p.detach().cpu() for p in learner.params])
+    launches = dict(klt.LAUNCHES)
     (lc, gc, pc), (lh, gh, ph) = runs["cuda"], runs["cpu"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
     grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
@@ -1028,10 +1144,232 @@ def phase_train_small_cuda_vs_cpu(seed: int) -> None:
     log("train_small_cuda_vs_cpu", losses_cuda=lc, losses_cpu=lh,
         loss_rel_err=loss_rel, grad_rel_err=grad_rel, param_abs_err=param_abs,
         tol_loss_rel=SMALL_LOSS_TOL, tol_grad_rel=SMALL_GRAD_TOL,
-        tol_param_abs=SMALL_PARAM_TOL)
+        tol_param_abs=SMALL_PARAM_TOL, train_kernel_launches_cuda=launches)
+    if not all(launches.values()):
+        raise AssertionError(f"small cuda run missed kernels D/E: {launches}")
     if not (loss_rel <= SMALL_LOSS_TOL and grad_rel <= SMALL_GRAD_TOL
             and param_abs <= SMALL_PARAM_TOL):
         raise AssertionError("small train step: cuda and cpu disagree")
+
+
+def _train_kernel_inputs(n, t, h, gen, r_dtype):
+    """Seeded inputs of D and E at the scale of a layer: wx ~ N(0, 1),
+    R ~ N(0, 1/H), states ~ N(0, 0.25); the twin's forward gives v and
+    c_seq, cotangents ~ N(0, 0.01)."""
+    import torch
+
+    from libreasr_tpu_torch.ops.kernels import lstm_train as klt
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).cuda()
+
+    wx, h0, c0 = rnd(n, t, 4 * h), rnd(n, h, scale=0.5), rnd(n, h, scale=0.5)
+    r = rnd(h, 4 * h, scale=h ** -0.5).to(r_dtype)
+    _, c_seq, v = klt.lstm_train_fwd_reference(wx, r, h0, c0)
+    dy, dc = rnd(n, t, h, scale=0.1), rnd(n, t, h, scale=0.1)
+    cprev = torch.cat([c0[:, None], c_seq[:, :-1]], 1).contiguous()
+    return (wx, r, h0, c0), (dy, dc, v, c_seq, cprev, r)
+
+
+def phase_kernel_train(seed: int) -> dict:
+    """D and E against their twins at TRAIN_KERNEL_CASES, bf16 and float32
+    R; returns the largest error per kernel."""
+    import torch
+
+    from libreasr_tpu_torch.ops.kernels import lstm_train as klt
+
+    gen = torch.Generator().manual_seed(seed + 5)
+    worst = {"lstm_train_fwd": 0.0, "lstm_train_bwd": 0.0}
+    for n, t, h in TRAIN_KERNEL_CASES:
+        for r_dtype in (torch.bfloat16, torch.float32):
+            fwd_in, bwd_in = _train_kernel_inputs(n, t, h, gen, r_dtype)
+            got_f = klt.lstm_train_fwd(*fwd_in)
+            ref_f = klt.lstm_train_fwd_reference(*fwd_in)
+            got_b = klt.lstm_train_bwd(*bwd_in)
+            ref_b = klt.lstm_train_bwd_reference(*bwd_in)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, r in zip(("y", "c_seq", "v"), got_f, ref_f):
+                d = (a - r).abs()
+                errs[name], errs[name + "_mean"] = float(d.max()), float(d.mean())
+            for name, a, r in zip(("dv", "dh0", "dc0"), got_b, ref_b):
+                scale = max(float(r.abs().max()), 1e-30)
+                d = (a - r).abs()
+                errs[name] = float(d.max()) / scale
+                errs[name + "_mean"] = float(d.mean()) / scale
+            finite = all(bool(torch.isfinite(x).all()) for x in (*got_f, *got_b))
+            log("kernel_train", n=n, t=t, h=h, r_dtype=str(r_dtype),
+                finite=finite, err=errs, tol_fwd_abs=TRAIN_FWD_TOL,
+                tol_fwd_mean=TRAIN_FWD_TOL_MEAN, tol_bwd_rel=TRAIN_BWD_TOL,
+                tol_bwd_mean_rel=TRAIN_BWD_TOL_MEAN)
+            worst["lstm_train_fwd"] = max(worst["lstm_train_fwd"], errs["y"],
+                                          errs["c_seq"], errs["v"])
+            worst["lstm_train_bwd"] = max(worst["lstm_train_bwd"], errs["dv"],
+                                          errs["dh0"], errs["dc0"])
+            bad = {}
+            for k, e in errs.items():
+                fwd = k.split("_mean")[0] in ("y", "c_seq", "v")
+                mean = k.endswith("_mean")
+                tol = ((TRAIN_FWD_TOL_MEAN if mean else TRAIN_FWD_TOL) if fwd
+                       else (TRAIN_BWD_TOL_MEAN if mean else TRAIN_BWD_TOL))
+                if not e <= tol:
+                    bad[k] = e
+            if bad or not finite:
+                raise AssertionError(f"training kernels vs twins at "
+                                     f"{(n, t, h, r_dtype)}: {bad}")
+    return worst
+
+
+def train_kernel_bound_ms(kind: str, n: int, t: int, h: int, r_bytes: int = 2):
+    """Least time for one call of D ("fwd") or E ("bwd"): each input read
+    once, each output written once, against the bf16 tensor rate for the
+    2 N T H 4H flops of the recurrent products (D: one per step; E: T - 1
+    carries and dh0)."""
+    seq, gseq, state = 4 * n * t * h, 4 * n * t * 4 * h, 4 * n * h
+    r = r_bytes * h * 4 * h
+    nbytes = {"fwd": gseq + r + 2 * state + 2 * seq + gseq,
+              "bwd": 4 * seq + gseq + r + gseq + 2 * state}[kind]
+    flops = 2.0 * n * t * h * 4 * h
+    tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def train_kernel_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
+    """D and E timed at the main path's shape (N 16, T 49, H 1024, bf16
+    R) beside their twins; the yardstick is cuDNN's bf16 LSTM of that
+    shape in training (it also computes x @ W): its forward for D, its
+    backward (inputs and weights) for E. Rows of the kernels line."""
+    import torch
+
+    from libreasr_tpu_torch.ops.kernels import lstm_train as klt
+
+    n, t, h = TRAIN_KERNEL_CASES[-1]
+    gen = torch.Generator().manual_seed(seed + 6)
+    fwd_in, bwd_in = _train_kernel_inputs(n, t, h, gen, torch.bfloat16)
+    ref = torch.nn.LSTM(h, h, batch_first=True, device="cuda",
+                        dtype=torch.bfloat16).train()
+    x = torch.randn((n, t, h), device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    hx = tuple(torch.zeros((1, n, h), device="cuda", dtype=torch.bfloat16)
+               for _ in range(2))
+    lib_fwd = cuda_ms(lambda: ref(x, hx), reps=20)
+    out = ref(x, hx)[0]
+    g = torch.randn_like(out)
+    wrt = [x, *ref.parameters()]
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, wrt, g, retain_graph=True),
+                      reps=20)
+    rows, times = [], {}
+    with torch.inference_mode():
+        for name, kind, line, kernel, twin, lib in (
+            ("lstm_train_fwd", "fwd", 441, lambda: klt.lstm_train_fwd(*fwd_in),
+             lambda: klt.lstm_train_fwd_reference(*fwd_in), lib_fwd),
+            ("lstm_train_bwd", "bwd", 492, lambda: klt.lstm_train_bwd(*bwd_in),
+             lambda: klt.lstm_train_bwd_reference(*bwd_in), lib_bwd),
+        ):
+            ms = cuda_ms(kernel, reps=20)
+            plain_ms = cuda_ms(twin, reps=5)
+            bound, bound_by = train_kernel_bound_ms(kind, n, t, h)
+            times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                           "library_ms": lib}
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "libreasr_tpu_torch/csrc/lstm_train.cu",
+                "replaces": f"libreasr_tpu/ops/pallas/lstm.py:{line}",
+                "launches": launches[name], "max_abs_err": worst[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": lib,
+            })
+    log("train_kernel_timing", n=n, t=t, h=h, r_dtype="bfloat16", kernels=times)
+    return rows
+
+
+TRAIN_CLI_CLIPS = {"train": 40, "valid": 8}
+
+
+def _write_noise_corpus(root: str, seed: int) -> None:
+    """Seeded noise WAVs of 2.5-3.75 s with short word labels, and the
+    dataset CSVs (file,xstart,xlen,label,ylen,sr,bad) of each split."""
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = ["yes", "no", "stop", "go", "up", "down", "left", "right"]
+    for split, count in TRAIN_CLI_CLIPS.items():
+        lines = ["file,xstart,xlen,label,ylen,sr,bad"]
+        for i in range(count):
+            s = int(rng.integers(40000, 60001))
+            pcm = (rng.standard_normal(s) * 0.1).clip(-1, 1)
+            name = f"{split}-{i:03d}.wav"
+            with wave.open(os.path.join(root, name), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes((pcm * 32767).astype(np.int16).tobytes())
+            label = " ".join(rng.choice(words, 2))
+            lines.append(f"{name},0,{s / 16.0},{label},{len(label)},16000,False")
+        with open(os.path.join(root, f"asr-dataset-{split}.csv"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def phase_train_cli(seed: int, card: str) -> dict:
+    """The training CLI at full width: base.yaml's model as written, the
+    noise corpus, accumulation 1 so that every step updates. Returns the
+    D/E launch counts of the two runs."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from libreasr_tpu_torch import train
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.config import parse_and_apply_config
+    from libreasr_tpu_torch.ops.kernels import lstm_train as klt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_noise_corpus(tmp, seed)
+        conf = parse_and_apply_config()
+        conf.update(datasets=["noise"], dataset_paths={"noise": tmp},
+                    accumulate_n_batches=1,
+                    tokenizer={"model_file": os.path.join(tmp, "none")})
+        path = os.path.join(tmp, "conf.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(conf, f)
+        bundle_path = os.path.join(tmp, "bundle.tar.gz")
+        common = ["--config", path, "--ckpt", os.path.join(tmp, "ckpt"),
+                  "--logdir", os.path.join(tmp, "runs"), "--eval-batches", "1"]
+        outs, secs = [], []
+        klt.reset_launches()
+        for extra in (["--steps", "2", "--eval-every", "1",
+                       "--bundle-out", bundle_path], ["--steps", "3"]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                train.main(common + extra)
+            secs.append(time.perf_counter() - t0)
+            outs.append(buf.getvalue())
+        launches = dict(klt.LAUNCHES)
+        bundle = ASRBundle.from_bundle(bundle_path, extract_to=os.path.join(tmp, "x"),
+                                       device="cuda")
+        rng = np.random.default_rng(seed)
+        audio = (rng.standard_normal((2, 48000)) * 0.1).astype(np.float32)
+        texts, metrics = bundle.transcribe_batch(audio, np.array([48000, 30000]))
+    first, second = outs
+    lines = [ln for o in outs for ln in o.splitlines()
+             if ln.startswith(("[eval]", "[train] resumed", "[train] done"))]
+    log("train_cli", card=card, seconds=secs, lines=lines,
+        train_kernel_launches=launches, bundle_texts=texts,
+        bundle_hidden=bundle.cfg.hidden_sz)
+    ok = ("[eval]" in first and "wer=" in first and "done: step=2" in first
+          and "resumed" in second and "done: step=3" in second
+          and "done: step=2" not in second and all(launches.values())
+          and len(texts) == 2 and bundle.cfg.hidden_sz == conf["model"]["hidden_sz"]
+          and np.isfinite(np.asarray(metrics["alignment_score"])).all())
+    if not ok:
+        raise AssertionError("training CLI: " + "\n".join(outs))
+    return launches
 
 
 def main() -> int:
@@ -1065,11 +1403,20 @@ def main() -> int:
     torch.cuda.synchronize()
     worst_joint = phase_kernel_joint(args.seed)
     torch.cuda.synchronize()
-    joint_launches = phase_train_full_width(args.seed, card)
+    worst_train = phase_kernel_train(args.seed)
+    torch.cuda.synchronize()
+    main_train = phase_train_full_width(args.seed, card)
+    torch.cuda.synchronize()
+    phase_train_scan_route(args.seed, card, main_train)
+    launches = main_train.pop("launches")
+    del main_train
     torch.cuda.synchronize()
     phase_train_small_cuda_vs_cpu(args.seed)
     torch.cuda.synchronize()
-    rows += joint_rows(args.seed, worst_joint, joint_launches)
+    phase_train_cli(args.seed, card)
+    torch.cuda.synchronize()
+    rows += joint_rows(args.seed, worst_joint, launches)
+    rows += train_kernel_rows(args.seed, worst_train, launches)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

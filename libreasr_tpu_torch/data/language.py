@@ -16,6 +16,12 @@ class CharLanguage:
         self.t2i = dict(tokens)
         self.i2t = {i: t for t, i in tokens.items()}
 
+    def numericalize(self, text: str) -> list[int]:
+        """Text -> ids: lower-cased and stripped, unknown characters
+        dropped, EOS appended."""
+        ids = [self.t2i[c] for c in text.lower().strip() if c in self.t2i]
+        return ids + [_EOS]
+
     def denumericalize(self, ids) -> str:
         """Token ids -> text: specials dropped, and nothing after EOS (a
         decoder's tokens past it are post-terminal drift)."""

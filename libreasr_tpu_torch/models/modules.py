@@ -17,13 +17,16 @@ int8 `q` and a float32 `scale` buffer under the matrix's name
 Training mode (`module.train()`) follows the JAX modules' train=True:
 batch norms normalise with the masked batch statistics of the valid
 frames and update their running statistics; each tower's output
-dropout draws its mask from an explicit torch.Generator; recurrent
-layers run the differentiable scan cells, never the eval kernels.
+dropout, and the recurrent layers' zoneout and DropConnect masks, draw
+from an explicit torch.Generator; recurrent layers never run the eval
+kernels (the encoder's LSTM layers train on kernels D and E where JAX
+does, else on the differentiable scan cells).
 """
 
 from __future__ import annotations
 
 import math
+import sys
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +34,7 @@ from torch import nn
 
 from ..ops import rnn as rnn_ops
 from ..ops.kernels.lstm import lstm_pack, pack_k4
+from ..ops.kernels.lstm_train import lstm_pack_train
 from ..ops.quant import QuantizedTensor, int8_matmul, quantize
 
 # shortest sequence the sequence kernel takes; shorter ones (streaming
@@ -40,6 +44,16 @@ MIN_KERNEL_STEPS = 16
 # the JAX package's training LSTM kernels (D, E) take R only up to this
 # many bytes in the compute dtype (modules.py:_pallas_train_eligible)
 MAX_TRAIN_KERNEL_R_BYTES = 9 * 2**20
+
+_WARNED: set = set()
+
+
+def _warn_once(key: str, msg: str) -> None:
+    """A slower path taken silently costs time without a trace: say so
+    once per process, on stderr."""
+    if key not in _WARNED:
+        _WARNED.add(key)
+        print(f"[libreasr_tpu_torch] {msg}", file=sys.stderr)
 
 
 def dropout(x, rate: float, generator):
@@ -167,17 +181,21 @@ class RNNLayer(nn.Module):
     """One recurrent layer with a learnable initial state h0
     [n_state, 1, H].
 
-    Dispatch as in the JAX package: in eval, an LSTM in pack mode over at
-    least MIN_KERNEL_STEPS steps runs on the sequence kernel (the int8 one
-    for quantized cells; their plain twins for CPU tensors); in training
-    everything runs on the differentiable scan cells, except where the
-    JAX package would take its training kernels D and E
-    (`use_train_kernel`): off the CPU that raises, since D and E are not
-    ported yet (on the CPU the scan cells are their plain twin)."""
+    Dispatch as in the JAX package (its RNNLayer._pallas_eligible and
+    _pallas_train_eligible): in eval, an LSTM in pack mode without
+    zoneout over at least MIN_KERNEL_STEPS steps runs on the sequence
+    kernel (the int8 one for quantized cells); in training, with
+    `use_train_kernel`, such an LSTM whose R in the compute type fits
+    MAX_TRAIN_KERNEL_R_BYTES runs on kernels D and E (lstm_pack_train),
+    DropConnect's masked R formed outside them; zoneout in training keeps
+    the scan cells and says so once; everything else runs on the
+    differentiable scan cells. The kernels' wrappers take their plain
+    twins for CPU tensors."""
 
     def __init__(self, input_sz, hidden_sz, gen, *, rnn_type="LSTM",
                  compute_dtype=None, length_mode="pack", use_kernel=False,
-                 quantized=False, use_train_kernel=False):
+                 quantized=False, use_train_kernel=False, zoneout=0.0,
+                 dropconnect=0.0):
         super().__init__()
         if rnn_type not in rnn_ops.CELLS:
             raise NotImplementedError(
@@ -188,6 +206,8 @@ class RNNLayer(nn.Module):
         self.length_mode = length_mode
         self.use_kernel = use_kernel
         self.use_train_kernel = use_train_kernel
+        self.zoneout = zoneout
+        self.dropconnect = dropconnect
         self.n_state = rnn_ops.CELLS[rnn_type][1]
         self.cell = Cell(rnn_type, input_sz, hidden_sz, gen, quantized=quantized)
         self.h0 = nn.Parameter(torch.zeros(self.n_state, 1, hidden_sz))
@@ -197,36 +217,47 @@ class RNNLayer(nn.Module):
                      for i in range(self.n_state))
 
     def kernel_eligible(self, x) -> bool:
-        return (self.use_kernel and not self.training
+        return (self.use_kernel and not self.training and self.zoneout == 0.0
                 and self.rnn_type == "LSTM" and self.length_mode == "pack"
                 and x.shape[1] >= MIN_KERNEL_STEPS)
 
     def train_kernel_eligible(self, x) -> bool:
         """Where the JAX package trains through its Pallas kernels D/E."""
+        if not (self.use_train_kernel and self.training
+                and self.rnn_type == "LSTM" and self.length_mode == "pack"):
+            return False
+        if self.zoneout != 0.0:
+            _warn_once(
+                "train-kernel-zoneout",
+                f"RNNLayer(hidden={self.hidden_sz}): zoneout={self.zoneout} "
+                "is not supported by the LSTM training kernels D and E; "
+                "training on the slower scan cells (DropConnect is "
+                "supported by the kernels)")
+            return False
         itemsize = 2 if self.compute_dtype == torch.bfloat16 else 4
-        return (self.use_train_kernel and self.training
-                and self.rnn_type == "LSTM" and self.length_mode == "pack"
-                and x.shape[1] >= MIN_KERNEL_STEPS
+        return (x.shape[1] >= MIN_KERNEL_STEPS
                 and self.hidden_sz * 4 * self.hidden_sz * itemsize
-                <= MAX_TRAIN_KERNEL_R_BYTES)
+                <= MAX_TRAIN_KERNEL_R_BYTES
+                and not isinstance(self.cell.recurrent_kernel, QuantizedWeight))
 
-    def forward(self, x, state=None, lengths=None):
+    def forward(self, x, state=None, lengths=None, generator=None):
         if state is None:
             state = self.initial_state(x.shape[0])
         params = self.cell.params()
-        if x.device.type != "cpu" and self.train_kernel_eligible(x):
-            raise NotImplementedError(
-                "libreasr_tpu_torch: the LSTM training kernels D and E "
-                "(ops/pallas/lstm.py _train_fwd_call/_train_bwd_call) are not "
-                "ported yet (ROADMAP queue 2); set "
-                "model.encoder.use_pallas_train: false to train on the scan "
-                "cells")
+        if self.train_kernel_eligible(x):
+            if self.dropconnect:
+                params = params._replace(recurrent_kernel=rnn_ops.drop_connect(
+                    params.recurrent_kernel, self.dropconnect, generator))
+            return lstm_pack_train(x, tuple(state), params, lengths,
+                                   compute_dtype=self.compute_dtype)
         if self.kernel_eligible(x):
             return lstm_pack(x, tuple(state), params, lengths)
         scan = rnn_ops.lstm_scan if self.rnn_type == "LSTM" else rnn_ops.gru_scan
         return scan(x, tuple(state), params, lengths=lengths,
                     compute_dtype=self.compute_dtype,
-                    length_mode=self.length_mode)
+                    length_mode=self.length_mode, zoneout=self.zoneout,
+                    dropconnect=self.dropconnect, training=self.training,
+                    generator=generator)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -273,7 +304,7 @@ class RNNStack(nn.Module):
                  rnn_type="LSTM", reduction_indices=(), reduction_factors=(),
                  rezero=False, norm="batch", compute_dtype=None,
                  length_mode="pack", use_kernel=False, quantized=False,
-                 use_train_kernel=False):
+                 use_train_kernel=False, zoneout=0.0, dropconnect=0.0):
         super().__init__()
         self.num_layers = num_layers
         self.reduction = dict(zip(reduction_indices, reduction_factors))
@@ -284,7 +315,8 @@ class RNNStack(nn.Module):
                 in_sz, hidden_sz, gen, rnn_type=rnn_type,
                 compute_dtype=compute_dtype, length_mode=length_mode,
                 use_kernel=use_kernel, quantized=quantized,
-                use_train_kernel=use_train_kernel,
+                use_train_kernel=use_train_kernel, zoneout=zoneout,
+                dropconnect=dropconnect,
             ))
             if norm == "batch":
                 self.add_module(f"norm{i}", MaskedBatchNorm(hidden_sz))
@@ -295,7 +327,7 @@ class RNNStack(nn.Module):
     def layer(self, i) -> RNNLayer:
         return getattr(self, f"layer{i}")
 
-    def forward(self, x, state=None, lengths=None):
+    def forward(self, x, state=None, lengths=None, generator=None):
         residual = None
         new_states = []
         for i in range(self.num_layers):
@@ -303,7 +335,8 @@ class RNNStack(nn.Module):
                 x, lengths = rnn_ops.time_reduce(x, lengths, self.reduction[i])
             inp = x
             x, st = self.layer(i)(
-                x, state=None if state is None else state[i], lengths=lengths
+                x, state=None if state is None else state[i], lengths=lengths,
+                generator=generator,
             )
             norm = getattr(self, f"norm{i}", None)
             if isinstance(norm, MaskedBatchNorm):
@@ -324,7 +357,8 @@ class Encoder(nn.Module):
     def __init__(self, feature_sz, hidden_sz, out_sz, gen, *, num_layers=6,
                  rnn_type="LSTM", norm="batch", reduction_indices=(),
                  reduction_factors=(), compute_dtype=None, use_kernel=False,
-                 quantized=False, dropout=0.0, use_train_kernel=False):
+                 quantized=False, dropout=0.0, use_train_kernel=False,
+                 zoneout=0.0, dropconnect=0.0):
         super().__init__()
         self.dropout = dropout
         self.input_norm = LayerNorm(feature_sz)
@@ -334,14 +368,16 @@ class Encoder(nn.Module):
             reduction_factors=reduction_factors, compute_dtype=compute_dtype,
             length_mode="haste" if rnn_type == "NBRC" else "pack",
             use_kernel=use_kernel, quantized=quantized,
-            use_train_kernel=use_train_kernel,
+            use_train_kernel=use_train_kernel, zoneout=zoneout,
+            dropconnect=dropconnect,
         )
         self.proj = Dense(hidden_sz, out_sz, gen) if hidden_sz != out_sz else None
 
     def forward(self, x, state=None, lengths=None, generator=None):
         x = x.reshape(x.shape[0], x.shape[1], -1)
         x = self.input_norm(x)
-        x, state = self.rnn_stack(x, state=state, lengths=lengths)
+        x, state = self.rnn_stack(x, state=state, lengths=lengths,
+                                  generator=generator)
         if self.training:
             x = dropout(x, self.dropout, generator)
         if self.proj is not None:
@@ -354,7 +390,8 @@ class Predictor(nn.Module):
 
     def __init__(self, vocab_sz, embed_sz, hidden_sz, out_sz, gen, *,
                  num_layers=2, blank=0, rnn_type="NBRC", norm="batch",
-                 compute_dtype=None, quantized=False, dropout=0.0):
+                 compute_dtype=None, quantized=False, dropout=0.0,
+                 zoneout=0.0, dropconnect=0.0):
         super().__init__()
         self.blank = blank
         self.dropout = dropout
@@ -364,7 +401,7 @@ class Predictor(nn.Module):
             hidden_sz, hidden_sz, num_layers, gen, rnn_type=rnn_type,
             norm=norm, compute_dtype=compute_dtype,
             length_mode="haste" if rnn_type == "NBRC" else "pack",
-            quantized=quantized,
+            quantized=quantized, zoneout=zoneout, dropconnect=dropconnect,
         )
         self.proj = Dense(hidden_sz, out_sz, gen) if hidden_sz != out_sz else None
 
@@ -373,7 +410,8 @@ class Predictor(nn.Module):
         emb = torch.where((y == self.blank)[..., None], torch.zeros_like(emb), emb)
         if self.ffn is not None:
             emb = self.ffn(emb)
-        x, state = self.rnn_stack(emb, state=state, lengths=lengths)
+        x, state = self.rnn_stack(emb, state=state, lengths=lengths,
+                                  generator=generator)
         if self.training:
             x = dropout(x, self.dropout, generator)
         if self.proj is not None:

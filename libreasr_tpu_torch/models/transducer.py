@@ -32,14 +32,16 @@ class TransducerConfig:
     enc_reduction_factors: tuple = ()
     # the encoder's LSTM layers run on the sequence kernel (T >= 16)
     enc_use_kernel: bool = True
-    # training would run the JAX package's LSTM training kernels D/E,
-    # not ported yet: on CUDA that raises (modules.RNNLayer)
+    # training runs the encoder's LSTM layers on kernels D and E
     enc_use_train_kernel: bool = True
     enc_dropout: float = 0.05
     pred_num_layers: int = 2
     pred_rnn_type: str = "NBRC"
     pred_norm: str = "batch"
     pred_dropout: float = 0.05
+    # zoneout and DropConnect of both towers' recurrent layers
+    zoneout: float = 0.0
+    dropconnect: float = 0.0
     compute_dtype: Any = None
     # the towers' cell matrices are int8 (a bundle's "quantized_cells")
     quantized_cells: bool = False
@@ -62,14 +64,6 @@ class TransducerConfig:
         if enc.get("layer_norm") or pred.get("layer_norm"):
             raise NotImplementedError(
                 "libreasr_tpu_torch: LayerNorm-LSTM cells are not ported yet")
-        if m.get("zoneout", enc.get("zoneout", 0.0)):
-            raise NotImplementedError(
-                "libreasr_tpu_torch: zoneout is not ported yet (ROADMAP "
-                "queue 2, with kernels D and E)")
-        if m.get("dropconnect", enc.get("dropconnect", 0.0)):
-            raise NotImplementedError(
-                "libreasr_tpu_torch: DropConnect is not ported yet (ROADMAP "
-                "queue 2, with kernels D and E)")
         if m["joint"]["method"] != "concat":
             raise NotImplementedError(
                 "libreasr_tpu_torch: only the concat joint is ported")
@@ -93,6 +87,8 @@ class TransducerConfig:
             pred_rnn_type=pred["rnn_type"],
             pred_norm=pred.get("norm", "batch"),
             pred_dropout=pred.get("dropout", 0.05),
+            zoneout=m.get("zoneout", enc.get("zoneout", 0.0)),
+            dropconnect=m.get("dropconnect", enc.get("dropconnect", 0.0)),
             compute_dtype=torch.bfloat16 if compute == "bfloat16" else None,
             quantized_cells=bool(conf.get("quantized_cells", False)),
             use_tmp_state_pcent=enc.get("use_tmp_state_pcent", 0.99),
@@ -117,14 +113,15 @@ class Transducer(nn.Module):
             reduction_factors=c.enc_reduction_factors,
             compute_dtype=c.compute_dtype, use_kernel=c.enc_use_kernel,
             quantized=c.quantized_cells, dropout=c.enc_dropout,
-            use_train_kernel=c.enc_use_train_kernel,
+            use_train_kernel=c.enc_use_train_kernel, zoneout=c.zoneout,
+            dropconnect=c.dropconnect,
         )
         self.predictor = Predictor(
             c.vocab_sz, c.embed_sz, c.hidden_sz, c.out_sz, gen,
             num_layers=c.pred_num_layers, blank=c.blank,
             rnn_type=c.pred_rnn_type, norm=c.pred_norm,
             compute_dtype=c.compute_dtype, quantized=c.quantized_cells,
-            dropout=c.pred_dropout,
+            dropout=c.pred_dropout, zoneout=c.zoneout, dropconnect=c.dropconnect,
         )
         self.joint = Joint(c.out_sz, c.joint_sz, c.vocab_sz, gen,
                            compute_dtype=c.compute_dtype)

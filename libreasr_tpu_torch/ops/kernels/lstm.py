@@ -259,11 +259,18 @@ def lstm_pack(x, state, params, lengths=None):
         return y, (h_t, c_t)
     else:
         y, yc, _, _ = lstm_seq(wx, r, h0, c0, stream_c=True)
-    t = x.shape[1]
-    lengths = lengths.to(x.device)
-    valid = torch.arange(t, device=x.device)[None, :] < lengths[:, None]
+    return pack_outputs(y, yc, h0, c0, lengths)
+
+
+def pack_outputs(y, yc, h0, c0, lengths):
+    """Pack semantics from the full sequences y, yc [N, T, H]: y zeroed
+    past each length, the state read at length - 1 (h0, c0 for length
+    0). Plain differentiable operations. Returns (y, (h, c))."""
+    t = y.shape[1]
+    lengths = lengths.to(y.device)
+    valid = torch.arange(t, device=y.device)[None, :] < lengths[:, None]
     y_masked = torch.where(valid[..., None], y, torch.zeros_like(y))
-    rows = torch.arange(x.shape[0], device=x.device)
+    rows = torch.arange(y.shape[0], device=y.device)
     idx = torch.clamp(lengths - 1, 0, t - 1)
     empty = (lengths == 0)[:, None]
     h_f = torch.where(empty, h0, y[rows, idx])

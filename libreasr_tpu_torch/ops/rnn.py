@@ -13,6 +13,15 @@ Length modes: "pack" zeroes outputs and freezes the state past each
 length; "haste" keeps every output and reads the returned state off at
 each length.
 
+Regularisation, as in the JAX scans (haste's formulas):
+- DropConnect (`dropconnect` p, training only): R is masked once per
+  call, R * keep / (1 - p) with keep ~ Bernoulli(1 - p) over R's shape;
+- zoneout (`zoneout` p) on h: in training h' = (h_new - h) * m + h with
+  m ~ Bernoulli(1 - p) drawn per step and element; in eval
+  h' = p * h + (1 - p) * h_new.
+Masks are drawn from an explicit torch.Generator, or passed in (a test
+feeds the ones jax.random draws).
+
 `compute_dtype` (e.g. torch.bfloat16) rounds both matmul operands to
 that type and accumulates in float32, as the JAX `_mm` does with
 preferred_element_type=float32: the rounded values are widened back to
@@ -69,13 +78,65 @@ def _gated(t: int, lengths, new, old):
     return torch.where((t < lengths)[:, None], new, old)
 
 
-def lstm_scan(x, state, params: LSTMParams, *, lengths=None,
-              compute_dtype=None, length_mode: str = "pack"):
-    """x: [N, T, I]; state: (h, c) each [N, H].
-    Returns (y [N, T, H], (h, c))."""
-    h, c = state
+def _bernoulli(keep: float, shape, generator, device):
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (u < keep).to(device=device, dtype=torch.float32)
+
+
+def drop_connect(r, p: float, generator=None, mask=None):
+    """DropConnect on a recurrent matrix: r * keep / (1 - p), keep drawn
+    from `generator` unless `mask` (float or bool, R's shape) is given."""
+    if p == 0.0:
+        return r
+    if mask is None:
+        if generator is None:
+            raise ValueError("DropConnect in training needs a torch.Generator")
+        mask = _bernoulli(1.0 - p, r.shape, generator, r.device)
+    return torch.where(mask.bool(), r / (1.0 - p), torch.zeros_like(r))
+
+
+def _zoneout_masks(p, training, t, n, h, generator, masks, device):
+    """[T, N, H] training masks, drawn unless given; None otherwise."""
+    if p == 0.0 or not training:
+        return None
+    if masks is not None:
+        return masks.to(device=device, dtype=torch.float32)
+    if generator is None:
+        raise ValueError("zoneout in training needs a torch.Generator")
+    return _bernoulli(1.0 - p, (t, n, h), generator, device)
+
+
+def _zoneout(h_new, h_old, p: float, mask, training: bool):
+    if p == 0.0:
+        return h_new
+    if training:
+        return (h_new - h_old) * mask + h_old
+    return p * h_old + (1.0 - p) * h_new
+
+
+def _recurrent(params, x, h, compute_dtype, zoneout, dropconnect, training,
+               generator, dropconnect_mask, zoneout_mask):
+    """The parts both scans share: the projection of every step, R (masked
+    in training when DropConnect is on), and the zoneout masks."""
     wx = _mm(x, _weight(params.kernel, compute_dtype), compute_dtype) + params.bias
-    r = _weight(params.recurrent_kernel, compute_dtype)
+    rk = params.recurrent_kernel
+    if training and dropconnect:
+        rk = drop_connect(rk, dropconnect, generator, dropconnect_mask)
+    zm = _zoneout_masks(zoneout, training, x.shape[1], x.shape[0], h.shape[-1],
+                        generator, zoneout_mask, x.device)
+    return wx, _weight(rk, compute_dtype), zm
+
+
+def lstm_scan(x, state, params: LSTMParams, *, lengths=None,
+              compute_dtype=None, length_mode: str = "pack",
+              zoneout: float = 0.0, dropconnect: float = 0.0,
+              training: bool = False, generator=None, dropconnect_mask=None,
+              zoneout_mask=None):
+    """x: [N, T, I]; state: (h, c) each [N, H]; the masks, when given:
+    [H, 4H] and [T, N, H]. Returns (y [N, T, H], (h, c))."""
+    h, c = state
+    wx, r, zm = _recurrent(params, x, h, compute_dtype, zoneout, dropconnect,
+                           training, generator, dropconnect_mask, zoneout_mask)
     haste = length_mode == "haste"
     sh, sc = h, c
     ys = []
@@ -84,6 +145,8 @@ def lstm_scan(x, state, params: LSTMParams, *, lengths=None,
         i, g, f, o = v.chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        h_new = _zoneout(h_new, h, zoneout, None if zm is None else zm[t],
+                         training)
         if haste:
             sh = _gated(t, lengths, h_new, sh)
             sc = _gated(t, lengths, c_new, sc)
@@ -98,11 +161,15 @@ def lstm_scan(x, state, params: LSTMParams, *, lengths=None,
 
 
 def gru_scan(x, state, params: GRUParams, *, lengths=None,
-             compute_dtype=None, length_mode: str = "pack"):
-    """x: [N, T, I]; state: (h,) [N, H]. Covers GRU and NBRC."""
+             compute_dtype=None, length_mode: str = "pack",
+             zoneout: float = 0.0, dropconnect: float = 0.0,
+             training: bool = False, generator=None, dropconnect_mask=None,
+             zoneout_mask=None):
+    """x: [N, T, I]; state: (h,) [N, H]. Covers GRU and NBRC; the masks
+    as for lstm_scan, R's [H, 3H]."""
     (h,) = state
-    wx = _mm(x, _weight(params.kernel, compute_dtype), compute_dtype) + params.bias
-    r = _weight(params.recurrent_kernel, compute_dtype)
+    wx, r, zm = _recurrent(params, x, h, compute_dtype, zoneout, dropconnect,
+                           training, generator, dropconnect_mask, zoneout_mask)
     haste = length_mode == "haste"
     sh = h
     ys = []
@@ -114,6 +181,8 @@ def gru_scan(x, state, params: GRUParams, *, lengths=None,
         rst = torch.sigmoid(wr + rr)
         g = torch.tanh(wg + rst * rg)
         h_new = z * h + (1.0 - z) * g
+        h_new = _zoneout(h_new, h, zoneout, None if zm is None else zm[t],
+                         training)
         if haste:
             sh = _gated(t, lengths, h_new, sh)
             h = h_new

@@ -1,14 +1,15 @@
 """The port stands alone and never falls back silently:
-- no module of libreasr_tpu_torch, nor chip_smoke.py, imports jax, flax
-  or the JAX package;
+- no module of libreasr_tpu_torch, nor chip_smoke.py, imports jax, flax,
+  the JAX package, pandas or tensorboardX (the machine with the card
+  has none of the last two);
 - entry points default to cuda and raise without it;
 - the kernel wrappers take their plain twins only for CPU tensors, and a
   failed kernel build raises;
 - a library is named by the hash of its source and every header, so an
   edited header never serves a stale build;
 - a model in training never runs the eval kernels, and where the JAX
-  package would train through its kernels D and E (not ported yet) the
-  port raises off the CPU instead of taking the scan silently;
+  package trains through its kernels D and E the port does too, raising
+  on a device it has no kernel for instead of taking the scan silently;
 - on a machine with a card, the kernels match their twins (marked
   `cuda`, skipped here)."""
 
@@ -32,7 +33,8 @@ from libreasr_tpu_torch.training.learner import Learner
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "libreasr_tpu_torch")
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "golden", "model.tar.gz")
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|libreasr_tpu)(\.|\s|$)", re.M)
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|libreasr_tpu|pandas|tensorboardX)(\.|\s|$)", re.M)
 
 
 def _port_sources():
@@ -60,13 +62,18 @@ def test_importing_every_module_loads_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'libreasr_tpu'))\n"
-        "assert len(mods) >= 16, mods\n"
+        "('jax', 'jaxlib', 'flax', 'libreasr_tpu', 'pandas', 'tensorboardX'))\n"
+        "assert len(mods) >= 27, mods\n"
         "assert {'libreasr_tpu_torch.ops.quant', 'libreasr_tpu_torch.data.bpe',"
         " 'libreasr_tpu_torch.ops.rnnt_loss', 'libreasr_tpu_torch.ops.fused_loss',"
         " 'libreasr_tpu_torch.ops.kernels.joint_lp',"
         " 'libreasr_tpu_torch.training.learner',"
-        " 'libreasr_tpu_torch.training.optimizers'} <= set(mods), mods\n"
+        " 'libreasr_tpu_torch.training.optimizers',"
+        " 'libreasr_tpu_torch.ops.kernels.lstm_train', 'libreasr_tpu_torch.train',"
+        " 'libreasr_tpu_torch.data.builder', 'libreasr_tpu_torch.data.transforms',"
+        " 'libreasr_tpu_torch.data.batching', 'libreasr_tpu_torch.training.metrics',"
+        " 'libreasr_tpu_torch.training.evaluate', 'libreasr_tpu_torch.training.callbacks',"
+        " 'libreasr_tpu_torch.training.checkpoint'} <= set(mods), mods\n"
         "print('OK', len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -123,7 +130,8 @@ def test_library_name_hashes_headers(monkeypatch, tmp_path):
     assert len({before, with_header, build.library_path("k")}) == 3
 
 
-@pytest.mark.parametrize("name", ["lstm_seq", "lstm_seq_int8", "joint_lp"])
+@pytest.mark.parametrize("name", ["lstm_seq", "lstm_seq_int8", "joint_lp",
+                                  "lstm_train"])
 def test_failed_build_raises(name, monkeypatch, tmp_path):
     nvcc = tmp_path / "bin" / "nvcc"
     nvcc.parent.mkdir()
@@ -193,20 +201,24 @@ def test_int8_kernel_matches_twin_on_cuda(n, t, h):
 
 
 def test_training_kernel_path_raises_off_the_cpu():
-    """use_pallas_train (the JAX default) in training off the CPU names
-    the missing kernels D and E; in eval, or on the CPU, it does not."""
+    """use_pallas_train (the JAX default) in training routes an LSTM layer
+    to kernels D and E: off the CPU and off CUDA that raises (no silent
+    scan), below the kernel's T it takes the scan cells, and on the CPU it
+    runs LSTMTrainCore on the twins."""
     from libreasr_tpu_torch.models.modules import RNNLayer
 
     layer = RNNLayer(8, 16, torch.Generator().manual_seed(0),
                      use_train_kernel=True).to("meta").train()
     x = torch.empty((2, 16, 8), device="meta")
-    with pytest.raises(NotImplementedError, match="kernels D and E"):
+    with pytest.raises(ValueError, match="lstm_train_fwd: unsupported device"):
         layer(x)
     short = torch.empty((2, 15, 8), device="meta")  # below the kernel's T
     assert layer(short)[0].shape == (2, 15, 16)
     cpu = RNNLayer(8, 16, torch.Generator().manual_seed(0),
                    use_train_kernel=True).train()
-    assert cpu(torch.zeros((2, 16, 8)))[0].shape == (2, 16, 16)
+    y, _ = cpu(torch.zeros((2, 16, 8)))
+    assert y.shape == (2, 16, 16)
+    assert type(y.grad_fn).__name__ == "LSTMTrainCoreBackward"
 
 
 def test_training_encoder_never_runs_the_eval_kernels(monkeypatch):

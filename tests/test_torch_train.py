@@ -213,3 +213,39 @@ def test_port_trained_bundle_loads_in_jax(tmp_path):
     js = _flat_jax(loaded["batch_stats"])
     ts = _flat_port(tl.model, "batch_stats")
     assert all(np.array_equal(ts[k], js[k]) for k in js)
+
+
+def test_learner_on_train_kernels_matches_jax(monkeypatch):
+    """use_pallas_train: true at T 20 (>= 16): the port's encoder trains
+    through LSTMTrainCore (kernels D and E; their twins on the CPU), the
+    JAX encoder through its Pallas kernels in interpret mode
+    (LIBREASR_FORCE_PALLAS=1). Every gradient of steps 1 and 2, read off
+    plain SGD with lr 1 as above: step 1 at 1e-4 of each tensor's largest
+    entry, as above; step 2 at 1e-3, because lr-1 SGD moves each weight by
+    its whole step-1 gradient and so carries step 1's float32 rounding
+    into step 2 scaled up (these batches, at T 20, measure 3.2e-4 on the
+    scan route and 3.0e-4 on the kernel route, both on the predictor)."""
+    from libreasr_tpu_torch.ops.kernels import lstm_train as klt
+
+    monkeypatch.setenv("LIBREASR_FORCE_PALLAS", "1")
+    calls = []
+    real = klt.lstm_train_fwd
+    monkeypatch.setattr(klt, "lstm_train_fwd",
+                        lambda *a: calls.append(1) or real(*a))
+    conf = copy.deepcopy(TINY)
+    conf["model"]["encoder"]["use_pallas_train"] = True
+    jl, tl = _learners(True, optax.sgd(1.0), topt.sgd(1.0, momentum=0.0),
+                       conf=conf)
+    for step, b in enumerate(_batches(np.random.default_rng(6), 2, t=20)):
+        jp0, tp0 = _flat_jax(jl.state.params), _flat_port(tl.model, "params")
+        jm = jl.step(_jax_batch(b))
+        tm = tl.step(_torch_batch(b))
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
+        jp1, tp1 = _flat_jax(jl.state.params), _flat_port(tl.model, "params")
+        for k in jp0:
+            jg, tg = jp0[k] - jp1[k], tp0[k] - tp1[k]
+            scale = max(float(np.abs(jg).max()), 1e-6)
+            np.testing.assert_allclose(tg, jg, rtol=0,
+                                       atol=(1e-4, 1e-3)[step] * scale,
+                                       err_msg=f"step {step}: {k}")
+    assert len(calls) == 4  # 2 encoder layers x 2 steps
