@@ -36,19 +36,24 @@ Phases, one line each (any failure raises and exits non-zero):
      on the card, with bf16 and float32 W_out, at a golden-like shape,
      one with U1 > 96 and every dimension off its tile, and the main
      path's (N 16, T 49, U1 41, J 1024, V 2048), with ragged lengths and
-     a label equal to the blank (tolerances JOINT_*); then
-     rnnt_loss_fused on the kernels against its chunked path on the card
-     (loss relative error < 1e-3, every gradient's cosine > 0.999);
+     a label equal to the blank (tolerances JOINT_*); H with bf16 W_out
+     also across row-chunk boundaries (a small scratch cap, at a mid
+     shape and at the main one; no lattice here has rows a multiple of
+     the 128-row tile), and run twice on the same inputs at the main
+     shape with bit-identical dW and db; then rnnt_loss_fused on the
+     kernels against its chunked path on the card (loss relative error
+     < 1e-3, every gradient's cosine > 0.999);
  11. kernel_train: the LSTM training kernels D (forward) and E (backward)
      against their twins on the card, bf16 and float32 R, at the main
      path's shape (N 16, T 49, H 1024), a golden-like one (N 3, T 37,
-     H 96) and a ragged one (N 13, H 100: off the 8-row batch tile and
-     the 8-column vector path) (tolerances TRAIN_*);
+     H 96), a ragged one (N 13, H 100: off the batch tile and the vector
+     path), the small model's H 64 and T 1 (tolerances TRAIN_*); E is
+     one launch a call;
  12. train_full_width: the training main path, 4 Learner steps of the
      config/base.yaml model as written (bf16 compute, the encoder's LSTM
      layers on kernels D and E; accumulation over 2 batches and an
      8-step schedule) on 16 ragged 2.5-4 s clips: losses finite, D 6 x 49
-     and E 6 x 50 launches a step, F/G/H once a step each, A/B/C never,
+     and E 6 launches a step, F/G/H once a step each, A/B/C never,
      parameters updated on steps 2 and 4 only; step time and its split,
      peak memory;
  13. train_scan_route: the earlier path, the encoder on its scan cells
@@ -64,7 +69,8 @@ Phases, one line each (any failure raises and exits non-zero):
      the bundle reloads on cuda and transcribes;
  16. joint_timing and train_kernel_timing: F, G, H and D, E timed at the
      main path's shapes beside their twins and, for D and E, cuDNN's bf16
-     LSTM in training (forward, backward) as the yardstick.
+     LSTM in training (forward, backward) as the yardstick; for H also
+     torch.matmul of its two bf16 products alone, as context.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -135,9 +141,10 @@ TRAIN_FWD_TOL = KERNEL_TOL
 TRAIN_FWD_TOL_MEAN = KERNEL_TOL_MEAN
 TRAIN_BWD_TOL = 4e-3
 TRAIN_BWD_TOL_MEAN = 2e-4
-# (N, T, H): golden-like, ragged (N off the 8-row tile, H off the vector
-# path), the main path's
-TRAIN_KERNEL_CASES = [(3, 37, 96), (13, 37, 100), (16, 49, 1024)]
+# (N, T, H): golden-like, ragged (N off the batch tile, H off the vector
+# path), the small model's width, one step, the main path's (last)
+TRAIN_KERNEL_CASES = [(3, 37, 96), (13, 37, 100), (4, 49, 64), (16, 1, 1024),
+                      (16, 49, 1024)]
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -711,6 +718,11 @@ FUSED_MIN_COS = 0.999
 # every tile (BT 4/2, BU 8, J chunk 64, V tiles 64/32); the main path
 JOINT_CASES = [(3, 13, 9, 96, 40), (2, 11, 101, 200, 300),
                (16, 49, 41, 1024, 2048)]
+# H with bf16 W_out under a small scratch cap: 5 chunks of 640 rows at
+# a mid shape (3,108 rows, 6 row groups), 4 of 9,344 at the main one
+JOINT_CHUNK_CASES = [((4, 37, 21, 256, 512), 4 * 2**20),
+                     ((16, 49, 41, 1024, 2048), 64 * 2**20)]
+
 
 
 def _joint_inputs(n, t, u1, j, v, gen, w_dtype):
@@ -756,6 +768,7 @@ def phase_kernel_joint(seed: int) -> dict:
     import torch
 
     from libreasr_tpu_torch.ops import fused_loss as fl_mod
+    from libreasr_tpu_torch.ops.kernels import build
     from libreasr_tpu_torch.ops.kernels import joint_lp as kj
 
     gen = torch.Generator().manual_seed(seed + 3)
@@ -805,6 +818,42 @@ def phase_kernel_joint(seed: int) -> dict:
             if bad or not finite:
                 raise AssertionError(f"joint kernels vs twins at "
                                      f"{(n, t, u1, j, v, w_dtype)}: {bad}")
+
+    # H with bf16 W_out across row-chunk boundaries (a scratch cap set
+    # here, far below the main path's), and twice on the same inputs
+    for (n, t, u1, j, v), cap in JOINT_CHUNK_CASES:
+        enc, pred, w, b, lab, gb, ge, _, _ = _joint_inputs(
+            n, t, u1, j, v, gen, torch.bfloat16)
+        lse = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)[2]
+        plan = kj.dw_plan(n, t, u1, j, v, cap=cap, sms=build.sm_count(0))
+        got = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse, scratch_cap=cap)
+        ref = kj.joint_lp_dw_reference(enc, pred, w, b, lab, gb, ge, lse)
+        again = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse, scratch_cap=cap)
+        torch.cuda.synchronize()
+        errs = {k: float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                for k, a, r in zip(("d_w_out", "d_b_out"), got, ref)}
+        identical = all(torch.equal(a, r) for a, r in zip(got, again))
+        log("kernel_joint_chunks", n=n, t=t, u1=u1, j=j, v=v, rows=plan.rows,
+            scratch_cap=cap, chunks=len(plan.chunks), chunk_rows=plan.chunk_rows,
+            groups=plan.groups, err=errs, rerun_bit_identical=identical,
+            tol_grad_rel=JOINT_GRAD_TOL)
+        worst["joint_lp_dw"] = max(worst["joint_lp_dw"], *errs.values())
+        if len(plan.chunks) < 2 or not identical or \
+                not max(errs.values()) <= JOINT_GRAD_TOL:
+            raise AssertionError(f"H across chunks at {(n, t, u1, j, v)}: "
+                                 f"{errs}, identical {identical}")
+    n, t, u1, j, v = JOINT_CASES[-1]
+    enc, pred, w, b, lab, gb, ge, _, _ = _joint_inputs(n, t, u1, j, v, gen,
+                                                      torch.bfloat16)
+    lse = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)[2]
+    first = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse)
+    second = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, r) for a, r in zip(first, second))
+    log("kernel_joint_rerun", n=n, t=t, u1=u1, j=j, v=v,
+        rerun_bit_identical=identical)
+    if not identical:
+        raise AssertionError("H differs between two runs on the same inputs")
 
     # the fused loss: kernels against the chunked path, on the card
     for n, t, u1, j, v in JOINT_CASES:
@@ -864,6 +913,7 @@ def joint_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
     PyTorch call computes these kernels' function."""
     import torch
 
+    from libreasr_tpu_torch.ops.kernels import build
     from libreasr_tpu_torch.ops.kernels import joint_lp as kj
 
     n, t, u1, j, v = JOINT_CASES[-1]
@@ -882,7 +932,11 @@ def joint_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
                                                          ge, lse)),
     }
     a = torch.randn((n * t * u1, j), device="cuda").bfloat16()
+    dq = torch.randn((n * t * u1, v), device="cuda").bfloat16()
     cublas_ms = cuda_ms(lambda: a @ w, reps=20)
+    # context for H: its two bf16 products alone, [R, J] x [J, V] and
+    # [J, R] x [R, V] (no softmax, no scratch); the port never calls them
+    matmul_h_ms = cublas_ms + cuda_ms(lambda: a.t() @ dq, reps=20)
     rows, times = [], {}
     with torch.inference_mode():
         for name, (kind, line, kernel, twin) in calls.items():
@@ -898,9 +952,22 @@ def joint_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": None,
             })
+    # H's launches (w(h), the logits product, dW, the fold), by device time
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse)
+        torch.cuda.synchronize()
+    mark = "(anonymous namespace)::"
+    h_launch_ms = {e.key.split(mark, 1)[1].split("(")[0]: e.self_device_time_total / 5e3
+                   for e in prof.key_averages() if mark in e.key}
     log("joint_timing", n=n, t=t, u1=u1, j=j, v=v, rows=n * t * u1,
-        w_dtype="bfloat16", kernels=times,
-        context_cublas_bf16_rows_x_w_ms=cublas_ms)
+        w_dtype="bfloat16", kernels=times, h_launch_ms=h_launch_ms,
+        context_cublas_bf16_rows_x_w_ms=cublas_ms,
+        context_matmul_bf16_h_products_ms=matmul_h_ms,
+        h_scratch_bytes=kj.dw_plan(n, t, u1, j, v, kj.DW_SCRATCH_CAP,
+                                   build.sm_count(0)).scratch_bytes)
     return rows
 
 
@@ -1020,7 +1087,7 @@ def phase_train_full_width(seed: int, card: str) -> dict:
     step_ms = med.pop("step")
     layers = cfg.enc_num_layers
     want_train = {"lstm_train_fwd": TRAIN_STEPS * layers * t_enc,
-                  "lstm_train_bwd": TRAIN_STEPS * layers * (t_enc + 1)}
+                  "lstm_train_bwd": TRAIN_STEPS * layers}
     log("train_full_width", card=card, n=16, t_enc=t_enc, u=40,
         hidden=cfg.hidden_sz, vocab=cfg.vocab_sz, enc_layers=layers,
         compute_dtype=str(cfg.compute_dtype), losses=losses,
@@ -1185,7 +1252,9 @@ def phase_kernel_train(seed: int) -> dict:
             fwd_in, bwd_in = _train_kernel_inputs(n, t, h, gen, r_dtype)
             got_f = klt.lstm_train_fwd(*fwd_in)
             ref_f = klt.lstm_train_fwd_reference(*fwd_in)
+            before = klt.LAUNCHES["lstm_train_bwd"]
             got_b = klt.lstm_train_bwd(*bwd_in)
+            bwd_launches = klt.LAUNCHES["lstm_train_bwd"] - before
             ref_b = klt.lstm_train_bwd_reference(*bwd_in)
             torch.cuda.synchronize()
             errs = {}
@@ -1199,7 +1268,8 @@ def phase_kernel_train(seed: int) -> dict:
                 errs[name + "_mean"] = float(d.mean()) / scale
             finite = all(bool(torch.isfinite(x).all()) for x in (*got_f, *got_b))
             log("kernel_train", n=n, t=t, h=h, r_dtype=str(r_dtype),
-                finite=finite, err=errs, tol_fwd_abs=TRAIN_FWD_TOL,
+                finite=finite, err=errs, bwd_launches=bwd_launches,
+                tol_fwd_abs=TRAIN_FWD_TOL,
                 tol_fwd_mean=TRAIN_FWD_TOL_MEAN, tol_bwd_rel=TRAIN_BWD_TOL,
                 tol_bwd_mean_rel=TRAIN_BWD_TOL_MEAN)
             worst["lstm_train_fwd"] = max(worst["lstm_train_fwd"], errs["y"],
@@ -1214,9 +1284,10 @@ def phase_kernel_train(seed: int) -> dict:
                        else (TRAIN_BWD_TOL_MEAN if mean else TRAIN_BWD_TOL))
                 if not e <= tol:
                     bad[k] = e
-            if bad or not finite:
+            if bad or not finite or bwd_launches != 1:
                 raise AssertionError(f"training kernels vs twins at "
-                                     f"{(n, t, h, r_dtype)}: {bad}")
+                                     f"{(n, t, h, r_dtype)}: {bad}, E launches "
+                                     f"{bwd_launches}")
     return worst
 
 

@@ -25,39 +25,64 @@
 // What bounds them on an H100: the [rows, J] x [J, V] products, 2 R J V
 // flops each (135 GFLOP at N 16, T 49, U1 41, J 1024, V 2048; F does one,
 // G three, H two), against a few tens of MB of inputs and outputs: all
-// three are compute-bound. The kernels exist to keep the [rows, V] logits
-// and dlogits out of device memory, as the TPU kernels kept them in VMEM:
-// here a block owns a tile of BM rows (BT frames x BU labels of one
-// utterance), holds w(h) for its rows in shared memory and walks V in
-// tiles, recomputing the logits tile by tile:
+// three are compute-bound, at the tensor cores' rate (989 TFLOP/s bf16).
+//
+// F and G keep the [rows, V] logits and dlogits out of device memory, as
+// the TPU kernels kept them in VMEM: a block owns a tile of BM rows (BT
+// frames x BU labels of one utterance), holds w(h) for its rows in shared
+// memory and walks V in tiles, recomputing the logits tile by tile:
 //   - the products are bf16 WMMA fragments (mma.sync 16x16x16) with
 //     float32 accumulation when W_out is bf16, and a plain float32 loop
 //     when W_out is float32 (no tensor-core mode is exact in float32);
 //     W_out reaches shared memory in 64-row chunks by 16-byte cp.async
 //     copies, the next chunk in flight while the current one is
-//     multiplied; wgmma/TMA pipelines are later work;
+//     multiplied;
 //   - F keeps an online max/sum per row over the V tiles;
 //   - G makes two passes over V: the first finds lse, the second forms
 //     dlogits and accumulates w(dlogits) @ W_out^T into a [BM, J] float32
 //     block. With bf16 W_out that block lives in the WMMA accumulators of
 //     16 warps, and each 32-column tile of W_out is staged once per pass
 //     for both of its products; with float32 W_out it sits in shared
-//     memory and W_out is staged in chunks as for F;
-//   - H's blocks own a 32-column V tile and a group of row tiles each.
-//     With bf16 W_out the block keeps its [J, 32] column tile of W_out in
-//     shared memory and its [J, 32] dW block in the WMMA accumulators of
-//     16 warps, and rebuilds w(h) and the tile's logits per row tile; with
-//     float32 W_out the dW block sits in shared memory.
-// With bf16 W_out, G and H take J up to 1024 (16 warps x 4 accumulator
+//     memory and W_out is staged in chunks as for F.
+// With bf16 W_out, G takes J up to 1024 (16 warps x 4 accumulator
 // fragments of 16 columns); a larger J is refused, not run elsewhere.
+//
+// H with bf16 W_out is built for Hopper's tensor cores instead. Recomputing
+// w(h) and the logits inside every V tile (the first design: 64 rebuilds
+// of w(h) per row, 16x16 WMMA fragments fed from shared memory, nothing
+// pipelined) left it 35x its bound. Now the lattice rows go in chunks
+// (dw_plan in ops/kernels/joint_lp.py keeps the scratch under a cap the
+// wrapper states; one chunk at the main path's shape), and per chunk:
+//   1. joint_dw_fill makes w(h) once per row into a bf16 scratch
+//      [rows_c, jp] (66 MB at the main shape);
+//   2. joint_dw_tc<false>, the logits product [rows_c, J] x [J, V]: a
+//      128 x 128 tile per block, 64-deep K stages of w(h) (K-major) and
+//      W_out (MN-major, wgmma's transposed B) brought by TMA
+//      (cp.async.bulk.tensor, 128-byte swizzle) into a ring of 5 stages
+//      with full/empty mbarriers, one producer thread, and two consumer
+//      warpgroups issuing wgmma.mma_async m64n128k16 with float32 sums in
+//      registers. The epilogue forms dlogits in registers from G's lse,
+//      the cotangents and the labels, writes w(dlogits) to a bf16 scratch
+//      [rows_c, vp] (132 MB) and the tile's column sums of the float32
+//      dlogits, db's partials;
+//   3. joint_dw_tc<true>, dW = w(h)^T w(dlogits): the same kernel with
+//      both operands MN-major from the two scratches (w(h)^T needs no
+//      copy: wgmma transposes 16-bit operands in its descriptor), K the
+//      chunk's rows, split over blockIdx.z into partials when the J x V
+//      tiles alone would leave SMs idle;
+//   4. joint_dw_fold adds the group partials and db's row-tile partials
+//      to dW and db in a fixed order.
+// No float atomics anywhere: dW and db are the same bits from run to run.
+//
 // The TPU kernels carried sums across a sequential grid (d_pred_proj over
 // t, dW/db over all rows). Blocks here run in no order, so every
-// cross-block sum goes through per-block partials and a second,
-// deterministic reduction pass: G writes [N, T, ceil(U1/BU), J] and
-// [N, ceil(T/BT), U1, J] partials, H one [J, V] slab and one [V] row per
-// row group. G and H are therefore two launches each (the main kernel and
-// its reduction); results do not change from run to run.
+// cross-block sum goes through partials and a deterministic reduction:
+// G writes [N, T, ceil(U1/BU), J] and [N, ceil(T/BT), U1, J] partials
+// and a second launch adds them; H with float32 W_out (one [J, V] slab
+// and one [V] row per row group, a 32-column V tile per block, the dW
+// block in shared memory) likewise.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,10 +96,10 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;    // F, G, and H with float32 W_out
-constexpr int THREADS_H = 512;  // H with bf16 W_out
-constexpr int MAXJF = 4;        // dW fragments along J per warp of that H
+constexpr int THREADS_H = 512;  // G with bf16 W_out
+constexpr int MAXJF = 4;        // dh fragments along J per warp of that G
 constexpr int BN = 64;    // V tile of F and G
-constexpr int BNH = 32;   // V tile of H
+constexpr int BNH = 32;   // V tile of G with bf16 W_out, and of H with float32
 constexpr int BK = 64;    // J chunk of W staged per step (also G's dh chunk)
 constexpr int MAX_SMEM = 232448;  // per-block limit on sm_90
 
@@ -366,9 +391,9 @@ struct Smem {
   static constexpr int BM = Tile<WT>::BT * Tile<WT>::BU;
   static constexpr int PAD = 16 / sizeof(WT);
   size_t hs, ws, cs, ds, acc, rows, total;
-  // kind 0: F; 1: G and 2: H with float32 W_out; 3: H and 4: G with
-  // bf16 W_out, whose ws holds a whole [Jp, BNH] column tile of W_out and
-  // whose acc is two 16 x 16 float32 staging tiles per warp
+  // kind 0: F; 1: G and 2: H with float32 W_out; 4: G with bf16 W_out,
+  // whose ws holds a whole [Jp, BNH] column tile of W_out and whose acc
+  // is two 16 x 16 float32 staging tiles per warp
   __host__ __device__ Smem(int Jp, int kind) {
     const int w = kind >= 2 ? BNH : BN;
     size_t o = 0;
@@ -687,92 +712,6 @@ joint_dw_kernel(const float* enc, const float* pred, const WT* w,
     part_b[(size_t)g * s.V + v0 + threadIdx.x] = db;
 }
 
-// H with bf16 W_out, on tensor cores throughout: the block's [Jp, BNH]
-// column tile of W_out stays in shared memory, and the [Jp, BNH] dW block
-// accumulates in the warps' WMMA fragments (warp w owns J fragments
-// w, w + 16, ...), so a row tile costs w(h), one [BM, Jp] x [Jp, BNH]
-// product and one [Jp, BM] x [BM, BNH] product, with no staging of W.
-__global__ void __launch_bounds__(THREADS_H, 1)
-joint_dw_kernel_bf16(const float* enc, const float* pred, const bf16* w,
-                     const float* bias, const int* labels, const float* glpb,
-                     const float* glpe, const float* lse_in, float* part_w,
-                     float* part_b, int tiles_per_group, Shape s) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<bf16> L(s.Jp, 3);
-  constexpr int BM = Smem<bf16>::BM, PAD = Smem<bf16>::PAD;
-  bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
-  bf16* wv = reinterpret_cast<bf16*>(smem + L.ws);
-  float* cs = reinterpret_cast<float*>(smem + L.cs);
-  bf16* ds = reinterpret_cast<bf16*>(smem + L.ds);
-  RowInfo* ri = reinterpret_cast<RowInfo*>(smem + L.rows);
-  float* stage_all = reinterpret_cast<float*>(smem + L.acc);
-  const int ldh = s.Jp + PAD, ldw = BNH + PAD, ldd = BNH + PAD, ldc = BNH + 4;
-  const int v0 = blockIdx.x * BNH, g = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  stage_w<bf16, BNH>(wv, ldw, w, 0, s.Jp, v0, s);
-  cp_async_commit();
-  cp_async_wait<0>();
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAXJF][BNH / 16];
-#pragma unroll
-  for (int q = 0; q < MAXJF; ++q)
-#pragma unroll
-    for (int f = 0; f < BNH / 16; ++f) wmma::fill_fragment(acc[q][f], 0.f);
-  float db = 0.f;  // thread vv < BNH: this group's sum of column v0 + vv
-  const int n_tiles = s.N * s.nTB * s.nUB;
-  const int first = g * tiles_per_group;
-  const int last = min(first + tiles_per_group, n_tiles);
-  for (int tile = first; tile < last; ++tile) {
-    int n, t0, u0;
-    __syncthreads();
-    setup_rows<bf16>(tile, s, ri, n, t0, u0, labels, glpb, glpe, lse_in);
-    __syncthreads();
-    fill_h<bf16>(hs, ldh, ri, n, s, enc, pred);
-    __syncthreads();
-    logits_ksplit(hs, ldh, wv, ldw, cs, ldc, stage_all, s);
-    dlogits_tile<bf16, BNH>(cs, ds, ri, v0, s, bias);
-    if (threadIdx.x < BNH)
-      for (int i = 0; i < BM; ++i) db += cs[i * ldc + threadIdx.x];
-    // dW[J x BNH] += w(h)^T @ w(dlogits)
-#pragma unroll
-    for (int q = 0; q < MAXJF; ++q) {
-      const int j0 = (warp + q * nwarps) * 16;
-      if (j0 >= s.Jp) continue;
-#pragma unroll
-      for (int k0 = 0; k0 < BM; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-        wmma::load_matrix_sync(fa, hs + k0 * ldh + j0, ldh);
-#pragma unroll
-        for (int f = 0; f < BNH / 16; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, ds + k0 * ldd + f * 16, ldd);
-          wmma::mma_sync(acc[q][f], fa, fb, acc[q][f]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  float* stage = stage_all + warp * 256;
-#pragma unroll
-  for (int q = 0; q < MAXJF; ++q) {
-    const int j0 = (warp + q * nwarps) * 16;
-    if (j0 >= s.Jp) continue;
-#pragma unroll
-    for (int f = 0; f < BNH / 16; ++f) {
-      wmma::store_matrix_sync(stage, acc[q][f], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int j = j0 + e / 16, v = v0 + f * 16 + e % 16;
-        if (j < s.J && v < s.V) part_w[((size_t)g * s.J + j) * s.V + v] = stage[e];
-      }
-      __syncwarp();
-    }
-  }
-  if (threadIdx.x < BNH && v0 + threadIdx.x < s.V)
-    part_b[(size_t)g * s.V + v0 + threadIdx.x] = db;
-}
-
 __global__ void joint_dw_reduce(const float* part_w, const float* part_b,
                                 float* dw, float* db, int groups, Shape s) {
   const size_t n_w = (size_t)s.J * s.V;
@@ -785,6 +724,349 @@ __global__ void joint_dw_reduce(const float* part_w, const float* part_b,
     } else {
       for (int g = 0; g < groups; ++g) sum += part_b[(size_t)g * s.V + idx - n_w];
       db[idx - n_w] = sum;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// H with bf16 W_out: per chunk of lattice rows, w(h) once, then two TMA +
+// wgmma products (the logits with the dlogits epilogue, and dW)
+// ---------------------------------------------------------------------------
+
+constexpr int GM = 128;        // product tile rows: two consumer warpgroups x 64
+constexpr int GN = 128;        // product tile columns: one m64n128k16 per warpgroup
+constexpr int GK = 64;         // K per stage: one 128-byte swizzle row of bf16
+constexpr int GTHREADS = 288;  // warps 0-7: two wgmma warpgroups; warp 8: TMA
+constexpr int BOX = 64 * 64 * 2;  // one {64, 64} bf16 TMA box, 128B-swizzled
+constexpr int STAGE = 4 * BOX;    // A: 2 boxes, B: 2 boxes
+// Ring depth: the logits pass runs 4,032 short tiles (K 1024) at the
+// main shape, so it takes 3 stages and two blocks per SM, one block's
+// epilogue under the other's products; the dW pass runs ~128 long tiles
+// (K = the chunk's rows), one block per SM with 5 stages.
+template <bool DW> struct Ring {
+  static constexpr int STAGES = DW ? 5 : 3;
+  static constexpr int BLOCKS_PER_SM = DW ? 1 : 2;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8 + 8 * GN * 4;
+};
+constexpr int ERR_TENSOR_MAP = 100001;
+
+struct DwChunk {
+  const float* bias;
+  const int* labels;
+  const float* glpb;
+  const float* glpe;
+  const float* lse;
+  bf16* d;        // [rows_c, vp] w(dlogits)
+  float* dbpart;  // [ceil(rows_c / GM), V] column sums of dlogits per row tile
+  float* part;    // [groups, J, V] dW partials
+  int r0, rows_c, T, U1, J, V, vp, blank;
+  int k_iters;    // logits: Jp / GK; dW: K stages per group
+  int k_total;    // dW: K stages of the chunk
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// returns once the phase of parity `parity` has completed; traps after
+// ~2^35 cycles (~20 s), so that a lost transfer is an error, not a hang
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > (1ll << 35)) asm volatile("trap;");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// box {c0 (inner), c1 (outer)} of `map` into shared memory at dst,
+// completion counted on bar; out-of-range elements arrive as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
+                                         int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128B-swizzled operand at addr.
+// K-major: sbo steps between 8-row groups (lbo unused). MN-major: lbo
+// steps between 64-element atoms along M/N, sbo between 8-row groups
+// along K.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator registers across the
+// asynchronous products
+__device__ __forceinline__ void acc_fence(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128], bf16 in, float32 sums; A K-major
+// (TA 0) or MN-major (TA 1), B MN-major
+template <int TA>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
+}
+
+// w(h) of the chunk's rows [r0, r0 + rows_c) into hs [rows_c, jp], zero
+// for J <= j < jp. A thread owns 8 columns of one frame (n, t), reads that
+// stretch of enc_proj once and walks the frame's labels u that fall in
+// the chunk, one 16-byte store per row.
+__global__ void joint_dw_fill(const float* enc, const float* pred, bf16* hs, int r0,
+                              int rows_c, int N, int T, int U1, int J, int jp) {
+  const int per_row = jp / 8;
+  const int f0 = r0 / U1, f1 = (r0 + rows_c - 1) / U1;  // frames n T + t touched
+  const size_t total = (size_t)(f1 - f0 + 1) * per_row;
+  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    const int f = f0 + (int)(idx / per_row), j0 = (int)(idx % per_row) * 8;
+    const int n = f / T;
+    float e[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) e[k] = j0 + k < J ? enc[(size_t)f * J + j0 + k] : 0.f;
+    const int ub = max(0, r0 - f * U1), ue = min(U1, r0 + rows_c - f * U1);
+    for (int u = ub; u < ue; ++u) {
+      const float* q = pred + ((size_t)n * U1 + u) * J;
+      __align__(16) bf16 out[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int j = j0 + k;
+        out[k] = __float2bfloat16_rn(j < J ? tanhf(e[k] + q[j]) : 0.f);
+      }
+      const size_t rl = (size_t)f * U1 + u - r0;
+      *reinterpret_cast<uint4*>(hs + rl * jp + j0) = *reinterpret_cast<const uint4*>(out);
+    }
+  }
+}
+
+// One GM x GN tile of a product over K in GK-deep stages, A and B bf16
+// through TMA into a GSTAGES ring (full/empty mbarriers), the float32 sum
+// in the registers of two consumer warpgroups (64 rows each).
+//   DW false, the logits: A = w(h) [rows_c, jp] K-major (tile rows m0..,
+//     K along J), B = W_out [J, vw] MN-major; the epilogue forms dlogits
+//     from G's lse, writes w(dlogits) to p.d and the tile's column sums
+//     of the float32 dlogits to p.dbpart.
+//   DW true, dW: A = w(h)^T, the same scratch read MN-major (tile rows =
+//     J, K along the chunk's rows), B = w(dlogits) [rows_c, vp] MN-major;
+//     K split over blockIdx.z into p.part[z].
+template <bool DW>
+__global__ void __launch_bounds__(GTHREADS, Ring<DW>::BLOCKS_PER_SM)
+joint_dw_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+            DwChunk p) {
+  constexpr int GSTAGES = Ring<DW>::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full0 = base + GSTAGES * STAGE, empty0 = full0 + GSTAGES * 8;
+  float* red = reinterpret_cast<float*>(smem + GSTAGES * STAGE + 2 * GSTAGES * 8);
+  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
+  const int kb = DW ? blockIdx.z * p.k_iters : 0;
+  const int nk = DW ? min(p.k_iters, p.k_total - kb) : p.k_iters;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {  // producer: one thread keeps the ring full
+    if (lane == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % GSTAGES;
+        const uint32_t full = full0 + 8 * s, st = base + s * STAGE;
+        mbar_wait(empty0 + 8 * s, ((i / GSTAGES) & 1) ^ 1);
+        mbar_expect_tx(full, STAGE);
+        const int k = (kb + i) * GK;
+        if (DW) {
+          tma_load(st, &ta, m0, k, full);
+          tma_load(st + BOX, &ta, m0 + 64, k, full);
+        } else {
+          tma_load(st, &ta, k, m0, full);
+          tma_load(st + BOX, &ta, k, m0 + 64, full);
+        }
+        tma_load(st + 2 * BOX, &tb, n0, k, full);
+        tma_load(st + 3 * BOX, &tb, n0 + 64, k, full);
+      }
+    }
+    return;
+  }
+  const int c = warp / 4, w4 = warp % 4;  // consumer warpgroup, warp in it
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % GSTAGES;
+    mbar_wait(full0 + 8 * s, (i / GSTAGES) & 1);
+    const uint32_t a_st = base + s * STAGE + c * BOX, b_st = base + s * STAGE + 2 * BOX;
+    acc_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GK / 16; ++kk) {
+      const uint64_t da = DW ? gmma_desc(a_st + kk * 2048, 1024, 1024)
+                             : gmma_desc(a_st + kk * 32, 16, 1024);
+      const uint64_t db = gmma_desc(b_st + kk * 2048, BOX, 1024);
+      wgmma_m64n128<DW ? 1 : 0>(acc, da, db);
+    }
+    wgmma_commit();
+    acc_fence(acc);
+    wgmma_wait_all();
+    acc_fence(acc);
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+  // accumulator element i of this thread: row 16 w4 + lane / 4 + 8 ((i / 2) % 2)
+  // of the warpgroup's 64, column 8 (i / 4) + 2 (lane % 4) + i % 2
+  const int row0 = m0 + c * 64 + w4 * 16 + lane / 4;
+  if (DW) {
+    const size_t gbase = (size_t)blockIdx.z * p.J;
+#pragma unroll
+    for (int nb = 0; nb < GN / 8; ++nb) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = row0 + 8 * h;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int v = n0 + nb * 8 + (lane % 4) * 2 + e;
+          if (j < p.J && v < p.V) p.part[(gbase + j) * p.V + v] = acc[nb * 4 + 2 * h + e];
+        }
+      }
+    }
+    return;
+  }
+  // the two rows of this thread: lse, cotangents, label
+  const int U = p.U1 - 1;
+  bool ok[2];
+  float lse[2], gb[2], ge[2];
+  int lab[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = row0 + 8 * h;
+    ok[h] = rl < p.rows_c;
+    lse[h] = gb[h] = ge[h] = 0.f;
+    lab[h] = -1;
+    if (ok[h]) {
+      const int r = p.r0 + rl, n = r / (p.T * p.U1), rem = r - n * p.T * p.U1;
+      const int t = rem / p.U1, u = rem - t * p.U1;
+      lse[h] = p.lse[r];
+      gb[h] = p.glpb[r];
+      if (u < U) {
+        ge[h] = p.glpe[((size_t)n * p.T + t) * U + u];
+        lab[h] = p.labels[n * U + u];
+      }
+    }
+  }
+  float* red_w = red + (c * 4 + w4) * GN;
+#pragma unroll
+  for (int nb = 0; nb < GN / 8; ++nb) {
+    const int v0 = n0 + nb * 8 + (lane % 4) * 2;
+    float d[2][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int v = v0 + e;
+      const float bv = v < p.V ? p.bias[v] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x = 0.f;
+        if (ok[h] && v < p.V) {
+          const float pr = expf(acc[nb * 4 + 2 * h + e] + bv - lse[h]);
+          x = (v == p.blank ? gb[h] : 0.f) + (v == lab[h] ? ge[h] : 0.f) -
+              pr * (gb[h] + ge[h]);
+        }
+        d[h][e] = x;
+      }
+      // this warp's 16 rows of column v: lanes of equal lane % 4
+      float cs = d[0][e] + d[1][e];
+      cs += __shfl_xor_sync(0xffffffffu, cs, 4);
+      cs += __shfl_xor_sync(0xffffffffu, cs, 8);
+      cs += __shfl_xor_sync(0xffffffffu, cs, 16);
+      if (lane < 4) red_w[nb * 8 + lane * 2 + e] = cs;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = row0 + 8 * h;
+      if (ok[h] && v0 < p.vp)
+        *reinterpret_cast<__nv_bfloat162*>(p.d + (size_t)rl * p.vp + v0) =
+            __floats2bfloat162_rn(d[h][0], d[h][1]);
+    }
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumer warps only
+  const int ct = threadIdx.x;
+  if (ct < GN && n0 + ct < p.V) {
+    float sum = 0.f;
+    for (int w = 0; w < 8; ++w) sum += red[w * GN + ct];
+    p.dbpart[(size_t)blockIdx.y * p.V + n0 + ct] = sum;
+  }
+}
+
+// dW (+)= sum over groups of the partials, db (+)= sum over row tiles of
+// the column sums; first: the chunk is the first, nothing to add to
+__global__ void joint_dw_fold(const float* part, int groups, const float* dbpart,
+                              int mtiles, float* dw, float* db, int J, int V, int first) {
+  const size_t n_w = (size_t)J * V;
+  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n_w + V;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    if (idx < n_w) {
+      float sum = first ? 0.f : dw[idx];
+      for (int g = 0; g < groups; ++g) sum += part[g * n_w + idx];
+      dw[idx] = sum;
+    } else {
+      const size_t v = idx - n_w;
+      float sum = first ? 0.f : db[v];
+      for (int m = 0; m < mtiles; ++m) sum += dbpart[(size_t)m * V + v];
+      db[v] = sum;
     }
   }
 }
@@ -868,40 +1150,130 @@ int dx(const void* enc, const void* pred, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-template <typename WT>
-int dw(const void* enc, const void* pred, const void* w, const void* b,
-       const void* labels, const void* glpb, const void* glpe, const void* lse,
-       void* dwo, void* dbo, void* part_w, void* part_b, int groups, int N,
-       int T, int U1, int J, int V, int blank, cudaStream_t st) {
-  constexpr bool TC = std::is_same<WT, bf16>::value;
+// H with float32 W_out (bf16 W_out takes dw_tc below)
+int dw_f32(const void* enc, const void* pred, const void* w, const void* b,
+           const void* labels, const void* glpb, const void* glpe, const void* lse,
+           void* dwo, void* dbo, void* part_w, void* part_b, int groups, int N,
+           int T, int U1, int J, int V, int blank, cudaStream_t st) {
+  using WT = float;
   const Shape s = make_shape<WT>(N, T, U1, J, V, blank);
-  if (TC && s.Jp > (THREADS_H / 32) * MAXJF * 16) return (int)cudaErrorInvalidValue;
-  const Smem<WT> L(s.Jp, TC ? 3 : 2);
+  const Smem<WT> L(s.Jp, 2);
   const int n_tiles = N * s.nTB * s.nUB;
   const int per = (n_tiles + groups - 1) / groups;
   dim3 grid((V + BNH - 1) / BNH, groups);
   cudaError_t err;
-  if constexpr (TC) {
-    err = prepare(joint_dw_kernel_bf16, L.total);
-    if (err != cudaSuccess) return (int)err;
-    joint_dw_kernel_bf16<<<grid, THREADS_H, L.total, st>>>(
-        (const float*)enc, (const float*)pred, (const bf16*)w, (const float*)b,
-        (const int*)labels, (const float*)glpb, (const float*)glpe,
-        (const float*)lse, (float*)part_w, (float*)part_b, per, s);
-  } else {
-    err = prepare(joint_dw_kernel<WT>, L.total);
-    if (err != cudaSuccess) return (int)err;
-    joint_dw_kernel<WT><<<grid, THREADS, L.total, st>>>(
-        (const float*)enc, (const float*)pred, (const WT*)w, (const float*)b,
-        (const int*)labels, (const float*)glpb, (const float*)glpe,
-        (const float*)lse, (float*)part_w, (float*)part_b, per, s);
-  }
+  err = prepare(joint_dw_kernel<WT>, L.total);
+  if (err != cudaSuccess) return (int)err;
+  joint_dw_kernel<WT><<<grid, THREADS, L.total, st>>>(
+      (const float*)enc, (const float*)pred, (const WT*)w, (const float*)b,
+      (const int*)labels, (const float*)glpb, (const float*)glpe,
+      (const float*)lse, (float*)part_w, (float*)part_b, per, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   joint_dw_reduce<<<grid_1d((size_t)J * V + V), THREADS, 0, st>>>(
       (const float*)part_w, (const float*)part_b, (float*)dwo, (float*)dbo,
       groups, s);
   return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, a driver-API function, reached through the
+// runtime so that the library needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(f);
+  }
+  return fn;
+}
+
+// a row-major bf16 [outer, inner] tensor with rows of row_bytes, read in
+// {64, 64} boxes with the 128-byte swizzle wgmma's descriptors describe
+bool tensor_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer,
+                uint64_t row_bytes) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// H with bf16 W_out (vw: W_out's row length, V rounded up to 8) over the
+// lattice rows in chunks of chunk_rows (a multiple of GM): per chunk, w(h)
+// into hs, the logits product into d and dbpart, the dW product into
+// `groups` partials, and their fold into dW and db: four launches.
+int dw_tc(const float* enc, const float* pred, const bf16* w, int vw, const float* b,
+          const int* labels, const float* glpb, const float* glpe, const float* lse,
+          float* dwo, float* dbo, bf16* hs, bf16* d, float* dbpart, float* part, int N,
+          int T, int U1, int J, int V, int blank, int jp, int vp, int chunk_rows,
+          int groups, cudaStream_t st) {
+  if (jp % GK || jp < J || vp % 8 || vp < V || vw % 8 || vw < V || chunk_rows <= 0 ||
+      chunk_rows % GM || groups <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(joint_dw_tc<false>, Ring<false>::SMEM);
+  if (err == cudaSuccess) err = prepare(joint_dw_tc<true>, Ring<true>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tw;
+  if (!tensor_map(&tw, w, vw, J, (uint64_t)vw * 2)) return ERR_TENSOR_MAP;
+  const int rows = N * T * U1;
+  for (int r0 = 0; r0 < rows; r0 += chunk_rows) {
+    const int rc = min(chunk_rows, rows - r0);
+    const size_t frames = (size_t)((r0 + rc - 1) / U1 - r0 / U1 + 1);
+    joint_dw_fill<<<grid_1d(frames * jp / 8), THREADS, 0, st>>>(enc, pred, hs, r0, rc, N,
+                                                                T, U1, J, jp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    CUtensorMap th, td;
+    if (!tensor_map(&th, hs, jp, rc, (uint64_t)jp * 2) ||
+        !tensor_map(&td, d, vp, rc, (uint64_t)vp * 2))
+      return ERR_TENSOR_MAP;
+    DwChunk p;
+    p.bias = b;
+    p.labels = labels;
+    p.glpb = glpb;
+    p.glpe = glpe;
+    p.lse = lse;
+    p.d = d;
+    p.dbpart = dbpart;
+    p.part = part;
+    p.r0 = r0;
+    p.rows_c = rc;
+    p.T = T;
+    p.U1 = U1;
+    p.J = J;
+    p.V = V;
+    p.vp = vp;
+    p.blank = blank;
+    p.k_iters = jp / GK;
+    p.k_total = 0;
+    const int mtiles = (rc + GM - 1) / GM;
+    joint_dw_tc<false><<<dim3((V + GN - 1) / GN, mtiles), GTHREADS, Ring<false>::SMEM, st>>>(
+        th, tw, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    p.k_total = (rc + GK - 1) / GK;
+    p.k_iters = (p.k_total + groups - 1) / groups;
+    joint_dw_tc<true><<<dim3((V + GN - 1) / GN, (J + GM - 1) / GM, groups), GTHREADS,
+                        Ring<true>::SMEM, st>>>(th, td, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    joint_dw_fold<<<grid_1d((size_t)J * V + V), THREADS, 0, st>>>(
+        part, groups, dbpart, mtiles, dwo, dbo, J, V, r0 == 0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -919,7 +1291,6 @@ int joint_lp_scratch(int N, int T, int U1, int J, int V, int w_is_bf16,
   if (w_is_bf16) {
     s = make_shape<bf16>(N, T, U1, J, V, 0);
     smem = Smem<bf16>(s.Jp, 4).total;
-    if (Smem<bf16>(s.Jp, 3).total > smem) smem = Smem<bf16>(s.Jp, 3).total;
   } else {
     s = make_shape<float>(N, T, U1, J, V, 0);
     smem = Smem<float>(s.Jp, 1).total;
@@ -960,23 +1331,40 @@ int joint_lp_dx(const void* enc, const void* pred, const void* w,
                   part_enc, part_pred, N, T, U1, J, V, blank, st);
 }
 
+// H with float32 W_out (bf16 W_out: joint_lp_dw_tc)
 int joint_lp_dw(const void* enc, const void* pred, const void* w,
                 const void* b, const void* labels, const void* glpb,
                 const void* glpe, const void* lse, void* dwo, void* dbo,
                 void* part_w, void* part_b, int groups, int N, int T, int U1,
-                int J, int V, int blank, int w_is_bf16, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  return w_is_bf16
-      ? dw<bf16>(enc, pred, w, b, labels, glpb, glpe, lse, dwo, dbo, part_w,
-                 part_b, groups, N, T, U1, J, V, blank, st)
-      : dw<float>(enc, pred, w, b, labels, glpb, glpe, lse, dwo, dbo, part_w,
-                  part_b, groups, N, T, U1, J, V, blank, st);
+                int J, int V, int blank, void* stream) {
+  return dw_f32(enc, pred, w, b, labels, glpb, glpe, lse, dwo, dbo, part_w, part_b,
+                groups, N, T, U1, J, V, blank, (cudaStream_t)stream);
+}
+
+// H with bf16 W_out on the tensor cores. w [J, vw] bf16 (vw = V rounded
+// up to 8, zero past V); scratch from the wrapper's plan
+// (ops/kernels/joint_lp.py:dw_plan): hs [chunk_rows, jp] and d
+// [chunk_rows, vp] bf16, dbpart [chunk_rows / 128, V] and part
+// [groups, J, V] float32. Outputs dwo [J, V], dbo [V] float32.
+int joint_lp_dw_tc(const void* enc, const void* pred, const void* w, int vw,
+                   const void* b, const void* labels, const void* glpb,
+                   const void* glpe, const void* lse, void* dwo, void* dbo, void* hs,
+                   void* d, void* dbpart, void* part, int N, int T, int U1, int J, int V,
+                   int blank, int jp, int vp, int chunk_rows, int groups, void* stream) {
+  return dw_tc((const float*)enc, (const float*)pred, (const bf16*)w, vw, (const float*)b,
+               (const int*)labels, (const float*)glpb, (const float*)glpe,
+               (const float*)lse, (float*)dwo, (float*)dbo, (bf16*)hs, (bf16*)d,
+               (float*)dbpart, (float*)part, N, T, U1, J, V, blank, jp, vp, chunk_rows,
+               groups, (cudaStream_t)stream);
 }
 
 const char* joint_lp_error_string(int code) {
+  if (code == ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled refused a tensor map (or the driver lacks it)";
   if (code == (int)cudaErrorInvalidValue)
     return "invalid value (J too large: shared memory above the per-block "
-           "limit, or above 1024 for G and H with bf16 W_out)";
+           "limit, or above 1024 for G with bf16 W_out; or H's scratch plan "
+           "out of shape)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -10,6 +10,7 @@ A failed build raises; nothing falls back to the plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -88,6 +89,15 @@ def build(names) -> dict[str, float]:
         raise RuntimeError("libreasr_tpu_torch: kernel build failed: "
                            + "\n".join(failed))
     return seconds
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device: the launch plans of
+    kernels E and H size their grids by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def load(name: str) -> ctypes.CDLL:

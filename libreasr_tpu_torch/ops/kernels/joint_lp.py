@@ -13,13 +13,22 @@ otherwise). Every other input is float32; labels are int32 [N, U1 - 1].
 
 Each wrapper takes its kernel for CUDA tensors and its plain twin for
 CPU tensors; a CUDA tensor never falls back. `LAUNCHES` counts one per
-wrapper call that launched its kernel (G and H are each a main kernel
-and its reduction pass).
+wrapper call that launched its kernel (G is a main kernel and its
+reduction pass; H with bf16 W_out four launches per chunk of lattice
+rows, planned by `dw_plan`: w(h), the logits product with the dlogits
+epilogue, the dW product and the fold; with float32 W_out a main kernel
+and its reduction).
+
+H with bf16 W_out keeps w(h) and w(dlogits) of a chunk of rows in bf16
+scratch that the wrapper allocates; `dw_plan` cuts the lattice into
+chunks so that the scratch stays under `scratch_cap` bytes
+(DW_SCRATCH_CAP unless the caller gives another).
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -94,6 +103,85 @@ def joint_lp_dw_reference(enc_proj, pred_proj, w_out, b_out, labels, g_lpb,
 
 
 # ---------------------------------------------------------------------------
+# H with bf16 W_out: the row-chunk plan, and the twin taken over it
+# ---------------------------------------------------------------------------
+
+DW_SCRATCH_CAP = 256 * 2**20   # bytes of H's scratch at most, by default
+DW_TILE = 128                  # rows and columns of a product tile
+DW_K = 64                      # K depth of a stage
+
+
+@dataclass(frozen=True)
+class DwPlan:
+    """H's walk over the R = N T U1 lattice rows (flat index
+    (n T + t) U1 + u): `chunks` are (first row, rows), in order, each at
+    most `chunk_rows` (a multiple of DW_TILE); within a chunk the dW
+    product's K (the rows) is cut into `groups` runs of `group_rows`.
+    jp, vp: w(h)'s and w(dlogits)' row lengths (J rounded up to 64, V to
+    8); `scratch_bytes`: all that the wrapper allocates for it."""
+    rows: int
+    jp: int
+    vp: int
+    chunk_rows: int
+    groups: int
+    scratch_bytes: int
+    chunks: tuple
+
+    def group_rows(self, rows_c: int) -> int:
+        k_total = -(-rows_c // DW_K)
+        return -(-k_total // self.groups) * DW_K
+
+
+def dw_plan(n: int, t: int, u1: int, j: int, v: int, cap: int,
+            sms: int) -> DwPlan:
+    """Chunks of lattice rows whose scratch fits `cap` bytes: per 128-row
+    tile, w(h) and w(dlogits) in bf16 (128 (jp + vp) 2 B) and a row of db
+    partials (4 V B); besides, `groups` float32 [J, V] dW partials and,
+    when V is not a multiple of 8, W_out padded to vp. Groups split the
+    dW product's K only when its J x V tiles alone would leave most of
+    the `sms` SMs idle, and keep at least 8 K stages each. Raises when
+    not even one tile fits."""
+    rows = n * t * u1
+    jp, vp = -(-j // 64) * 64, -(-v // 8) * 8
+    tiles_mn = -(-j // DW_TILE) * -(-v // DW_TILE)
+    groups = max(1, min(sms // tiles_mn, -(-rows // DW_K) // 8))
+    fixed = groups * j * v * 4 + (j * vp * 2 if v % 8 else 0)
+    tile_bytes = DW_TILE * (jp + vp) * 2 + 4 * v
+    tiles = min((cap - fixed) // tile_bytes, -(-rows // DW_TILE))
+    if tiles < 1:
+        raise ValueError(f"joint_lp_dw: a scratch cap of {cap} B holds no "
+                         f"{DW_TILE}-row chunk (needs {fixed + tile_bytes} B)")
+    chunk = tiles * DW_TILE
+    chunks = tuple((r0, min(chunk, rows - r0)) for r0 in range(0, rows, chunk))
+    return DwPlan(rows, jp, vp, chunk, groups, fixed + tiles * tile_bytes, chunks)
+
+
+def joint_lp_dw_chunked_reference(enc_proj, pred_proj, w_out, b_out, labels,
+                                  g_lpb, g_lpe, lse, plan: DwPlan, blank=0):
+    """The twin of H taken the way the bf16 kernel walks the lattice: per
+    chunk of `plan`, each group's dW partial over its rows, added to dW
+    in group order, chunk after chunk, and db's per-chunk sums likewise
+    (float32 throughout)."""
+    _, hq = _rows(enc_proj, pred_proj, w_out)
+    logits = _logits(hq, w_out, b_out)
+    d = _dlogits(logits, lse.float(), labels, g_lpb, g_lpe, blank)
+    j, v = w_out.shape
+    hq = hq.reshape(-1, j)
+    d = d.reshape(-1, v)
+    dq = d.to(w_out.dtype).float()
+    dw = torch.zeros((j, v), dtype=torch.float32, device=hq.device)
+    db = torch.zeros((v,), dtype=torch.float32, device=hq.device)
+    for r0, rc in plan.chunks:
+        step = plan.group_rows(rc)
+        part = [hq[a:b].t() @ dq[a:b] for a, b in
+                ((r0 + g * step, r0 + min((g + 1) * step, rc))
+                 for g in range(plan.groups))]
+        dw = dw + sum(part[1:], part[0])
+        db = db + d[r0:r0 + rc].sum(0)
+    return dw, db
+
+
+# ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 
@@ -109,8 +197,10 @@ def _lib():
         lib.joint_lp_fwd.restype = i
         lib.joint_lp_dx.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.joint_lp_dx.restype = i
-        lib.joint_lp_dw.argtypes = [p] * 12 + [i] * 8 + [p]
+        lib.joint_lp_dw.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.joint_lp_dw.restype = i
+        lib.joint_lp_dw_tc.argtypes = [p, p, p, i] + [p] * 11 + [i] * 10 + [p]
+        lib.joint_lp_dw_tc.restype = i
         lib.joint_lp_error_string.argtypes = [i]
         lib.joint_lp_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -232,10 +322,41 @@ def joint_lp_dx(enc_proj, pred_proj, w_out, b_out, labels, g_lpb, g_lpe,
     return d_enc, d_pred, lse
 
 
+def _dw_tensor_cores(lib, enc_proj, pred_proj, w_out, b_out, labels, g_lpb,
+                     g_lpe, lse, blank, cap):
+    """H with bf16 W_out: scratch from `dw_plan`, one C call that walks
+    the chunks."""
+    n, t, u1 = lse.shape
+    j, v = w_out.shape
+    dev = enc_proj.device
+    plan = dw_plan(n, t, u1, j, v, cap, build.sm_count(dev.index or 0))
+    # TMA reads W_out in rows of a multiple of 16 bytes
+    w = w_out if v % 8 == 0 else torch.nn.functional.pad(w_out, (0, plan.vp - v))
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    hs = torch.empty(plan.chunk_rows * plan.jp, **bf)
+    d = torch.empty(plan.chunk_rows * plan.vp, **bf)
+    dbpart = torch.empty(plan.chunk_rows // DW_TILE * v, **f32)
+    part = torch.empty(plan.groups * j * v, **f32)
+    dw = torch.empty((j, v), **f32)
+    db = torch.empty((v,), **f32)
+    with torch.cuda.device(dev):
+        rc = lib.joint_lp_dw_tc(
+            enc_proj.data_ptr(), pred_proj.data_ptr(), w.data_ptr(), w.shape[1],
+            b_out.data_ptr(), labels.data_ptr(), g_lpb.data_ptr(),
+            g_lpe.data_ptr(), lse.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            hs.data_ptr(), d.data_ptr(), dbpart.data_ptr(), part.data_ptr(),
+            n, t, u1, j, v, blank, plan.jp, plan.vp, plan.chunk_rows,
+            plan.groups, _stream(dev))
+    _run("joint_lp_dw", lib, rc)
+    return dw, db
+
+
 def joint_lp_dw(enc_proj, pred_proj, w_out, b_out, labels, g_lpb, g_lpe, lse,
-                blank: int = 0):
+                blank: int = 0, scratch_cap: int = DW_SCRATCH_CAP):
     """Kernel H, with G's lse. Returns (dW_out [J, V], db_out [V]), both
-    float32."""
+    float32. With bf16 W_out the kernel's scratch stays under
+    `scratch_cap` bytes (see `dw_plan`)."""
     fn = "joint_lp_dw"
     if _device(fn, enc_proj).type == "cpu":
         return joint_lp_dw_reference(enc_proj, pred_proj, w_out, b_out,
@@ -245,8 +366,12 @@ def joint_lp_dw(enc_proj, pred_proj, w_out, b_out, labels, g_lpb, g_lpe, lse,
         (("g_lpb", g_lpb, _G), ("g_lpe", g_lpe, _E), ("lse", lse, _G)))
     dev = enc_proj.device
     lib = _lib()
-    bf16 = w_out.dtype == torch.bfloat16
-    sizes = _scratch(lib, n, t, u1, j, v, bf16)
+    if w_out.dtype == torch.bfloat16:
+        out = _dw_tensor_cores(lib, enc_proj, pred_proj, w_out, b_out, labels,
+                               g_lpb, g_lpe, lse, blank, scratch_cap)
+        LAUNCHES[fn] += 1
+        return out
+    sizes = _scratch(lib, n, t, u1, j, v, False)
     f32 = dict(dtype=torch.float32, device=dev)
     dw = torch.empty((j, v), **f32)
     db = torch.empty((v,), **f32)
@@ -258,7 +383,7 @@ def joint_lp_dw(enc_proj, pred_proj, w_out, b_out, labels, g_lpb, g_lpe, lse,
             b_out.data_ptr(), labels.data_ptr(), g_lpb.data_ptr(),
             g_lpe.data_ptr(), lse.data_ptr(), dw.data_ptr(), db.data_ptr(),
             part_w.data_ptr(), part_b.data_ptr(), sizes[2],
-            n, t, u1, j, v, blank, int(bf16), _stream(dev))
+            n, t, u1, j, v, blank, _stream(dev))
     _run(fn, lib, rc)
     LAUNCHES[fn] += 1
     return dw, db

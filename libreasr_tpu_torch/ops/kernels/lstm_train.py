@@ -13,12 +13,16 @@ float32); h is rounded to it before D's product, and dv before E's, as
 in JAX. `lstm_train_fwd` and `lstm_train_bwd` take their kernel for
 CUDA tensors and their plain twins for CPU tensors; a CUDA tensor never
 falls back. `LAUNCHES` counts kernel launches: D launches once per
-timestep; E once per timestep and once more for dh0.
+timestep; E once per call (one persistent cooperative launch for all T
+steps and dh0, planned by `bwd_plan`: a shape whose grid could not be
+co-resident, or whose slice of R does not fit a block's shared memory,
+raises here and is never run another way).
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -81,14 +85,70 @@ def lstm_train_bwd_reference(dy, dc_in, v, c_seq, cprev, r):
     return torch.stack(dvs, 1), dh_s, dc_s
 
 
+# kernel E's launch geometry, as csrc/lstm_train.cu defines it
+E_THREADS = 512
+E_WARPS = E_THREADS // 32
+E_MAXC = 4          # (row, unit) pairs an epilogue thread owns
+MAX_SMEM = 227 * 1024
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """Kernel E's grid: block b owns hidden units [b * units, (b + 1) *
+    units) & [0, hidden) and keeps those rows of R in `smem` bytes of
+    shared memory; np, kp: the batch and 4H padded to the mma tiles."""
+    hidden: int
+    grid: int
+    units: int
+    smem: int
+    np: int
+    kp: int
+
+    def units_of(self, block: int) -> range:
+        return range(block * self.units, min((block + 1) * self.units, self.hidden))
+
+
+def bwd_smem_bytes(n: int, kp: int, units: int, r_itemsize: int) -> int:
+    """Shared memory of one block of E (csrc/lstm_train.cu's
+    bwd_smem_bytes): the R slice, rows padded by 64 B (bf16) or 16 B
+    (float32), and the warps' partial products."""
+    stride = kp + 32 if r_itemsize == 2 else kp + 4
+    red = (E_WARPS * (-(-n // 16)) * (units // 8) * 128 if r_itemsize == 2
+           else E_WARPS * n * units)
+    return units * stride * r_itemsize + 4 * red
+
+
+def bwd_plan(n: int, hidden: int, r_itemsize: int, sms: int) -> BwdPlan:
+    """Kernel E's partition of [0, hidden) over at most `sms` blocks (one
+    resident block per SM, which the launch checks against the occupancy
+    the card reports): 8 units a block, or 16 when 8 would need more
+    blocks than SMs. Raises where no partition fits."""
+    kp = -(-4 * hidden // 32) * 32
+    for units in (8, 16):
+        grid = -(-hidden // units)
+        smem = bwd_smem_bytes(n, kp, units, r_itemsize)
+        if smem > MAX_SMEM:
+            raise ValueError(
+                f"lstm_train_bwd: the slice of R ({units} rows of 4H = "
+                f"{4 * hidden}, {r_itemsize}-byte entries) needs {smem} B of "
+                f"shared memory, above the block's {MAX_SMEM}")
+        if n * units > E_MAXC * E_THREADS:
+            raise ValueError(f"lstm_train_bwd: batch {n} x {units} units is "
+                             f"above the epilogue's {E_MAXC * E_THREADS} pairs")
+        if grid <= sms:
+            return BwdPlan(hidden, grid, units, smem, -(-n // 16) * 16, kp)
+    raise ValueError(f"lstm_train_bwd: hidden size {hidden} needs more than "
+                     f"{sms} co-resident blocks")
+
+
 def _lib():
     lib = build.load(KERNEL)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lstm_train_forward.argtypes = [p, p, i, p, p, p, p, p, i, i, i, p]
         lib.lstm_train_forward.restype = i
-        lib.lstm_train_backward.argtypes = [p, p, p, p, p, p, i, p, p, p,
-                                            i, i, i, p]
+        lib.lstm_train_backward.argtypes = [p, p, p, p, p, p, i, p, p, p, p,
+                                            p, i, i, i, i, i, p]
         lib.lstm_train_backward.restype = i
         lib.lstm_train_error_string.argtypes = [i]
         lib.lstm_train_error_string.restype = ctypes.c_char_p
@@ -99,7 +159,8 @@ def _lib():
 
 
 def _prepare(fn, x, r):
-    """Checks shared by both wrappers; returns (lib, n, t, h)."""
+    """Checks shared by both wrappers; returns (lib, n, t, h); D's width
+    limit is checked by its wrapper, E's by its plan."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
     n, t = x.shape[:2]
@@ -109,11 +170,7 @@ def _prepare(fn, x, r):
     if r.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{fn}: R must be bfloat16 or float32, got {r.dtype}")
     _check("r", r, (h, 4 * h), r.dtype, x.device, fn)
-    lib = _lib()
-    if h > lib.lstm_train_max_hidden():
-        raise ValueError(f"{fn}: hidden size {h} exceeds the kernel's "
-                         f"{lib.lstm_train_max_hidden()}")
-    return lib, n, t, h
+    return _lib(), n, t, h
 
 
 def _raise_on(lib, fn, rc):
@@ -130,6 +187,9 @@ def lstm_train_fwd(wx, r, h0, c0):
         return lstm_train_fwd_reference(wx, r, h0, c0)
     fn = "lstm_train_fwd"
     lib, n, t, h = _prepare(fn, wx, r)
+    if h > lib.lstm_train_max_hidden():
+        raise ValueError(f"{fn}: hidden size {h} exceeds the kernel's "
+                         f"{lib.lstm_train_max_hidden()}")
     dev = wx.device
     _check("wx", wx, (n, t, 4 * h), torch.float32, dev, fn)
     _check("h0", h0, (n, h), torch.float32, dev, fn)
@@ -161,17 +221,26 @@ def lstm_train_bwd(dy, dc_in, v, c_seq, cprev, r):
     for name, x in (("dy", dy), ("dc_in", dc_in), ("c_seq", c_seq),
                     ("cprev", cprev)):
         _check(name, x, (n, t, h), torch.float32, dev, fn)
+    plan = bwd_plan(n, h, r.element_size(), build.sm_count(dev.index or 0))
+    bf16 = r.dtype == torch.bfloat16
     dv = torch.empty_like(v)
     dh0 = torch.empty((n, h), dtype=torch.float32, device=dev)
     dc0 = torch.empty_like(dh0)
+    # r(dv) exchanged between blocks, by step parity (bf16 R; float32 R
+    # exchanges dv itself); padding rows and columns stay zero
+    xbuf = (torch.zeros(2 * plan.np * plan.kp, dtype=torch.bfloat16, device=dev)
+            if bf16 else None)
+    bar = torch.empty(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.lstm_train_backward(
             dy.data_ptr(), dc_in.data_ptr(), v.data_ptr(), c_seq.data_ptr(),
-            cprev.data_ptr(), r.data_ptr(), int(r.dtype == torch.bfloat16),
-            dv.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), n, t, h, stream)
+            cprev.data_ptr(), r.data_ptr(), int(bf16), dv.data_ptr(),
+            dh0.data_ptr(), dc0.data_ptr(),
+            xbuf.data_ptr() if xbuf is not None else None, bar.data_ptr(),
+            n, t, h, plan.grid, plan.units, stream)
     _raise_on(lib, fn, rc)
-    LAUNCHES[fn] += t + 1
+    LAUNCHES[fn] += 1
     return dv, dh0, dc0
 
 

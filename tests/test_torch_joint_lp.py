@@ -88,3 +88,31 @@ def test_twins_match_chunked_path_past_u1_96():
     grads = vjp((jnp.asarray(gb), jnp.asarray(ge)))
     _check(_twins(enc, pred, w, b, lab, gb, ge, "float32"),
            [lpb, lpe, *grads], "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cap", [
+    ((3, 13, 9, 96, 40), kj.DW_SCRATCH_CAP),          # one chunk of 351 rows
+    ((2, 11, 101, 200, 300), kj.DW_SCRATCH_CAP),      # V off 8, row groups
+    ((4, 37, 21, 256, 512), 4 * 2**20),               # five chunks
+], ids=["golden-like", "odd", "chunked"])
+def test_dw_tensor_core_kernel_matches_twin_on_cuda(shape, cap):
+    """Kernel H with bf16 W_out (TMA + wgmma, over the rows in chunks)
+    against its twin, within chip_smoke.py's JOINT_GRAD_TOL (2e-3 of each
+    output's largest entry: summation order and the bf16 flips of
+    dlogits it can cause); twice on the same inputs, the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    enc, pred, w, b, lab, gb, ge = _inputs(*shape, seed=sum(shape))
+    x = [torch.from_numpy(a).cuda() for a in (enc, pred, w, b, lab, gb, ge)]
+    x[2] = x[2].bfloat16()
+    lse = kj.joint_lp_dx(*x)[2]
+    before = kj.LAUNCHES["joint_lp_dw"]
+    got = kj.joint_lp_dw(*x, lse, scratch_cap=cap)
+    again = kj.joint_lp_dw(*x, lse, scratch_cap=cap)
+    want = kj.joint_lp_dw_reference(*x, lse)
+    torch.cuda.synchronize()
+    assert kj.LAUNCHES["joint_lp_dw"] == before + 2
+    for a, r, c in zip(got, want, again):
+        assert torch.equal(a, c)
+        assert float((a - r).abs().max()) <= 2e-3 * float(r.abs().max())

@@ -280,9 +280,40 @@ def test_train_kernels_match_twins_on_cuda(n, t, h, r_dtype):
     want_b = klt.lstm_train_bwd_reference(dy, dc, v, c_seq, cprev, r)
     torch.cuda.synchronize()
     assert klt.LAUNCHES["lstm_train_fwd"] == before["lstm_train_fwd"] + t
-    assert klt.LAUNCHES["lstm_train_bwd"] == before["lstm_train_bwd"] + t + 1
+    assert klt.LAUNCHES["lstm_train_bwd"] == before["lstm_train_bwd"] + 1
     for a, b in zip(got, want):
         d = (a - b).abs()
         assert float(d.max()) <= 4e-3 and float(d.mean()) <= 2e-4
     for a, b in zip(got_b, want_b):
+        assert float((a - b).abs().max()) <= 4e-3 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,r_dtype", [(16, 1024, "bfloat16"), (4, 64, "float32"),
+                                         (3, 96, "bfloat16")])
+def test_bwd_kernel_one_step_on_cuda(n, h, r_dtype):
+    """E at T 1: no carried product, only dh0 = r(dv_0) @ R^T after the
+    step, in the same single launch; twice on the same inputs, the same
+    bits (tolerance as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(n + h)
+
+    def rnd(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            dtype=torch.float32).cuda()
+
+    wx, h0, c0 = rnd(n, 1, 4 * h), rnd(n, h, scale=0.5), rnd(n, h, scale=0.5)
+    r = rnd(h, 4 * h, scale=h ** -0.5).to(getattr(torch, r_dtype))
+    _, c_seq, v = klt.lstm_train_fwd_reference(wx, r, h0, c0)
+    dy, dc = rnd(n, 1, h, scale=0.1), rnd(n, 1, h, scale=0.1)
+    args = (dy, dc, v, c_seq, c0[:, None].contiguous(), r)
+    before = klt.LAUNCHES["lstm_train_bwd"]
+    got = klt.lstm_train_bwd(*args)
+    again = klt.lstm_train_bwd(*args)
+    want = klt.lstm_train_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert klt.LAUNCHES["lstm_train_bwd"] == before + 2
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, c)
         assert float((a - b).abs().max()) <= 4e-3 * float(b.abs().max())
