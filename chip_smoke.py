@@ -8,13 +8,17 @@ Phases, one line each (any failure raises and exits non-zero):
   2. build: compiles the CUDA sources (csrc/*.cu) with nvcc;
   3. kernel: the LSTM sequence kernel against its plain PyTorch twin on
      the card, with and without the streamed cell state, at the golden
-     and the full-width shapes (tolerance KERNEL_TOL);
+     and the full-width shapes, a batch of 300 (one launch) and of 600
+     (two batch slices), and an H whose slice of R is read from L2
+     (tolerance KERNEL_TOL); one cooperative launch per call and slice,
+     and a rerun on the same inputs gives the same bits;
   4. golden: the committed golden bundle must transcribe its 8 clips
      exactly, at 1 s (scan path) and zero-padded to 3 s (kernel path);
   5. full width: a seeded random model of config/base.yaml (6-layer
      LSTM encoder, H 1024, V 2048, bf16 compute) runs the main path:
      transcribe_batch on 16 ragged 6 s clips and encode without lengths,
-     with the launch counts read around that run; its encoder output
+     with the launch counts read around that run (one launch of kernel
+     B, or A, per encoder layer); its encoder output
      is held against the same model on the CPU (tolerance ENC_TOL), and
      the path is timed;
   6. kernel_int8: the int8 LSTM sequence kernel against its twin on the
@@ -40,7 +44,9 @@ Phases, one line each (any failure raises and exits non-zero):
      also across row-chunk boundaries (a small scratch cap, at a mid
      shape and at the main one; no lattice here has rows a multiple of
      the 128-row tile), and run twice on the same inputs at the main
-     shape with bit-identical dW and db; then rnnt_loss_fused on the
+     shape with bit-identical dW and db; G with bf16 W_out likewise across
+     frame-group chunks and twice (bit-identical d_enc_proj, d_pred_proj
+     and lse); then rnnt_loss_fused on the
      kernels against its chunked path on the card (loss relative error
      < 1e-3, every gradient's cosine > 0.999);
  11. kernel_train: the LSTM training kernels D (forward) and E (backward)
@@ -48,7 +54,7 @@ Phases, one line each (any failure raises and exits non-zero):
      path's shape (N 16, T 49, H 1024), a golden-like one (N 3, T 37,
      H 96), a ragged one (N 13, H 100: off the batch tile and the vector
      path), the small model's H 64 and T 1 (tolerances TRAIN_*); E is
-     one launch a call;
+     one launch a call; E also at N 300, one launch per batch slice;
  12. train_full_width: the training main path, 4 Learner steps of the
      config/base.yaml model as written (bf16 compute, the encoder's LSTM
      layers on kernels D and E; accumulation over 2 batches and an
@@ -67,7 +73,8 @@ Phases, one line each (any failure raises and exits non-zero):
      process) at full width on a corpus of noise WAVs written here: 2
      steps with an eval and a bundle export, then a resume to step 3;
      the bundle reloads on cuda and transcribes;
- 16. joint_timing and train_kernel_timing: F, G, H and D, E timed at the
+ 16. joint_timing and train_kernel_timing (G's and H's launches each by
+     device time under torch.profiler): F, G, H and D, E timed at the
      main path's shapes beside their twins and, for D and E, cuDNN's bf16
      LSTM in training (forward, backward) as the yardstick; for H also
      torch.matmul of its two bf16 products alone, as context.
@@ -145,6 +152,8 @@ TRAIN_BWD_TOL_MEAN = 2e-4
 # path), the small model's width, one step, the main path's (last)
 TRAIN_KERNEL_CASES = [(3, 37, 96), (13, 37, 100), (4, 49, 64), (16, 1, 1024),
                       (16, 49, 1024)]
+# E at a batch above one launch's epilogue owners (2 slices of bf16 R)
+TRAIN_BWD_SLICED_CASE = (300, 13, 1024)
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -244,21 +253,26 @@ def _pack_from_twin(y, yc, h0, c0, lengths):
 
 
 def phase_kernel(seed: int) -> dict:
-    """Kernel vs twin at several shapes; returns the largest error per
-    kernel name."""
+    """Kernel vs twin at several shapes, with the launches of each call
+    and a rerun on the same inputs (bit-identical); returns the largest
+    error per kernel name."""
     import torch
 
+    from libreasr_tpu_torch.ops.kernels import build
     from libreasr_tpu_torch.ops.kernels.lstm import (
-        lstm_pack, lstm_seq, lstm_seq_reference,
+        LAUNCHES, batch_slices, fwd_plan, lstm_pack, lstm_seq, lstm_seq_reference,
     )
     from libreasr_tpu_torch.ops.rnn import LSTMParams
 
     gen = torch.Generator().manual_seed(seed)
     # (N, T, H): golden encoder (T 37), N off the batch tile, an H off
-    # the 8-column vector path, the full-width main path, a long batch
+    # the 8-column vector path, the full-width main path, a long batch, a
+    # batch above one launch's (row, unit) owners (two slices), an H whose
+    # R slice does not fit shared memory (read from L2)
     cases = [(8, 37, 96), (13, 37, 96), (5, 17, 100), (16, 74, 1024),
-             (64, 200, 1024)]
+             (64, 200, 1024), (300, 37, 1024), (600, 9, 1024), (16, 20, 2048)]
     worst = {"lstm_seq": 0.0, "lstm_seq_cseq": 0.0}
+    sms = build.sm_count(0)
     for n, t, h in cases:
         def rnd(*shape, scale=1.0):
             return (torch.randn(shape, generator=gen) * scale).cuda()
@@ -266,9 +280,14 @@ def phase_kernel(seed: int) -> dict:
         wx = rnd(n, t, 4 * h)
         r = rnd(h, 4 * h, scale=1.0 / h ** 0.5)
         h0, c0 = rnd(n, h, scale=0.5), rnd(n, h, scale=0.5)
-        errs = {}
+        slices = batch_slices(n, fwd_plan, h, sms)
+        plan = fwd_plan(slices[0][1], h, sms)
+        errs, launches, identical = {}, {}, {}
         for stream_c, name in ((False, "lstm_seq"), (True, "lstm_seq_cseq")):
+            before = LAUNCHES[name]
             got = lstm_seq(wx, r, h0, c0, stream_c=stream_c)
+            launches[name] = LAUNCHES[name] - before
+            again = lstm_seq(wx, r, h0, c0, stream_c=stream_c)
             ref = lstm_seq_reference(wx, r, h0, c0, stream_c)
             torch.cuda.synchronize()
             pairs = [(a, b) for a, b in zip(got, ref) if a is not None]
@@ -276,6 +295,8 @@ def phase_kernel(seed: int) -> dict:
             errs[name] = err
             errs[name + "_mean"] = max(float((a - b).abs().mean())
                                        for a, b in pairs)
+            identical[name] = all(torch.equal(a, b) for a, b in zip(got, again)
+                                  if a is not None)
             worst[name] = max(worst[name], err)
         # pack semantics, lengths with 0 and T
         lengths = torch.randint(0, t + 1, (n,), generator=gen)
@@ -295,19 +316,25 @@ def phase_kernel(seed: int) -> dict:
                                 for a, b in zip((y, hf, cf), ref))
         worst["lstm_seq_cseq"] = max(worst["lstm_seq_cseq"], errs["pack"])
         log("kernel", n=n, t=t, h=h, abs_err=errs, tol_max=KERNEL_TOL,
-            tol_mean=KERNEL_TOL_MEAN)
+            tol_mean=KERNEL_TOL_MEAN, launches_per_call=launches,
+            slices=len(slices), grid=plan.grid, units=plan.units, kw=plan.kw,
+            r_resident=plan.resident, rerun_bit_identical=identical)
         bad = {k: v for k, v in errs.items() if not v <= (
             KERNEL_TOL_MEAN if k.endswith("_mean") else KERNEL_TOL)}
         if bad:
             raise AssertionError(f"kernel vs twin at {(n, t, h)}: {bad}")
+        if set(launches.values()) != {len(slices)} or not all(identical.values()):
+            raise AssertionError(f"kernel at {(n, t, h)}: launches {launches} for "
+                                 f"{len(slices)} slices, rerun identical {identical}")
     return worst
 
 
 def _golden_check(name: str, bundle, kernel: str) -> None:
     """The golden clips at 1 s (T 12: the scan cells, no kernel launch)
     and zero-padded to 3 s with the true lengths (T 37: `kernel` once per
-    step of each encoder layer), with the launch counts read around each
-    call; raises unless both give the 8 texts exactly with those counts."""
+    encoder layer, the int8 kernel once per step of each), with the launch
+    counts read around each call; raises unless both give the 8 texts
+    exactly with those counts."""
     import numpy as np
     import torch
 
@@ -327,7 +354,8 @@ def _golden_check(name: str, bundle, kernel: str) -> None:
         got[label] = (texts, dict(klstm.LAUNCHES))
     t_3s = int(bundle.frontend.out_length(torch.tensor(48000)))
     want_3s = {k: 0 for k in klstm.LAUNCHES}
-    want_3s[kernel] = bundle.cfg.enc_num_layers * t_3s
+    want_3s[kernel] = bundle.cfg.enc_num_layers * (
+        t_3s if kernel == "lstm_seq_int8" else 1)
     log(name, texts_1s=got["1s"][0], texts_3s=got["3s"][0],
         launches_1s=got["1s"][1], launches_3s=got["3s"][1],
         expected_launches_3s=want_3s)
@@ -456,8 +484,8 @@ def phase_full_width(seed: int, card: str, worst_err: dict) -> list[dict]:
     launches = dict(klstm.LAUNCHES)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     t_enc = feats.shape[1]
-    want = {"lstm_seq": cfg.enc_num_layers * t_enc,
-            "lstm_seq_cseq": cfg.enc_num_layers * t_enc, "lstm_seq_int8": 0}
+    want = {"lstm_seq": cfg.enc_num_layers, "lstm_seq_cseq": cfg.enc_num_layers,
+            "lstm_seq_int8": 0}
     if launches != want:
         raise AssertionError(f"main-path launches {launches}, expected {want}")
     align = np.asarray(metrics["alignment_score"])
@@ -508,8 +536,8 @@ def phase_full_width(seed: int, card: str, worst_err: dict) -> list[dict]:
         library_ms = cuda_ms(lambda: ref_lstm(x1b, hx), reps=20)
         pack_ms = cuda_ms(lambda: klstm.lstm_pack(x1, (h0, c0), p), reps=20)
         rows = []
-        for stream_c, name, line in ((False, "lstm_seq", 73),
-                                     (True, "lstm_seq_cseq", 41)):
+        for stream_c, name, line in ((False, "lstm_seq", 138),
+                                     (True, "lstm_seq_cseq", 206)):
             ms = cuda_ms(lambda: klstm.lstm_seq(wx, p.recurrent_kernel, h0, c0,
                                                 stream_c=stream_c), reps=20)
             plain_ms = cuda_ms(lambda: klstm.lstm_seq_reference(
@@ -687,7 +715,7 @@ def phase_full_width_int8(seed: int, card: str, worst_err: float) -> dict:
     row = {
         "name": "lstm_seq_int8", "route": "cuda",
         "source": "libreasr_tpu_torch/csrc/lstm_seq_int8.cu",
-        "replaces": "libreasr_tpu/ops/pallas/lstm.py:243",
+        "replaces": "libreasr_tpu/ops/pallas/lstm.py:295",
         "launches": launches["lstm_seq_int8"], "max_abs_err": worst_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": None,
@@ -718,8 +746,9 @@ FUSED_MIN_COS = 0.999
 # every tile (BT 4/2, BU 8, J chunk 64, V tiles 64/32); the main path
 JOINT_CASES = [(3, 13, 9, 96, 40), (2, 11, 101, 200, 300),
                (16, 49, 41, 1024, 2048)]
-# H with bf16 W_out under a small scratch cap: 5 chunks of 640 rows at
-# a mid shape (3,108 rows, 6 row groups), 4 of 9,344 at the main one
+# G and H with bf16 W_out under a small scratch cap: H in 5 chunks of 640
+# rows at a mid shape (3,108 rows, 6 row groups) and 4 of 9,344 at the
+# main one; G in 2 and 4 chunks of frame groups
 JOINT_CHUNK_CASES = [((4, 37, 21, 256, 512), 4 * 2**20),
                      ((16, 49, 41, 1024, 2048), 64 * 2**20)]
 
@@ -819,12 +848,30 @@ def phase_kernel_joint(seed: int) -> dict:
                 raise AssertionError(f"joint kernels vs twins at "
                                      f"{(n, t, u1, j, v, w_dtype)}: {bad}")
 
-    # H with bf16 W_out across row-chunk boundaries (a scratch cap set
+    # G and H with bf16 W_out across chunk boundaries (a scratch cap set
     # here, far below the main path's), and twice on the same inputs
     for (n, t, u1, j, v), cap in JOINT_CHUNK_CASES:
         enc, pred, w, b, lab, gb, ge, _, _ = _joint_inputs(
             n, t, u1, j, v, gen, torch.bfloat16)
-        lse = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)[2]
+        gplan = kj.dx_plan(n, t, u1, j, v, cap=cap)
+        got_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge, scratch_cap=cap)
+        again_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge, scratch_cap=cap)
+        ref_g = kj.joint_lp_dx_reference(enc, pred, w, b, lab, gb, ge)
+        torch.cuda.synchronize()
+        errs = {k: float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                for k, a, r in zip(("d_enc_proj", "d_pred_proj"), got_g, ref_g)}
+        errs["lse"] = float((got_g[2] - ref_g[2]).abs().max())
+        identical = all(torch.equal(a, r) for a, r in zip(got_g, again_g))
+        log("kernel_joint_dx_chunks", n=n, t=t, u1=u1, j=j, v=v, scratch_cap=cap,
+            chunks=len(gplan.chunks), chunk_rows=gplan.chunk_rows, err=errs,
+            rerun_bit_identical=identical, tol_grad_rel=JOINT_GRAD_TOL,
+            tol_lse_abs=JOINT_LP_TOL)
+        worst["joint_lp_dx"] = max(worst["joint_lp_dx"], *errs.values())
+        if len(gplan.chunks) < 2 or not identical or \
+                not max(errs.values()) <= min(JOINT_GRAD_TOL, JOINT_LP_TOL):
+            raise AssertionError(f"G across chunks at {(n, t, u1, j, v)}: "
+                                 f"{errs}, identical {identical}")
+        lse = got_g[2]
         plan = kj.dw_plan(n, t, u1, j, v, cap=cap, sms=build.sm_count(0))
         got = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse, scratch_cap=cap)
         ref = kj.joint_lp_dw_reference(enc, pred, w, b, lab, gb, ge, lse)
@@ -845,15 +892,19 @@ def phase_kernel_joint(seed: int) -> dict:
     n, t, u1, j, v = JOINT_CASES[-1]
     enc, pred, w, b, lab, gb, ge, _, _ = _joint_inputs(n, t, u1, j, v, gen,
                                                       torch.bfloat16)
-    lse = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)[2]
+    first_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)
+    second_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)
+    lse = first_g[2]
     first = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse)
     second = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse)
     torch.cuda.synchronize()
-    identical = all(torch.equal(a, r) for a, r in zip(first, second))
+    identical = {"G": all(torch.equal(a, r) for a, r in zip(first_g, second_g)),
+                 "H": all(torch.equal(a, r) for a, r in zip(first, second))}
     log("kernel_joint_rerun", n=n, t=t, u1=u1, j=j, v=v,
         rerun_bit_identical=identical)
-    if not identical:
-        raise AssertionError("H differs between two runs on the same inputs")
+    if not all(identical.values()):
+        raise AssertionError(f"G or H differs between two runs on the same "
+                             f"inputs: {identical}")
 
     # the fused loss: kernels against the chunked path, on the card
     for n, t, u1, j, v in JOINT_CASES:
@@ -922,11 +973,11 @@ def joint_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
                                                       torch.bfloat16)
     _, _, lse = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)
     calls = {
-        "joint_lp_fwd": ("fwd", 134, lambda: kj.joint_lp_fwd(enc, pred, w, b, lab),
+        "joint_lp_fwd": ("fwd", 341, lambda: kj.joint_lp_fwd(enc, pred, w, b, lab),
                          lambda: kj.joint_lp_fwd_reference(enc, pred, w, b, lab)),
-        "joint_lp_dx": ("dx", 162, lambda: kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge),
+        "joint_lp_dx": ("dx", 394, lambda: kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge),
                         lambda: kj.joint_lp_dx_reference(enc, pred, w, b, lab, gb, ge)),
-        "joint_lp_dw": ("dw", 236,
+        "joint_lp_dw": ("dw", 429,
                         lambda: kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse),
                         lambda: kj.joint_lp_dw_reference(enc, pred, w, b, lab, gb,
                                                          ge, lse)),
@@ -952,20 +1003,28 @@ def joint_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": None,
             })
-    # H's launches (w(h), the logits product, dW, the fold), by device time
+    # G's launches (w(h), the lse product and fold, the dlogits product,
+    # the dh product, the partials' fold) and H's (w(h), the logits
+    # product, dW, the fold), by device time
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse)
-        torch.cuda.synchronize()
-    mark = "(anonymous namespace)::"
-    h_launch_ms = {e.key.split(mark, 1)[1].split("(")[0]: e.self_device_time_total / 5e3
-                   for e in prof.key_averages() if mark in e.key}
+    def launch_ms(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        mark = "(anonymous namespace)::"
+        return {e.key.split(mark, 1)[1].split("(")[0]: e.self_device_time_total / 5e3
+                for e in prof.key_averages() if mark in e.key}
+
+    g_launch_ms = launch_ms(lambda: kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge))
+    h_launch_ms = launch_ms(lambda: kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse))
     log("joint_timing", n=n, t=t, u1=u1, j=j, v=v, rows=n * t * u1,
-        w_dtype="bfloat16", kernels=times, h_launch_ms=h_launch_ms,
+        w_dtype="bfloat16", kernels=times, g_launch_ms=g_launch_ms,
+        h_launch_ms=h_launch_ms,
         context_cublas_bf16_rows_x_w_ms=cublas_ms,
         context_matmul_bf16_h_products_ms=matmul_h_ms,
+        g_scratch_bytes=kj.dx_plan(n, t, u1, j, v, kj.DW_SCRATCH_CAP).scratch_bytes,
         h_scratch_bytes=kj.dw_plan(n, t, u1, j, v, kj.DW_SCRATCH_CAP,
                                    build.sm_count(0)).scratch_bytes)
     return rows
@@ -1243,6 +1302,7 @@ def phase_kernel_train(seed: int) -> dict:
     R; returns the largest error per kernel."""
     import torch
 
+    from libreasr_tpu_torch.ops.kernels import build
     from libreasr_tpu_torch.ops.kernels import lstm_train as klt
 
     gen = torch.Generator().manual_seed(seed + 5)
@@ -1288,6 +1348,34 @@ def phase_kernel_train(seed: int) -> dict:
                 raise AssertionError(f"training kernels vs twins at "
                                      f"{(n, t, h, r_dtype)}: {bad}, E launches "
                                      f"{bwd_launches}")
+    # E at a batch above one launch's (row, unit) owners: one cooperative
+    # launch per slice that bwd_plan takes
+    n, t, h = TRAIN_BWD_SLICED_CASE
+    for r_dtype in (torch.bfloat16, torch.float32):
+        _, bwd_in = _train_kernel_inputs(n, t, h, gen, r_dtype)
+        slices = klt.batch_slices(n, klt.bwd_plan, h, bwd_in[-1].element_size(),
+                                  build.sm_count(0))
+        before = klt.LAUNCHES["lstm_train_bwd"]
+        got_b = klt.lstm_train_bwd(*bwd_in)
+        bwd_launches = klt.LAUNCHES["lstm_train_bwd"] - before
+        ref_b = klt.lstm_train_bwd_reference(*bwd_in)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, r in zip(("dv", "dh0", "dc0"), got_b, ref_b):
+            scale = max(float(r.abs().max()), 1e-30)
+            d = (a - r).abs()
+            errs[name] = float(d.max()) / scale
+            errs[name + "_mean"] = float(d.mean()) / scale
+        log("kernel_train_sliced", n=n, t=t, h=h, r_dtype=str(r_dtype),
+            slices=[rows for _, rows in slices], bwd_launches=bwd_launches,
+            err=errs, tol_bwd_rel=TRAIN_BWD_TOL, tol_bwd_mean_rel=TRAIN_BWD_TOL_MEAN)
+        worst["lstm_train_bwd"] = max(worst["lstm_train_bwd"], errs["dv"],
+                                      errs["dh0"], errs["dc0"])
+        bad = {k: e for k, e in errs.items() if not e <= (
+            TRAIN_BWD_TOL_MEAN if k.endswith("_mean") else TRAIN_BWD_TOL)}
+        if bad or len(slices) < 2 or bwd_launches != len(slices):
+            raise AssertionError(f"E over batch slices at {(n, t, h, r_dtype)}: "
+                                 f"{bad}, {bwd_launches} launches for {slices}")
     return worst
 
 

@@ -27,10 +27,11 @@
 // G three, H two), against a few tens of MB of inputs and outputs: all
 // three are compute-bound, at the tensor cores' rate (989 TFLOP/s bf16).
 //
-// F and G keep the [rows, V] logits and dlogits out of device memory, as
-// the TPU kernels kept them in VMEM: a block owns a tile of BM rows (BT
-// frames x BU labels of one utterance), holds w(h) for its rows in shared
-// memory and walks V in tiles, recomputing the logits tile by tile:
+// F, and G and H with float32 W_out, keep the [rows, V] logits and
+// dlogits out of device memory, as the TPU kernels kept them in VMEM: a
+// block owns a tile of BM rows (BT frames x BU labels of one utterance),
+// holds w(h) for its rows in shared memory and walks V in tiles,
+// recomputing the logits tile by tile:
 //   - the products are bf16 WMMA fragments (mma.sync 16x16x16) with
 //     float32 accumulation when W_out is bf16, and a plain float32 loop
 //     when W_out is float32 (no tensor-core mode is exact in float32);
@@ -38,14 +39,9 @@
 //     copies, the next chunk in flight while the current one is
 //     multiplied;
 //   - F keeps an online max/sum per row over the V tiles;
-//   - G makes two passes over V: the first finds lse, the second forms
-//     dlogits and accumulates w(dlogits) @ W_out^T into a [BM, J] float32
-//     block. With bf16 W_out that block lives in the WMMA accumulators of
-//     16 warps, and each 32-column tile of W_out is staged once per pass
-//     for both of its products; with float32 W_out it sits in shared
-//     memory and W_out is staged in chunks as for F.
-// With bf16 W_out, G takes J up to 1024 (16 warps x 4 accumulator
-// fragments of 16 columns); a larger J is refused, not run elsewhere.
+//   - G with float32 W_out makes two passes over V: the first finds lse,
+//     the second forms dlogits and accumulates w(dlogits) @ W_out^T into
+//     a [BM, J] float32 block in shared memory.
 //
 // H with bf16 W_out is built for Hopper's tensor cores instead. Recomputing
 // w(h) and the logits inside every V tile (the first design: 64 rebuilds
@@ -55,7 +51,7 @@
 // wrapper states; one chunk at the main path's shape), and per chunk:
 //   1. joint_dw_fill makes w(h) once per row into a bf16 scratch
 //      [rows_c, jp] (66 MB at the main shape);
-//   2. joint_dw_tc<false>, the logits product [rows_c, J] x [J, V]: a
+//   2. joint_dw_tc<TC_DLOGITS>, the logits product [rows_c, J] x [J, V]: a
 //      128 x 128 tile per block, 64-deep K stages of w(h) (K-major) and
 //      W_out (MN-major, wgmma's transposed B) brought by TMA
 //      (cp.async.bulk.tensor, 128-byte swizzle) into a ring of 5 stages
@@ -65,7 +61,7 @@
 //      the cotangents and the labels, writes w(dlogits) to a bf16 scratch
 //      [rows_c, vp] (132 MB) and the tile's column sums of the float32
 //      dlogits, db's partials;
-//   3. joint_dw_tc<true>, dW = w(h)^T w(dlogits): the same kernel with
+//   3. joint_dw_tc<TC_DW>, dW = w(h)^T w(dlogits): the same kernel with
 //      both operands MN-major from the two scratches (w(h)^T needs no
 //      copy: wgmma transposes 16-bit operands in its descriptor), K the
 //      chunk's rows, split over blockIdx.z into partials when the J x V
@@ -74,13 +70,28 @@
 //      to dW and db in a fixed order.
 // No float atomics anywhere: dW and db are the same bits from run to run.
 //
-// The TPU kernels carried sums across a sequential grid (d_pred_proj over
-// t, dW/db over all rows). Blocks here run in no order, so every
-// cross-block sum goes through partials and a deterministic reduction:
-// G writes [N, T, ceil(U1/BU), J] and [N, ceil(T/BT), U1, J] partials
-// and a second launch adds them; H with float32 W_out (one [J, V] slab
-// and one [V] row per row group, a 32-column V tile per block, the dW
-// block in shared memory) likewise.
+// G with bf16 W_out runs on H's engine. Its first design (a block of 32
+// rows making two passes over V on 16x16 WMMA, rebuilding the logits in
+// each) took 7.7 ms, 28x its bound. Now the lattice goes in chunks of
+// whole frame groups (DX_FRAMES frames of one utterance; dx_plan in
+// ops/kernels/joint_lp.py keeps the chunk's scratch under the cap), and
+// per chunk:
+//   1. joint_dw_fill makes w(h) into the bf16 scratch, as for H;
+//   2. joint_dw_tc<TC_LSE>, the logits product, writes each row's max and
+//      sum of exp over each 128-column tile of V; joint_lse_fold folds the
+//      tiles in order into the row lse;
+//   3. joint_dw_tc<TC_DLOGITS>, the logits product again with H's dlogits
+//      epilogue, writes w(dlogits) [rows_c, vp];
+//   4. joint_dw_tc<TC_DH>, dh = w(dlogits) @ W_out^T [rows_c, V] x [V, J]:
+//      A is w(dlogits) read through a 3-D tensor map in tiles of 8 frames
+//      x 16 labels (the product's 128 rows), B is W_out's rows, already
+//      K-major along V (no transposed copy). The epilogue multiplies by
+//      1 - h^2 with h in float32 from enc_proj + pred_proj, sums each
+//      frame's 16 labels in registers (d_enc_proj partials [N, T, nub, J])
+//      and each label's 8 frames through shared memory (d_pred_proj
+//      partials [N, ntb, U1, J]).
+// After the chunks joint_dx_reduce adds the partials in a fixed order:
+// d_enc_proj and d_pred_proj are the same bits from run to run.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -95,11 +106,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;    // F, G, and H with float32 W_out
-constexpr int THREADS_H = 512;  // G with bf16 W_out
-constexpr int MAXJF = 4;        // dh fragments along J per warp of that G
+constexpr int THREADS = 256;  // F; G and H with float32 W_out
 constexpr int BN = 64;    // V tile of F and G
-constexpr int BNH = 32;   // V tile of G with bf16 W_out, and of H with float32
+constexpr int BNH = 32;   // V tile of H with float32 W_out
 constexpr int BK = 64;    // J chunk of W staged per step (also G's dh chunk)
 constexpr int MAX_SMEM = 232448;  // per-block limit on sm_90
 
@@ -352,60 +361,23 @@ __device__ void dlogits_tile(float* cs, WT* ds, const RowInfo* ri, int v0,
   __syncthreads();
 }
 
-// cs[BM x BNH] = hs @ wv, bf16 WMMA with float32 sums, wv the resident
-// [Jp, BNH] column tile of W_out: each of the (BM / 16) * (BNH / 16)
-// fragments is summed over J in equal parts by the block's warps, and the
-// partials are added in a fixed order. Ends with a barrier.
-__device__ void logits_ksplit(const bf16* hs, int ldh, const bf16* wv, int ldw,
-                              float* cs, int ldc, float* stage, const Shape& s) {
-  using namespace nvcuda;
-  constexpr int BM = Tile<bf16>::BT * Tile<bf16>::BU;
-  constexpr int NF = (BM / 16) * (BNH / 16);
-  const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32;
-  const int f = warp % NF, split = warp / NF, splits = nwarps / NF;
-  const int m0 = (f / (BNH / 16)) * 16, n0 = (f % (BNH / 16)) * 16;
-  const int steps = s.Jp / 16, per = (steps + splits - 1) / splits;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-  wmma::fill_fragment(c, 0.f);
-  for (int k = split * per; k < min(steps, (split + 1) * per); ++k) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-    wmma::load_matrix_sync(fa, hs + m0 * ldh + k * 16, ldh);
-    wmma::load_matrix_sync(fb, wv + k * 16 * ldw + n0, ldw);
-    wmma::mma_sync(c, fa, fb, c);
-  }
-  wmma::store_matrix_sync(stage + warp * 256, c, 16, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < BM * BNH; idx += blockDim.x) {
-    const int m = idx / BNH, nn = idx % BNH;
-    const int ff = (m / 16) * (BNH / 16) + nn / 16, e = (m % 16) * 16 + nn % 16;
-    float sum = 0.f;
-    for (int q = 0; q < splits; ++q) sum += stage[(q * NF + ff) * 256 + e];
-    cs[m * ldc + nn] = sum;
-  }
-  __syncthreads();
-}
-
 template <typename WT>
 struct Smem {
   static constexpr int BM = Tile<WT>::BT * Tile<WT>::BU;
   static constexpr int PAD = 16 / sizeof(WT);
   size_t hs, ws, cs, ds, acc, rows, total;
-  // kind 0: F; 1: G and 2: H with float32 W_out; 4: G with bf16 W_out,
-  // whose ws holds a whole [Jp, BNH] column tile of W_out and whose acc
-  // is two 16 x 16 float32 staging tiles per warp
+  // kind 0: F; 1: G and 2: H with float32 W_out
   __host__ __device__ Smem(int Jp, int kind) {
-    const int w = kind >= 2 ? BNH : BN;
+    const int w = kind == 2 ? BNH : BN;
     size_t o = 0;
     hs = o; o = align128(o + (size_t)BM * (Jp + PAD) * sizeof(WT));
     ws = o;
-    o = align128(o + (kind >= 3 ? (size_t)Jp : 2 * (size_t)BK) * (w + PAD) * sizeof(WT));
+    o = align128(o + 2 * (size_t)BK * (w + PAD) * sizeof(WT));
     cs = o; o = align128(o + (size_t)BM * (w + 4) * sizeof(float));
     ds = o; o = align128(o + (kind ? (size_t)BM * (w + PAD) * sizeof(WT) : 0));
     acc = o;
     if (kind == 1) o = align128(o + (size_t)BM * (Jp + 4) * sizeof(float));
     if (kind == 2) o = align128(o + (size_t)Jp * BNH * sizeof(float));
-    if (kind >= 3) o = align128(o + (size_t)(THREADS_H / 32) * 512 * sizeof(float));
     rows = o; o = align128(o + (size_t)BM * sizeof(RowInfo));
     total = o;
   }
@@ -529,122 +501,6 @@ joint_dx_kernel(const float* enc, const float* pred, const WT* w,
   }
 }
 
-// G with bf16 W_out, on tensor cores throughout: per 32-column V tile the
-// block stages that [Jp, BNH] column tile of W_out once and uses it for
-// both products of the tile, the logits (split over the warps along J)
-// and dh += w(dlogits) @ W_out[:, tile]^T, whose [BM, Jp] float32 sum
-// stays in the WMMA accumulators of 16 warps (warp w owns J fragments
-// w, w + 16, ...), so the accumulator takes no shared memory.
-__global__ void __launch_bounds__(THREADS_H, 1)
-joint_dx_kernel_bf16(const float* enc, const float* pred, const bf16* w,
-                     const float* bias, const int* labels, const float* glpb,
-                     const float* glpe, float* lse_out, float* part_enc,
-                     float* part_pred, Shape s) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<bf16> L(s.Jp, 4);
-  constexpr int BT = Tile<bf16>::BT, BU = Tile<bf16>::BU, BM = BT * BU;
-  constexpr int PAD = Smem<bf16>::PAD, MF = BM / 16;
-  bf16* hs = reinterpret_cast<bf16*>(smem + L.hs);
-  bf16* wv = reinterpret_cast<bf16*>(smem + L.ws);
-  float* cs = reinterpret_cast<float*>(smem + L.cs);
-  bf16* ds = reinterpret_cast<bf16*>(smem + L.ds);
-  float* stage_all = reinterpret_cast<float*>(smem + L.acc);
-  RowInfo* ri = reinterpret_cast<RowInfo*>(smem + L.rows);
-  const int ldh = s.Jp + PAD, ldw = BNH + PAD, ldd = BNH + PAD, ldc = BNH + 4;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  int n, t0, u0;
-  setup_rows<bf16>(blockIdx.x, s, ri, n, t0, u0, labels, glpb, glpe, nullptr);
-  __syncthreads();
-  fill_h<bf16>(hs, ldh, ri, n, s, enc, pred);
-  // pass 1: the row logsumexp
-  for (int v0 = 0; v0 < s.V; v0 += BNH) {
-    __syncthreads();
-    stage_w<bf16, BNH>(wv, ldw, w, 0, s.Jp, v0, s);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    logits_ksplit(hs, ldh, wv, ldw, cs, ldc, stage_all, s);
-    online_lse<bf16, BNH>(cs, ri, v0, s, bias);
-  }
-  for (int i = threadIdx.x; i < BM; i += blockDim.x) {
-    ri[i].lse = ri[i].m + logf(ri[i].s);
-    if (ri[i].valid)
-      lse_out[((size_t)n * s.T + ri[i].t) * s.U1 + ri[i].u] = ri[i].lse;
-  }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAXJF][MF];
-#pragma unroll
-  for (int q = 0; q < MAXJF; ++q)
-#pragma unroll
-    for (int mf = 0; mf < MF; ++mf) wmma::fill_fragment(acc[q][mf], 0.f);
-  // pass 2: dlogits, and dh += w(dlogits) @ W_out[:, tile]^T
-  for (int v0 = 0; v0 < s.V; v0 += BNH) {
-    __syncthreads();
-    stage_w<bf16, BNH>(wv, ldw, w, 0, s.Jp, v0, s);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    logits_ksplit(hs, ldh, wv, ldw, cs, ldc, stage_all, s);
-    dlogits_tile<bf16, BNH>(cs, ds, ri, v0, s, bias);
-#pragma unroll
-    for (int q = 0; q < MAXJF; ++q) {
-      const int j0 = (warp + q * nwarps) * 16;
-      if (j0 >= s.Jp) continue;
-#pragma unroll
-      for (int k0 = 0; k0 < BNH; k0 += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, wv + j0 * ldw + k0, ldw);
-#pragma unroll
-        for (int mf = 0; mf < MF; ++mf) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, ds + mf * 16 * ldd + k0, ldd);
-          wmma::mma_sync(acc[q][mf], fa, fb, acc[q][mf]);
-        }
-      }
-    }
-  }
-  // dh = acc * (1 - h^2) with the float32 h, then this tile's partial sums
-  // over labels (per frame) and frames (per label), one J fragment at a time
-  float* st = stage_all + warp * (MF * 256);
-  const int ub = u0 / BU, tb = t0 / BT;
-#pragma unroll
-  for (int q = 0; q < MAXJF; ++q) {
-    const int j0 = (warp + q * nwarps) * 16;
-    if (j0 >= s.Jp) continue;
-    __syncwarp();
-#pragma unroll
-    for (int mf = 0; mf < MF; ++mf)
-      wmma::store_matrix_sync(st + mf * 256, acc[q][mf], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < BM * 16; e += 32) {
-      const int i = e / 16, j = j0 + e % 16;
-      float d = 0.f;
-      if (ri[i].valid && j < s.J) {
-        const float h = tanhf(enc[((size_t)n * s.T + ri[i].t) * s.J + j] +
-                              pred[((size_t)n * s.U1 + ri[i].u) * s.J + j]);
-        d = st[e] * (1.f - h * h);
-      }
-      st[e] = d;
-    }
-    __syncwarp();
-    for (int e = lane; e < BT * 16; e += 32) {
-      const int bt = e / 16, j = j0 + e % 16, t = t0 + bt;
-      if (t >= s.T || j >= s.J) continue;
-      float sum = 0.f;
-      for (int bu = 0; bu < BU; ++bu) sum += st[(bt * BU + bu) * 16 + e % 16];
-      part_enc[(((size_t)n * s.T + t) * s.nUB + ub) * s.J + j] = sum;
-    }
-    for (int e = lane; e < BU * 16; e += 32) {
-      const int bu = e / 16, j = j0 + e % 16, u = u0 + bu;
-      if (u >= s.U1 || j >= s.J) continue;
-      float sum = 0.f;
-      for (int bt = 0; bt < BT; ++bt) sum += st[(bt * BU + bu) * 16 + e % 16];
-      part_pred[(((size_t)n * s.nTB + tb) * s.U1 + u) * s.J + j] = sum;
-    }
-  }
-}
-
 __global__ void joint_dx_reduce(const float* part_enc, const float* part_pred,
                                 float* d_enc, float* d_pred, Shape s) {
   const size_t n_enc = (size_t)s.N * s.T * s.J;
@@ -739,16 +595,28 @@ constexpr int GK = 64;         // K per stage: one 128-byte swizzle row of bf16
 constexpr int GTHREADS = 288;  // warps 0-7: two wgmma warpgroups; warp 8: TMA
 constexpr int BOX = 64 * 64 * 2;  // one {64, 64} bf16 TMA box, 128B-swizzled
 constexpr int STAGE = 4 * BOX;    // A: 2 boxes, B: 2 boxes
-// Ring depth: the logits pass runs 4,032 short tiles (K 1024) at the
-// main shape, so it takes 3 stages and two blocks per SM, one block's
-// epilogue under the other's products; the dW pass runs ~128 long tiles
-// (K = the chunk's rows), one block per SM with 5 stages.
-template <bool DW> struct Ring {
-  static constexpr int STAGES = DW ? 5 : 3;
-  static constexpr int BLOCKS_PER_SM = DW ? 1 : 2;
+// The products of H and G, one kernel (joint_dw_tc<MODE>) with four
+// epilogues: TC_DLOGITS, the logits with the dlogits epilogue (H, G);
+// TC_DW, dW = w(h)^T w(dlogits) (H); TC_LSE, the logits with a (max,
+// sum) epilogue (G); TC_DH, dh = w(dlogits) W_out^T with the (1 - h^2)
+// and the label and frame sums in its epilogue (G).
+enum : int { TC_DLOGITS = 0, TC_DW = 1, TC_LSE = 2, TC_DH = 3 };
+// Ring depth: the logits passes run 4,032 short tiles (K 1024) at the
+// main shape, so they take 3 stages and two blocks per SM, one block's
+// epilogue under the other's products (so does dh: 2,688 tiles of K
+// 2048); the dW pass runs ~128 long tiles (K = the chunk's rows), one
+// block per SM with 5 stages.
+template <int MODE> struct Ring {
+  static constexpr int STAGES = MODE == TC_DW ? 5 : 3;
+  static constexpr int BLOCKS_PER_SM = MODE == TC_DW ? 1 : 2;
   static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8 + 8 * GN * 4;
 };
 constexpr int ERR_TENSOR_MAP = 100001;
+constexpr int DX_FRAMES = 8;   // frames of a dh tile (ops/kernels/joint_lp.py)
+constexpr int DX_LABELS = 16;  // labels of a dh tile
+constexpr int DX_LD = GN + 4;  // row stride of the dh tile staged for the frame sums
+static_assert(DX_FRAMES * DX_LABELS == GM, "a dh tile is the product's 128 rows");
+static_assert(DX_FRAMES * DX_LABELS * DX_LD * 4 <= 3 * STAGE, "dh tile fits the ring");
 
 struct DwChunk {
   const float* bias;
@@ -757,11 +625,18 @@ struct DwChunk {
   const float* glpe;
   const float* lse;
   bf16* d;        // [rows_c, vp] w(dlogits)
-  float* dbpart;  // [ceil(rows_c / GM), V] column sums of dlogits per row tile
+  float* dbpart;  // [ceil(rows_c / GM), V] column sums of dlogits per row tile, or null
   float* part;    // [groups, J, V] dW partials
+  const float* enc;   // TC_DH: enc_proj, pred_proj (float32 h)
+  const float* pred;
+  float* enc_part;    // TC_DH: [N, T, nub, J] sums over each tile's labels
+  float* pred_part;   // TC_DH: [N, ntb, U1, J] sums over each tile's frames
+  float* mpart;       // TC_LSE: [ceil(V / GN), rows_c] row max, and sum of exp
+  float* spart;
   int r0, rows_c, T, U1, J, V, vp, blank;
-  int k_iters;    // logits: Jp / GK; dW: K stages per group
+  int k_iters;    // logits: Jp / GK; dW: K stages per group; dh: ceil(vp / GK)
   int k_total;    // dW: K stages of the chunk
+  int g0, f0, ntb, nub;  // TC_DH: first group and first frame of the chunk
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -806,6 +681,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// box {c0, c1, c2} of a 3-D `map`, as tma_load
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, int c0,
+                                          int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor of a 128B-swizzled operand at addr.
 // K-major: sbo steps between 8-row groups (lbo unused). MN-major: lbo
 // steps between 64-element atoms along M/N, sbo between 8-row groups
@@ -831,8 +716,8 @@ __device__ __forceinline__ void acc_fence(float (&d)[64]) {
 }
 
 // d[64 x 128] += A[64 x 16] B[16 x 128], bf16 in, float32 sums; A K-major
-// (TA 0) or MN-major (TA 1), B MN-major
-template <int TA>
+// (TA 0) or MN-major (TA 1), B K-major (TB 0) or MN-major (TB 1)
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -842,7 +727,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint6
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, %67, 1;\n}\n"
+      " %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -856,7 +741,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 // w(h) of the chunk's rows [r0, r0 + rows_c) into hs [rows_c, jp], zero
@@ -891,20 +776,31 @@ __global__ void joint_dw_fill(const float* enc, const float* pred, bf16* hs, int
 }
 
 // One GM x GN tile of a product over K in GK-deep stages, A and B bf16
-// through TMA into a GSTAGES ring (full/empty mbarriers), the float32 sum
-// in the registers of two consumer warpgroups (64 rows each).
-//   DW false, the logits: A = w(h) [rows_c, jp] K-major (tile rows m0..,
+// through TMA into a ring of Ring<MODE>::STAGES (full/empty mbarriers),
+// the float32 sum in the registers of two consumer warpgroups (64 rows
+// each).
+//   TC_DLOGITS, the logits: A = w(h) [rows_c, jp] K-major (tile rows m0..,
 //     K along J), B = W_out [J, vw] MN-major; the epilogue forms dlogits
-//     from G's lse, writes w(dlogits) to p.d and the tile's column sums
-//     of the float32 dlogits to p.dbpart.
-//   DW true, dW: A = w(h)^T, the same scratch read MN-major (tile rows =
+//     from the row lse, writes w(dlogits) to p.d and, when p.dbpart is not
+//     null, the tile's column sums of the float32 dlogits to p.dbpart.
+//   TC_LSE, the logits as above; the epilogue writes each row's max and
+//     sum of exp over the tile's columns to p.mpart and p.spart.
+//   TC_DW, dW: A = w(h)^T, the same scratch read MN-major (tile rows =
 //     J, K along the chunk's rows), B = w(dlogits) [rows_c, vp] MN-major;
 //     K split over blockIdx.z into p.part[z].
-template <bool DW>
-__global__ void __launch_bounds__(GTHREADS, Ring<DW>::BLOCKS_PER_SM)
+//   TC_DH, dh: A = w(dlogits) read as [frames_c, U1, vp] in boxes of
+//     DX_FRAMES frames x DX_LABELS labels (tile blockIdx.y of the chunk:
+//     group g0 + y / nub, label block y % nub), K along V; B = W_out
+//     K-major (tile columns = J, K along V: no transposed copy). The
+//     epilogue multiplies by 1 - h^2 (h in float32 from enc_proj +
+//     pred_proj) and writes the tile's sums over its labels and over its
+//     frames to p.enc_part and p.pred_part.
+template <int MODE>
+__global__ void __launch_bounds__(GTHREADS, Ring<MODE>::BLOCKS_PER_SM)
 joint_dw_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
             DwChunk p) {
-  constexpr int GSTAGES = Ring<DW>::STAGES;
+  constexpr int GSTAGES = Ring<MODE>::STAGES;
+  constexpr bool DW = MODE == TC_DW, DH = MODE == TC_DH;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -914,6 +810,10 @@ joint_dw_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
   const int kb = DW ? blockIdx.z * p.k_iters : 0;
   const int nk = DW ? min(p.k_iters, p.k_total - kb) : p.k_iters;
+  // TC_DH: this tile's utterance un, frame block fb, label block ub
+  const int gidx = p.g0 + (DH ? (int)blockIdx.y / p.nub : 0);
+  const int ub = DH ? (int)blockIdx.y % p.nub : 0;
+  const int un = DH ? gidx / p.ntb : 0, fb = DH ? gidx % p.ntb : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < GSTAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
@@ -925,6 +825,7 @@ joint_dw_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp == 8) {  // producer: one thread keeps the ring full
     if (lane == 0) {
+      const int fl = un * p.T + fb * DX_FRAMES - p.f0;  // TC_DH: frame in the chunk
       for (int i = 0; i < nk; ++i) {
         const int s = i % GSTAGES;
         const uint32_t full = full0 + 8 * s, st = base + s * STAGE;
@@ -934,12 +835,19 @@ joint_dw_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
         if (DW) {
           tma_load(st, &ta, m0, k, full);
           tma_load(st + BOX, &ta, m0 + 64, k, full);
+        } else if (DH) {
+          tma_load3(st, &ta, k, ub * DX_LABELS, fl, full);  // 128 rows, 2 boxes' bytes
         } else {
           tma_load(st, &ta, k, m0, full);
           tma_load(st + BOX, &ta, k, m0 + 64, full);
         }
-        tma_load(st + 2 * BOX, &tb, n0, k, full);
-        tma_load(st + 3 * BOX, &tb, n0 + 64, k, full);
+        if (DH) {
+          tma_load(st + 2 * BOX, &tb, k, n0, full);
+          tma_load(st + 3 * BOX, &tb, k, n0 + 64, full);
+        } else {
+          tma_load(st + 2 * BOX, &tb, n0, k, full);
+          tma_load(st + 3 * BOX, &tb, n0 + 64, k, full);
+        }
       }
     }
     return;
@@ -958,8 +866,9 @@ joint_dw_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
     for (int kk = 0; kk < GK / 16; ++kk) {
       const uint64_t da = DW ? gmma_desc(a_st + kk * 2048, 1024, 1024)
                              : gmma_desc(a_st + kk * 32, 16, 1024);
-      const uint64_t db = gmma_desc(b_st + kk * 2048, BOX, 1024);
-      wgmma_m64n128<DW ? 1 : 0>(acc, da, db);
+      const uint64_t db = DH ? gmma_desc(b_st + kk * 32, 16, 1024)
+                             : gmma_desc(b_st + kk * 2048, BOX, 1024);
+      wgmma_m64n128<DW ? 1 : 0, DH ? 0 : 1>(acc, da, db);
     }
     wgmma_commit();
     acc_fence(acc);
@@ -970,7 +879,7 @@ joint_dw_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   // accumulator element i of this thread: row 16 w4 + lane / 4 + 8 ((i / 2) % 2)
   // of the warpgroup's 64, column 8 (i / 4) + 2 (lane % 4) + i % 2
   const int row0 = m0 + c * 64 + w4 * 16 + lane / 4;
-  if (DW) {
+  if constexpr (DW) {
     const size_t gbase = (size_t)blockIdx.z * p.J;
 #pragma unroll
     for (int nb = 0; nb < GN / 8; ++nb) {
@@ -985,8 +894,97 @@ joint_dw_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
       }
     }
     return;
+  } else if constexpr (DH) {
+    // this warp's 16 rows are one frame t of the tile, labels u0 + 0..15;
+    // the thread's two rows are labels u0 + lane / 4 and u0 + lane / 4 + 8
+    const int fi = c * 4 + w4, t = fb * DX_FRAMES + fi;
+    const bool tok = t < p.T;
+    const float* er = p.enc + ((size_t)un * p.T + (tok ? t : 0)) * p.J;
+    int uu[2];
+    bool ok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uu[h] = ub * DX_LABELS + lane / 4 + 8 * h;
+      ok[h] = tok && uu[h] < p.U1;
+    }
+    // the ring is free once both warpgroups' last products have finished
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    float* tile = reinterpret_cast<float*>(smem);  // [frame][label][DX_LD]
+#pragma unroll
+    for (int nb = 0; nb < GN / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nb * 8 + (lane % 4) * 2 + e, j = n0 + col;
+        float x[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          x[h] = 0.f;
+          if (ok[h] && j < p.J) {
+            const float hv = tanhf(er[j] + p.pred[((size_t)un * p.U1 + uu[h]) * p.J + j]);
+            x[h] = acc[nb * 4 + 2 * h + e] * (1.f - hv * hv);
+          }
+          tile[(fi * DX_LABELS + lane / 4 + 8 * h) * DX_LD + col] = x[h];
+        }
+        // d_enc_proj partial: the warp's 16 labels of column j
+        float es = x[0] + x[1];
+        es += __shfl_xor_sync(0xffffffffu, es, 4);
+        es += __shfl_xor_sync(0xffffffffu, es, 8);
+        es += __shfl_xor_sync(0xffffffffu, es, 16);
+        if (lane < 4 && tok && j < p.J)
+          p.enc_part[(((size_t)un * p.T + t) * p.nub + ub) * p.J + j] = es;
+      }
+    }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    // d_pred_proj partial: the tile's frames, in order, per label and column
+    for (int item = threadIdx.x; item < DX_LABELS * GN; item += 256) {
+      const int li = item / GN, col = item % GN, u = ub * DX_LABELS + li, j = n0 + col;
+      if (u >= p.U1 || j >= p.J) continue;
+      float sum = 0.f;
+#pragma unroll
+      for (int f = 0; f < DX_FRAMES; ++f) sum += tile[(f * DX_LABELS + li) * DX_LD + col];
+      p.pred_part[(((size_t)un * p.ntb + fb) * p.U1 + u) * p.J + j] = sum;
+    }
+    return;
+  } else if constexpr (MODE == TC_LSE) {
+    float mx[2] = {-INFINITY, -INFINITY}, sm[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < GN / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int v = n0 + nb * 8 + (lane % 4) * 2 + e;
+        if (v < p.V)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) mx[h] = fmaxf(mx[h], acc[nb * 4 + 2 * h + e] + p.bias[v]);
+      }
+    // a row's 128 columns lie in the 4 lanes of equal lane / 4
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+#pragma unroll
+    for (int nb = 0; nb < GN / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int v = n0 + nb * 8 + (lane % 4) * 2 + e;
+        if (v < p.V)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            sm[h] += expf(acc[nb * 4 + 2 * h + e] + p.bias[v] - mx[h]);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sm[h] += __shfl_xor_sync(0xffffffffu, sm[h], 1);
+      sm[h] += __shfl_xor_sync(0xffffffffu, sm[h], 2);
+      const int rl = row0 + 8 * h;
+      if (lane % 4 == 0 && rl < p.rows_c) {
+        p.mpart[(size_t)blockIdx.x * p.rows_c + rl] = mx[h];
+        p.spart[(size_t)blockIdx.x * p.rows_c + rl] = sm[h];
+      }
+    }
+    return;
   }
-  // the two rows of this thread: lse, cotangents, label
+  // TC_DLOGITS: the two rows of this thread: lse, cotangents, label
   const int U = p.U1 - 1;
   bool ok[2];
   float lse[2], gb[2], ge[2];
@@ -1044,10 +1042,24 @@ joint_dw_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   }
   asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumer warps only
   const int ct = threadIdx.x;
-  if (ct < GN && n0 + ct < p.V) {
+  if (p.dbpart != nullptr && ct < GN && n0 + ct < p.V) {
     float sum = 0.f;
     for (int w = 0; w < 8; ++w) sum += red[w * GN + ct];
     p.dbpart[(size_t)blockIdx.y * p.V + n0 + ct] = sum;
+  }
+}
+
+// lse of the chunk's rows from the TC_LSE partials, the V tiles in order
+__global__ void joint_lse_fold(const float* mpart, const float* spart, int vtiles,
+                               int rows_c, float* lse) {
+  for (int rl = blockIdx.x * blockDim.x + threadIdx.x; rl < rows_c;
+       rl += gridDim.x * blockDim.x) {
+    float top = -INFINITY;
+    for (int k = 0; k < vtiles; ++k) top = fmaxf(top, mpart[(size_t)k * rows_c + rl]);
+    float sum = 0.f;
+    for (int k = 0; k < vtiles; ++k)
+      sum += spart[(size_t)k * rows_c + rl] * expf(mpart[(size_t)k * rows_c + rl] - top);
+    lse[rl] = top + logf(sum);
   }
 }
 
@@ -1117,31 +1129,20 @@ int fwd(const void* enc, const void* pred, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-template <typename WT>
-int dx(const void* enc, const void* pred, const void* w, const void* b,
-       const void* labels, const void* glpb, const void* glpe, void* d_enc,
-       void* d_pred, void* lse, void* part_enc, void* part_pred, int N, int T,
-       int U1, int J, int V, int blank, cudaStream_t st) {
-  constexpr bool TC = std::is_same<WT, bf16>::value;
+// G with float32 W_out (bf16 W_out takes dx_tc below)
+int dx_f32(const void* enc, const void* pred, const void* w, const void* b,
+           const void* labels, const void* glpb, const void* glpe, void* d_enc,
+           void* d_pred, void* lse, void* part_enc, void* part_pred, int N, int T,
+           int U1, int J, int V, int blank, cudaStream_t st) {
+  using WT = float;
   const Shape s = make_shape<WT>(N, T, U1, J, V, blank);
-  if (TC && s.Jp > (THREADS_H / 32) * MAXJF * 16) return (int)cudaErrorInvalidValue;
-  const Smem<WT> L(s.Jp, TC ? 4 : 1);
-  cudaError_t err;
-  if constexpr (TC) {
-    err = prepare(joint_dx_kernel_bf16, L.total);
-    if (err != cudaSuccess) return (int)err;
-    joint_dx_kernel_bf16<<<N * s.nTB * s.nUB, THREADS_H, L.total, st>>>(
-        (const float*)enc, (const float*)pred, (const bf16*)w, (const float*)b,
-        (const int*)labels, (const float*)glpb, (const float*)glpe, (float*)lse,
-        (float*)part_enc, (float*)part_pred, s);
-  } else {
-    err = prepare(joint_dx_kernel<WT>, L.total);
-    if (err != cudaSuccess) return (int)err;
-    joint_dx_kernel<WT><<<N * s.nTB * s.nUB, THREADS, L.total, st>>>(
-        (const float*)enc, (const float*)pred, (const WT*)w, (const float*)b,
-        (const int*)labels, (const float*)glpb, (const float*)glpe, (float*)lse,
-        (float*)part_enc, (float*)part_pred, s);
-  }
+  const Smem<WT> L(s.Jp, 1);
+  cudaError_t err = prepare(joint_dx_kernel<WT>, L.total);
+  if (err != cudaSuccess) return (int)err;
+  joint_dx_kernel<WT><<<N * s.nTB * s.nUB, THREADS, L.total, st>>>(
+      (const float*)enc, (const float*)pred, (const WT*)w, (const float*)b,
+      (const int*)labels, (const float*)glpb, (const float*)glpe, (float*)lse,
+      (float*)part_enc, (float*)part_pred, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   joint_dx_reduce<<<grid_1d((size_t)N * (T + U1) * J), THREADS, 0, st>>>(
@@ -1213,6 +1214,23 @@ bool tensor_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t oute
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// a row-major bf16 [outer, mid, inner] tensor, read in {64, box_mid,
+// box_outer} boxes with the 128-byte swizzle (box_mid x box_outer rows of
+// 128 bytes, laid out as a 2-D box of that many rows)
+bool tensor_map3(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t mid,
+                 uint64_t outer, uint32_t box_mid, uint32_t box_outer) {
+  const EncodeTiledFn enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {inner, mid, outer};
+  const cuuint64_t strides[2] = {inner * 2, inner * mid * 2};
+  const cuuint32_t box[3] = {64, box_mid, box_outer};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // H with bf16 W_out (vw: W_out's row length, V rounded up to 8) over the
 // lattice rows in chunks of chunk_rows (a multiple of GM): per chunk, w(h)
 // into hs, the logits product into d and dbpart, the dW product into
@@ -1225,8 +1243,8 @@ int dw_tc(const float* enc, const float* pred, const bf16* w, int vw, const floa
   if (jp % GK || jp < J || vp % 8 || vp < V || vw % 8 || vw < V || chunk_rows <= 0 ||
       chunk_rows % GM || groups <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare(joint_dw_tc<false>, Ring<false>::SMEM);
-  if (err == cudaSuccess) err = prepare(joint_dw_tc<true>, Ring<true>::SMEM);
+  cudaError_t err = prepare(joint_dw_tc<TC_DLOGITS>, Ring<TC_DLOGITS>::SMEM);
+  if (err == cudaSuccess) err = prepare(joint_dw_tc<TC_DW>, Ring<TC_DW>::SMEM);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tw;
   if (!tensor_map(&tw, w, vw, J, (uint64_t)vw * 2)) return ERR_TENSOR_MAP;
@@ -1241,7 +1259,7 @@ int dw_tc(const float* enc, const float* pred, const bf16* w, int vw, const floa
     if (!tensor_map(&th, hs, jp, rc, (uint64_t)jp * 2) ||
         !tensor_map(&td, d, vp, rc, (uint64_t)vp * 2))
       return ERR_TENSOR_MAP;
-    DwChunk p;
+    DwChunk p{};
     p.bias = b;
     p.labels = labels;
     p.glpb = glpb;
@@ -1261,13 +1279,13 @@ int dw_tc(const float* enc, const float* pred, const bf16* w, int vw, const floa
     p.k_iters = jp / GK;
     p.k_total = 0;
     const int mtiles = (rc + GM - 1) / GM;
-    joint_dw_tc<false><<<dim3((V + GN - 1) / GN, mtiles), GTHREADS, Ring<false>::SMEM, st>>>(
-        th, tw, p);
+    joint_dw_tc<TC_DLOGITS><<<dim3((V + GN - 1) / GN, mtiles), GTHREADS,
+                              Ring<TC_DLOGITS>::SMEM, st>>>(th, tw, p);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     p.k_total = (rc + GK - 1) / GK;
     p.k_iters = (p.k_total + groups - 1) / groups;
-    joint_dw_tc<true><<<dim3((V + GN - 1) / GN, (J + GM - 1) / GM, groups), GTHREADS,
-                        Ring<true>::SMEM, st>>>(th, td, p);
+    joint_dw_tc<TC_DW><<<dim3((V + GN - 1) / GN, (J + GM - 1) / GM, groups), GTHREADS,
+                         Ring<TC_DW>::SMEM, st>>>(th, td, p);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     joint_dw_fold<<<grid_1d((size_t)J * V + V), THREADS, 0, st>>>(
         part, groups, dbpart, mtiles, dwo, dbo, J, V, r0 == 0);
@@ -1276,33 +1294,104 @@ int dw_tc(const float* enc, const float* pred, const bf16* w, int vw, const floa
   return 0;
 }
 
+// G with bf16 W_out (vw as for H) over the lattice in chunks of
+// groups_per_chunk frame groups ((n, tb): DX_FRAMES frames of one
+// utterance; ops/kernels/joint_lp.py:dx_plan). Per chunk: w(h) into hs;
+// the logits' (max, sum) partials into ms ([2][ceil(V / GN)][rows_c]) and
+// their fold into lse; the logits again, with the dlogits epilogue, into d;
+// dh = w(dlogits) W_out^T with its label and frame sums into enc_part
+// [N, T, nub, J] and pred_part [N, ntb, U1, J]. Then one fold into d_enc
+// and d_pred: 5 launches a chunk and one more. Every sum in a fixed order.
+int dx_tc(const float* enc, const float* pred, const bf16* w, int vw, const float* b,
+          const int* labels, const float* glpb, const float* glpe, float* d_enc,
+          float* d_pred, float* lse, bf16* hs, bf16* d, float* ms, float* enc_part,
+          float* pred_part, int N, int T, int U1, int J, int V, int blank, int jp, int vp,
+          int groups_per_chunk, cudaStream_t st) {
+  if (jp % GK || jp < J || vp % 8 || vp < V || vw % 8 || vw < V || groups_per_chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(joint_dw_tc<TC_LSE>, Ring<TC_LSE>::SMEM);
+  if (err == cudaSuccess) err = prepare(joint_dw_tc<TC_DLOGITS>, Ring<TC_DLOGITS>::SMEM);
+  if (err == cudaSuccess) err = prepare(joint_dw_tc<TC_DH>, Ring<TC_DH>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tw;
+  if (!tensor_map(&tw, w, vw, J, (uint64_t)vw * 2)) return ERR_TENSOR_MAP;
+  const int ntb = (T + DX_FRAMES - 1) / DX_FRAMES, nub = (U1 + DX_LABELS - 1) / DX_LABELS;
+  const int groups = N * ntb, vtiles = (V + GN - 1) / GN;
+  for (int g0 = 0; g0 < groups; g0 += groups_per_chunk) {
+    const int g1 = min(groups, g0 + groups_per_chunk);
+    const int f0 = (g0 / ntb) * T + (g0 % ntb) * DX_FRAMES;
+    const int f1 = ((g1 - 1) / ntb) * T + min(T, ((g1 - 1) % ntb + 1) * DX_FRAMES);
+    const int r0 = f0 * U1, rc = (f1 - f0) * U1;
+    joint_dw_fill<<<grid_1d((size_t)(f1 - f0) * jp / 8), THREADS, 0, st>>>(
+        enc, pred, hs, r0, rc, N, T, U1, J, jp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    CUtensorMap th, td;
+    if (!tensor_map(&th, hs, jp, rc, (uint64_t)jp * 2) ||
+        !tensor_map3(&td, d, vp, U1, f1 - f0, DX_LABELS, DX_FRAMES))
+      return ERR_TENSOR_MAP;
+    DwChunk p{};
+    p.bias = b;
+    p.labels = labels;
+    p.glpb = glpb;
+    p.glpe = glpe;
+    p.lse = lse;
+    p.d = d;
+    p.dbpart = nullptr;
+    p.enc = enc;
+    p.pred = pred;
+    p.enc_part = enc_part;
+    p.pred_part = pred_part;
+    p.mpart = ms;
+    p.spart = ms + (size_t)vtiles * rc;
+    p.r0 = r0;
+    p.rows_c = rc;
+    p.T = T;
+    p.U1 = U1;
+    p.J = J;
+    p.V = V;
+    p.vp = vp;
+    p.blank = blank;
+    p.k_iters = jp / GK;
+    p.g0 = g0;
+    p.f0 = f0;
+    p.ntb = ntb;
+    p.nub = nub;
+    const dim3 logits_grid(vtiles, (rc + GM - 1) / GM);
+    joint_dw_tc<TC_LSE><<<logits_grid, GTHREADS, Ring<TC_LSE>::SMEM, st>>>(th, tw, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    joint_lse_fold<<<grid_1d(rc), THREADS, 0, st>>>(p.mpart, p.spart, vtiles, rc, lse + r0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    joint_dw_tc<TC_DLOGITS><<<logits_grid, GTHREADS, Ring<TC_DLOGITS>::SMEM, st>>>(th, tw, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    p.k_iters = (vp + GK - 1) / GK;
+    joint_dw_tc<TC_DH><<<dim3((J + GN - 1) / GN, (g1 - g0) * nub), GTHREADS,
+                         Ring<TC_DH>::SMEM, st>>>(td, tw, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  Shape s = make_shape<bf16>(N, T, U1, J, V, blank);
+  s.nTB = ntb;
+  s.nUB = nub;
+  joint_dx_reduce<<<grid_1d((size_t)N * (T + U1) * J), THREADS, 0, st>>>(
+      enc_part, pred_part, d_enc, d_pred, s);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Scratch sizes, in float32 elements, that the wrapper allocates:
-// out[0] G's enc partial, out[1] G's pred partial, out[2] H's row groups,
-// out[3] H's dW partial, out[4] H's db partial; out[5] the largest
-// shared-memory request of the three kernels, in bytes.
-int joint_lp_scratch(int N, int T, int U1, int J, int V, int w_is_bf16,
-                     long long* out) {
-  Shape s;
-  size_t smem;
-  if (w_is_bf16) {
-    s = make_shape<bf16>(N, T, U1, J, V, 0);
-    smem = Smem<bf16>(s.Jp, 4).total;
-  } else {
-    s = make_shape<float>(N, T, U1, J, V, 0);
-    smem = Smem<float>(s.Jp, 1).total;
-    if (Smem<float>(s.Jp, 2).total > smem) smem = Smem<float>(s.Jp, 2).total;
-  }
+// Scratch sizes, in float32 elements, that the wrapper allocates for G
+// and H with float32 W_out: out[0] G's enc partial, out[1] G's pred
+// partial, out[2] H's row groups, out[3] H's dW partial, out[4] H's db
+// partial.
+int joint_lp_scratch(int N, int T, int U1, int J, int V, long long* out) {
+  const Shape s = make_shape<float>(N, T, U1, J, V, 0);
   const int g = n_groups(s);
   out[0] = (long long)N * T * s.nUB * J;
   out[1] = (long long)N * s.nTB * U1 * J;
   out[2] = g;
   out[3] = (long long)g * J * V;
   out[4] = (long long)g * V;
-  out[5] = (long long)smem;
   return 0;
 }
 
@@ -1318,17 +1407,33 @@ int joint_lp_fwd(const void* enc, const void* pred, const void* w,
       : fwd<float>(enc, pred, w, b, labels, lpb, lpe, N, T, U1, J, V, blank, st);
 }
 
+// G with float32 W_out (bf16 W_out: joint_lp_dx_tc)
 int joint_lp_dx(const void* enc, const void* pred, const void* w,
                 const void* b, const void* labels, const void* glpb,
                 const void* glpe, void* d_enc, void* d_pred, void* lse,
                 void* part_enc, void* part_pred, int N, int T, int U1, int J,
-                int V, int blank, int w_is_bf16, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  return w_is_bf16
-      ? dx<bf16>(enc, pred, w, b, labels, glpb, glpe, d_enc, d_pred, lse,
-                 part_enc, part_pred, N, T, U1, J, V, blank, st)
-      : dx<float>(enc, pred, w, b, labels, glpb, glpe, d_enc, d_pred, lse,
-                  part_enc, part_pred, N, T, U1, J, V, blank, st);
+                int V, int blank, void* stream) {
+  return dx_f32(enc, pred, w, b, labels, glpb, glpe, d_enc, d_pred, lse, part_enc,
+                part_pred, N, T, U1, J, V, blank, (cudaStream_t)stream);
+}
+
+// G with bf16 W_out on the tensor cores. w [J, vw] bf16 (vw = V rounded
+// up to 8, zero past V); scratch from the wrapper's plan
+// (ops/kernels/joint_lp.py:dx_plan): hs [chunk_rows, jp] and d
+// [chunk_rows, vp] bf16, ms [2, ceil(V / 128), chunk_rows], enc_part
+// [N, T, nub, J] and pred_part [N, ntb, U1, J] float32. Outputs d_enc
+// [N, T, J], d_pred [N, U1, J], lse [N, T, U1] float32.
+int joint_lp_dx_tc(const void* enc, const void* pred, const void* w, int vw,
+                   const void* b, const void* labels, const void* glpb,
+                   const void* glpe, void* d_enc, void* d_pred, void* lse, void* hs,
+                   void* d, void* ms, void* enc_part, void* pred_part, int N, int T,
+                   int U1, int J, int V, int blank, int jp, int vp, int groups_per_chunk,
+                   void* stream) {
+  return dx_tc((const float*)enc, (const float*)pred, (const bf16*)w, vw, (const float*)b,
+               (const int*)labels, (const float*)glpb, (const float*)glpe, (float*)d_enc,
+               (float*)d_pred, (float*)lse, (bf16*)hs, (bf16*)d, (float*)ms,
+               (float*)enc_part, (float*)pred_part, N, T, U1, J, V, blank, jp, vp,
+               groups_per_chunk, (cudaStream_t)stream);
 }
 
 // H with float32 W_out (bf16 W_out: joint_lp_dw_tc)
@@ -1363,8 +1468,7 @@ const char* joint_lp_error_string(int code) {
     return "cuTensorMapEncodeTiled refused a tensor map (or the driver lacks it)";
   if (code == (int)cudaErrorInvalidValue)
     return "invalid value (J too large: shared memory above the per-block "
-           "limit, or above 1024 for G with bf16 W_out; or H's scratch plan "
-           "out of shape)";
+           "limit; or the scratch plan of G or H out of shape)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

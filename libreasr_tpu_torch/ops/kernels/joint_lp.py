@@ -13,16 +13,20 @@ otherwise). Every other input is float32; labels are int32 [N, U1 - 1].
 
 Each wrapper takes its kernel for CUDA tensors and its plain twin for
 CPU tensors; a CUDA tensor never falls back. `LAUNCHES` counts one per
-wrapper call that launched its kernel (G is a main kernel and its
-reduction pass; H with bf16 W_out four launches per chunk of lattice
-rows, planned by `dw_plan`: w(h), the logits product with the dlogits
-epilogue, the dW product and the fold; with float32 W_out a main kernel
-and its reduction).
+wrapper call that launched its kernels. With bf16 W_out, G makes five
+launches per chunk of frame groups, planned by `dx_plan` (w(h), the
+logits product with a (max, sum) epilogue, the lse fold, the logits
+product with the dlogits epilogue, the dh product with the label and
+frame sums in its epilogue) and one fold; H four per chunk of lattice
+rows, planned by `dw_plan` (w(h), the logits product with the dlogits
+epilogue, the dW product and the fold). With float32 W_out each is a
+main kernel and its reduction.
 
-H with bf16 W_out keeps w(h) and w(dlogits) of a chunk of rows in bf16
-scratch that the wrapper allocates; `dw_plan` cuts the lattice into
+G and H with bf16 W_out keep w(h) and w(dlogits) of a chunk of rows in
+bf16 scratch that the wrapper allocates; the plans cut the lattice into
 chunks so that the scratch stays under `scratch_cap` bytes
-(DW_SCRATCH_CAP unless the caller gives another).
+(DW_SCRATCH_CAP unless the caller gives another). G's d_enc_proj and
+d_pred_proj partials lie outside the cap: they scale with the lattice.
 """
 
 from __future__ import annotations
@@ -182,6 +186,102 @@ def joint_lp_dw_chunked_reference(enc_proj, pred_proj, w_out, b_out, labels,
 
 
 # ---------------------------------------------------------------------------
+# G with bf16 W_out: the frame-group plan, and the twin taken over it
+# ---------------------------------------------------------------------------
+
+DX_FRAMES = 8      # frames of a dh tile (one utterance)
+DX_LABELS = 16     # labels of a dh tile: 8 x 16 = the 128 product rows
+DX_VTILE = 128     # logits columns of a tile: one (max, sum) partial per row
+
+
+@dataclass(frozen=True)
+class DxPlan:
+    """G's walk over the lattice: `groups` of up to DX_FRAMES frames of one
+    utterance ((n, tb), n-major), cut into `chunks` (first group, groups,
+    first row, rows) of contiguous rows whose scratch (w(h), w(dlogits),
+    the row (max, sum) partials) stays under the cap; ntb, nub: the frame
+    and label blocks of an utterance (dh tiles: ntb x nub per utterance);
+    jp, vp as for H; `partial_bytes`: the [nub] d_enc_proj and [ntb]
+    d_pred_proj partials, which scale with the lattice as the first
+    design's did; `scratch_bytes`: all that the wrapper allocates."""
+    rows: int
+    jp: int
+    vp: int
+    ntb: int
+    nub: int
+    vtiles: int
+    chunk_rows: int
+    groups_per_chunk: int
+    partial_bytes: int
+    scratch_bytes: int
+    chunks: tuple
+
+
+def dx_plan(n: int, t: int, u1: int, j: int, v: int, cap: int) -> DxPlan:
+    """Chunks of whole frame groups whose per-row scratch fits `cap`
+    bytes: w(h) and w(dlogits) in bf16 and the logits' (max, sum) per
+    row and 128-column tile. Every chunk holds the same number of groups
+    (the last one fewer). Raises when not even one group fits."""
+    jp, vp = -(-j // 64) * 64, -(-v // 8) * 8
+    ntb, nub, vtiles = -(-t // DX_FRAMES), -(-u1 // DX_LABELS), -(-v // DX_VTILE)
+    row_bytes = 2 * (jp + vp) + 8 * vtiles
+    group_rows = min(t, DX_FRAMES) * u1
+    per_chunk = cap // (row_bytes * group_rows)
+    if per_chunk < 1:
+        raise ValueError(f"joint_lp_dx: a scratch cap of {cap} B holds no frame "
+                         f"group (needs {row_bytes * group_rows} B)")
+    groups = n * ntb
+
+    def first_frame(g):
+        return (g // ntb) * t + (g % ntb) * DX_FRAMES
+
+    def end_frame(g):  # one past the last frame of group g
+        return (g // ntb) * t + min(t, (g % ntb + 1) * DX_FRAMES)
+
+    chunks = []
+    for g0 in range(0, groups, per_chunk):
+        g1 = min(groups, g0 + per_chunk)
+        f0, f1 = first_frame(g0), end_frame(g1 - 1)
+        chunks.append((g0, g1 - g0, f0 * u1, (f1 - f0) * u1))
+    chunk_rows = max(rc for *_, rc in chunks)
+    partial = 4 * j * (nub * n * t + ntb * n * u1)
+    scratch = chunk_rows * row_bytes + partial + (j * vp * 2 if v % 8 else 0)
+    return DxPlan(n * t * u1, jp, vp, ntb, nub, vtiles, chunk_rows,
+                  min(per_chunk, groups), partial, scratch, tuple(chunks))
+
+
+def joint_lp_dx_chunked_reference(enc_proj, pred_proj, w_out, b_out, labels,
+                                  g_lpb, g_lpe, plan: DxPlan, blank=0):
+    """The twin of G taken the way the bf16 kernel walks the lattice: the
+    row lse folded from (max, sum) partials over 128-column tiles of V in
+    order; dh summed over each tile's 16 labels into [nub] d_enc_proj
+    partials and over its 8 frames into [ntb] d_pred_proj partials, both
+    added in order (float32 throughout). Returns (d_enc_proj,
+    d_pred_proj, lse)."""
+    h, hq = _rows(enc_proj, pred_proj, w_out)
+    logits = _logits(hq, w_out, b_out)
+    n, t, u1, v = logits.shape
+    m = torch.stack([logits[..., a:a + DX_VTILE].amax(-1)
+                     for a in range(0, v, DX_VTILE)])
+    s = torch.stack([torch.exp(logits[..., a:a + DX_VTILE] - m[k, ..., None]).sum(-1)
+                     for k, a in enumerate(range(0, v, DX_VTILE))])
+    top = m.amax(0)
+    acc = torch.zeros_like(top)
+    for k in range(m.shape[0]):
+        acc = acc + s[k] * torch.exp(m[k] - top)
+    lse = top + torch.log(acc)
+    d = _dlogits(logits, lse, labels, g_lpb, g_lpe, blank)
+    dh = (d.to(w_out.dtype).float() @ w_out.float().t()) * (1.0 - h * h)
+    d_enc = torch.zeros((n, t, dh.shape[-1]), dtype=torch.float32, device=dh.device)
+    d_pred = torch.zeros((n, u1, dh.shape[-1]), dtype=torch.float32, device=dh.device)
+    for ub in range(plan.nub):
+        d_enc = d_enc + dh[:, :, ub * DX_LABELS:(ub + 1) * DX_LABELS].sum(2)
+    for tb in range(plan.ntb):
+        d_pred = d_pred + dh[:, tb * DX_FRAMES:(tb + 1) * DX_FRAMES].sum(1)
+    return d_enc, d_pred, lse
+
+
+# ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 
@@ -190,12 +290,14 @@ def _lib():
     lib = build.load(KERNEL)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.joint_lp_scratch.argtypes = [i, i, i, i, i, i,
+        lib.joint_lp_scratch.argtypes = [i, i, i, i, i,
                                          ctypes.POINTER(ctypes.c_longlong)]
         lib.joint_lp_scratch.restype = i
         lib.joint_lp_fwd.argtypes = [p] * 7 + [i] * 7 + [p]
         lib.joint_lp_fwd.restype = i
-        lib.joint_lp_dx.argtypes = [p] * 12 + [i] * 7 + [p]
+        lib.joint_lp_dx.argtypes = [p] * 12 + [i] * 6 + [p]
+        lib.joint_lp_dx_tc.argtypes = [p, p, p, i] + [p] * 12 + [i] * 9 + [p]
+        lib.joint_lp_dx_tc.restype = i
         lib.joint_lp_dx.restype = i
         lib.joint_lp_dw.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.joint_lp_dw.restype = i
@@ -253,9 +355,10 @@ def _run(fn, lib, rc):
                            f"{lib.joint_lp_error_string(rc).decode()}")
 
 
-def _scratch(lib, n, t, u1, j, v, bf16):
-    out = (ctypes.c_longlong * 6)()
-    lib.joint_lp_scratch(n, t, u1, j, v, int(bf16), out)
+def _scratch(lib, n, t, u1, j, v):
+    """Partials of G and H with float32 W_out (joint_lp_scratch)."""
+    out = (ctypes.c_longlong * 5)()
+    lib.joint_lp_scratch(n, t, u1, j, v, out)
     return [int(x) for x in out]
 
 
@@ -290,9 +393,11 @@ def joint_lp_fwd(enc_proj, pred_proj, w_out, b_out, labels, blank: int = 0):
 
 
 def joint_lp_dx(enc_proj, pred_proj, w_out, b_out, labels, g_lpb, g_lpe,
-                blank: int = 0):
+                blank: int = 0, scratch_cap: int = DW_SCRATCH_CAP):
     """Kernel G. g_lpb [N, T, U1], g_lpe [N, T, U1 - 1] float32. Returns
-    (d_enc_proj [N, T, J], d_pred_proj [N, U1, J], lse [N, T, U1])."""
+    (d_enc_proj [N, T, J], d_pred_proj [N, U1, J], lse [N, T, U1]). With
+    bf16 W_out the kernel's per-row scratch stays under `scratch_cap`
+    bytes (see `dx_plan`)."""
     fn = "joint_lp_dx"
     if _device(fn, enc_proj).type == "cpu":
         return joint_lp_dx_reference(enc_proj, pred_proj, w_out, b_out,
@@ -302,8 +407,12 @@ def joint_lp_dx(enc_proj, pred_proj, w_out, b_out, labels, g_lpb, g_lpe,
         (("g_lpb", g_lpb, _G), ("g_lpe", g_lpe, _E)))
     dev = enc_proj.device
     lib = _lib()
-    bf16 = w_out.dtype == torch.bfloat16
-    sizes = _scratch(lib, n, t, u1, j, v, bf16)
+    if w_out.dtype == torch.bfloat16:
+        out = _dx_tensor_cores(lib, enc_proj, pred_proj, w_out, b_out, labels,
+                               g_lpb, g_lpe, blank, scratch_cap)
+        LAUNCHES[fn] += 1
+        return out
+    sizes = _scratch(lib, n, t, u1, j, v)
     f32 = dict(dtype=torch.float32, device=dev)
     d_enc = torch.empty((n, t, j), **f32)
     d_pred = torch.empty((n, u1, j), **f32)
@@ -316,9 +425,46 @@ def joint_lp_dx(enc_proj, pred_proj, w_out, b_out, labels, g_lpb, g_lpe,
             b_out.data_ptr(), labels.data_ptr(), g_lpb.data_ptr(),
             g_lpe.data_ptr(), d_enc.data_ptr(), d_pred.data_ptr(),
             lse.data_ptr(), part_enc.data_ptr(), part_pred.data_ptr(),
-            n, t, u1, j, v, blank, int(bf16), _stream(dev))
+            n, t, u1, j, v, blank, _stream(dev))
     _run(fn, lib, rc)
     LAUNCHES[fn] += 1
+    return d_enc, d_pred, lse
+
+
+def _pad_w(w_out, vp):
+    """W_out with rows of a multiple of 16 bytes, as TMA reads them."""
+    v = w_out.shape[1]
+    return w_out if v % 8 == 0 else torch.nn.functional.pad(w_out, (0, vp - v))
+
+
+def _dx_tensor_cores(lib, enc_proj, pred_proj, w_out, b_out, labels, g_lpb,
+                     g_lpe, blank, cap):
+    """G with bf16 W_out: scratch from `dx_plan`, one C call that walks
+    the chunks."""
+    n, t, j = enc_proj.shape
+    u1, v = pred_proj.shape[1], w_out.shape[1]
+    dev = enc_proj.device
+    plan = dx_plan(n, t, u1, j, v, cap)
+    w = _pad_w(w_out, plan.vp)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    hs = torch.empty(plan.chunk_rows * plan.jp, **bf)
+    d = torch.empty(plan.chunk_rows * plan.vp, **bf)
+    ms = torch.empty(2 * plan.vtiles * plan.chunk_rows, **f32)
+    enc_part = torch.empty(n * t * plan.nub * j, **f32)
+    pred_part = torch.empty(n * plan.ntb * u1 * j, **f32)
+    d_enc = torch.empty((n, t, j), **f32)
+    d_pred = torch.empty((n, u1, j), **f32)
+    lse = torch.empty((n, t, u1), **f32)
+    with torch.cuda.device(dev):
+        rc = lib.joint_lp_dx_tc(
+            enc_proj.data_ptr(), pred_proj.data_ptr(), w.data_ptr(), w.shape[1],
+            b_out.data_ptr(), labels.data_ptr(), g_lpb.data_ptr(),
+            g_lpe.data_ptr(), d_enc.data_ptr(), d_pred.data_ptr(), lse.data_ptr(),
+            hs.data_ptr(), d.data_ptr(), ms.data_ptr(), enc_part.data_ptr(),
+            pred_part.data_ptr(), n, t, u1, j, v, blank, plan.jp, plan.vp,
+            plan.groups_per_chunk, _stream(dev))
+    _run("joint_lp_dx", lib, rc)
     return d_enc, d_pred, lse
 
 
@@ -330,8 +476,7 @@ def _dw_tensor_cores(lib, enc_proj, pred_proj, w_out, b_out, labels, g_lpb,
     j, v = w_out.shape
     dev = enc_proj.device
     plan = dw_plan(n, t, u1, j, v, cap, build.sm_count(dev.index or 0))
-    # TMA reads W_out in rows of a multiple of 16 bytes
-    w = w_out if v % 8 == 0 else torch.nn.functional.pad(w_out, (0, plan.vp - v))
+    w = _pad_w(w_out, plan.vp)
     bf = dict(dtype=torch.bfloat16, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     hs = torch.empty(plan.chunk_rows * plan.jp, **bf)
@@ -371,7 +516,7 @@ def joint_lp_dw(enc_proj, pred_proj, w_out, b_out, labels, g_lpb, g_lpe, lse,
                                g_lpb, g_lpe, lse, blank, scratch_cap)
         LAUNCHES[fn] += 1
         return out
-    sizes = _scratch(lib, n, t, u1, j, v, False)
+    sizes = _scratch(lib, n, t, u1, j, v)
     f32 = dict(dtype=torch.float32, device=dev)
     dw = torch.empty((j, v), **f32)
     db = torch.empty((v,), **f32)

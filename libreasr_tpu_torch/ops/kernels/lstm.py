@@ -10,13 +10,16 @@ row each step, int32 accumulation), which serves quantized cells.
 
 `lstm_seq` and `lstm_seq_int8` take their kernel for CUDA tensors and
 their plain twins for CPU tensors; a CUDA tensor never falls back.
-`LAUNCHES` counts kernel launches (one per timestep) so a run can show
-that its encoder went through the kernels.
+`LAUNCHES` counts kernel launches so a run can show that its encoder
+went through the kernels: the bf16-R kernel is one persistent
+cooperative launch per call (per slice of the batch that `fwd_plan`
+takes, `batch_slices`), the int8 kernel one launch per timestep.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -57,16 +60,107 @@ def lstm_seq_reference(wx, r, h0, c0, stream_c: bool):
     return torch.stack(ys, dim=1), yc, h, c
 
 
+def batch_slices(n: int, plan, *args) -> list[tuple[int, int]]:
+    """Contiguous slices (start, rows) of a batch of `n` rows, each the
+    largest prefix of what is left that `plan(rows, *args)` plans without
+    raising ValueError (a plan that takes a batch takes any smaller one).
+    Every row lies in one slice. Raises the plan's own error when not
+    even one row fits."""
+    plan(1, *args)
+
+    def fits(rows: int) -> bool:
+        try:
+            plan(rows, *args)
+        except ValueError:
+            return False
+        return True
+
+    lo, hi = 1, n
+    while lo < hi:  # the largest size in [1, n] that fits
+        mid = (lo + hi + 1) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    return [(s, min(lo, n - s)) for s in range(0, n, lo)]
+
+
+# the persistent kernel's launch geometry, as csrc/lstm_seq.cu defines it
+SEQ_THREADS = 512
+SEQ_MAXC = 8            # (row, unit) pairs an epilogue thread owns
+SEQ_MAX_HIDDEN = 8192
+MAX_SMEM = 227 * 1024  # per-block shared memory on sm_90 (kernels A/B and E)
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """The sequence kernel's grid: block b owns hidden units [b * units,
+    (b + 1) * units) & [0, hidden) and stages those 4 * units gate
+    columns of R, in shared memory when `resident`, else in a global
+    scratch read from L2 each step; the warps split K `kw` ways; `smem`
+    bytes of shared memory a block; np, kp: the batch and H padded to
+    the mma tiles; rstride: the staged columns' row stride."""
+    hidden: int
+    grid: int
+    units: int
+    kw: int
+    resident: bool
+    smem: int
+    np: int
+    kp: int
+    rstride: int
+
+    def units_of(self, block: int) -> range:
+        return range(block * self.units, min((block + 1) * self.units, self.hidden))
+
+
+def _rstride(kp: int) -> int:
+    """Row stride of a staged column of R (csrc/lstm_seq.cu's seq_rstride)."""
+    return -(-kp // 64) * 64 + 32
+
+
+def fwd_smem_bytes(n: int, kp: int, units: int, kw: int, resident: bool) -> int:
+    """Shared memory of one block (csrc/lstm_seq.cu's seq_smem_bytes):
+    the staged columns of R when resident, and the kw K-slices' partial
+    products of every 16-row batch tile and 8-column gate tile."""
+    red = kw * (-(-n // 16)) * (units // 2) * 128 * 4
+    return (4 * units * _rstride(kp) * 2 if resident else 0) + red
+
+
+def fwd_plan(n: int, hidden: int, sms: int) -> FwdPlan:
+    """The sequence kernel's partition of [0, hidden) over at most `sms`
+    blocks (one resident block per SM, which the launch checks against
+    the occupancy the card reports): the fewest units a block, a multiple
+    of 8; R's slice resident in shared memory with the widest K split that
+    fits, else read from L2. Raises where the batch is above the
+    epilogue's (row, unit) owners (the wrapper then slices the batch)."""
+    if hidden > SEQ_MAX_HIDDEN:
+        raise ValueError(f"lstm_seq: hidden size {hidden} exceeds the kernel's "
+                         f"{SEQ_MAX_HIDDEN}")
+    units = -(-(-(-hidden // sms)) // 8) * 8
+    grid = -(-hidden // units)
+    if n * units > SEQ_MAXC * SEQ_THREADS:
+        raise ValueError(f"lstm_seq: batch {n} x {units} units is above the "
+                         f"epilogue's {SEQ_MAXC * SEQ_THREADS} pairs")
+    kp = -(-hidden // 32) * 32
+    for resident in (True, False):
+        for kw in (16, 8, 4, 2, 1):
+            smem = fwd_smem_bytes(n, kp, units, kw, resident)
+            if smem <= MAX_SMEM:
+                return FwdPlan(hidden, grid, units, kw, resident, smem,
+                               -(-n // 16) * 16, kp, _rstride(kp))
+    raise ValueError(f"lstm_seq: batch {n} at hidden size {hidden} needs more "
+                     f"than {MAX_SMEM} B of shared memory a block")
+
+
 def _lib():
     lib = build.load(KERNEL)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_seq_forward.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.lstm_seq_forward.argtypes = [p] * 10 + [i] * 7 + [p]
         lib.lstm_seq_forward.restype = i
         lib.lstm_seq_error_string.argtypes = [i]
         lib.lstm_seq_error_string.restype = ctypes.c_char_p
-        lib.lstm_seq_max_hidden.argtypes = []
-        lib.lstm_seq_max_hidden.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -100,40 +194,47 @@ def lstm_seq(wx, r, h0, c0, *, stream_c: bool = False):
     if n == 0 or t == 0:
         raise ValueError(f"lstm_seq: empty input {tuple(wx.shape)}")
     dev = wx.device
-    rb = r.to(torch.bfloat16)
-    if not rb.is_contiguous() or rb.data_ptr() % 16:
-        rb = rb.contiguous().clone()
+    rb = r.to(torch.bfloat16).contiguous()
     _check("wx", wx, (n, t, g4), torch.float32, dev)
     _check("r", rb, (h, g4), torch.bfloat16, dev)
     _check("h0", h0, (n, h), torch.float32, dev)
     _check("c0", c0, (n, h), torch.float32, dev)
+    sms = build.sm_count(dev.index or 0)
+    slices = batch_slices(n, fwd_plan, h, sms)
     lib = _lib()
-    if h > lib.lstm_seq_max_hidden():
-        raise ValueError(f"lstm_seq: hidden size {h} exceeds the kernel's "
-                         f"{lib.lstm_seq_max_hidden()}")
     y = torch.empty((n, t, h), dtype=torch.float32, device=dev)
-    if stream_c:
-        yc = torch.empty((n, t, h), dtype=torch.float32, device=dev)
-        cbuf = c_t = None
-    else:
-        yc = None
-        cbuf = torch.empty((2, n, h), dtype=torch.float32, device=dev)
-        c_t = torch.empty((n, h), dtype=torch.float32, device=dev)
+    yc = torch.empty_like(y) if stream_c else None
+    c_t = None if stream_c else torch.empty((n, h), dtype=torch.float32, device=dev)
+    name = "lstm_seq_cseq" if stream_c else "lstm_seq"
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lstm_seq_forward(
-            ptr(wx), ptr(rb), ptr(h0), ptr(c0), ptr(y), ptr(yc), ptr(cbuf),
-            ptr(c_t), n, t, h, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"lstm_seq kernel failed: {lib.lstm_seq_error_string(rc).decode()}"
-        )
-    LAUNCHES["lstm_seq_cseq" if stream_c else "lstm_seq"] += t
+    # one cooperative launch per slice, each with its own exchange buffer
+    # (bf16(h) by step parity; padding rows and columns stay zero) and
+    # barrier counter; slices along dim 0 of contiguous tensors are
+    # contiguous
+    for s0, rows in slices:
+        plan = fwd_plan(rows, h, sms)
+        part = [None if x is None else x[s0:s0 + rows]
+                for x in (wx, h0, c0, y, yc, c_t)]
+        xbuf = torch.zeros(2 * plan.np * plan.kp, dtype=torch.bfloat16, device=dev)
+        rslice = None if plan.resident else torch.empty(
+            plan.grid * 4 * plan.units * plan.rstride, dtype=torch.bfloat16,
+            device=dev)
+        bar = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.lstm_seq_forward(
+                ptr(part[0]), ptr(rb), ptr(part[1]), ptr(part[2]), ptr(part[3]),
+                ptr(part[4]), ptr(part[5]), ptr(xbuf), ptr(rslice), ptr(bar),
+                rows, t, h, plan.grid, plan.units, plan.kw, int(plan.resident),
+                stream,
+            )
+        if rc != 0:
+            raise RuntimeError(
+                f"lstm_seq kernel failed: {lib.lstm_seq_error_string(rc).decode()}")
+        LAUNCHES[name] += 1
     if stream_c:
         return y, yc, y[:, -1], yc[:, -1]
     return y, None, y[:, -1], c_t

@@ -13,10 +13,11 @@ float32); h is rounded to it before D's product, and dv before E's, as
 in JAX. `lstm_train_fwd` and `lstm_train_bwd` take their kernel for
 CUDA tensors and their plain twins for CPU tensors; a CUDA tensor never
 falls back. `LAUNCHES` counts kernel launches: D launches once per
-timestep; E once per call (one persistent cooperative launch for all T
-steps and dh0, planned by `bwd_plan`: a shape whose grid could not be
-co-resident, or whose slice of R does not fit a block's shared memory,
-raises here and is never run another way).
+timestep; E once per slice of the batch (one persistent cooperative
+launch for all T steps and dh0, planned by `bwd_plan`; the batch goes in
+the largest slices the plan takes, `batch_slices`: a width whose grid
+could not be co-resident, or whose slice of R does not fit a block's
+shared memory, raises here and is never run another way).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 
 from ..rnn import round_to
 from . import build
-from .lstm import _check, pack_outputs
+from .lstm import MAX_SMEM, _check, batch_slices, pack_outputs
 
 KERNEL = "lstm_train"
 LAUNCHES = {"lstm_train_fwd": 0, "lstm_train_bwd": 0}
@@ -89,7 +90,6 @@ def lstm_train_bwd_reference(dy, dc_in, v, c_seq, cprev, r):
 E_THREADS = 512
 E_WARPS = E_THREADS // 32
 E_MAXC = 4          # (row, unit) pairs an epilogue thread owns
-MAX_SMEM = 227 * 1024
 
 
 @dataclass(frozen=True)
@@ -221,26 +221,32 @@ def lstm_train_bwd(dy, dc_in, v, c_seq, cprev, r):
     for name, x in (("dy", dy), ("dc_in", dc_in), ("c_seq", c_seq),
                     ("cprev", cprev)):
         _check(name, x, (n, t, h), torch.float32, dev, fn)
-    plan = bwd_plan(n, h, r.element_size(), build.sm_count(dev.index or 0))
+    sms = build.sm_count(dev.index or 0)
+    slices = batch_slices(n, bwd_plan, h, r.element_size(), sms)
     bf16 = r.dtype == torch.bfloat16
     dv = torch.empty_like(v)
     dh0 = torch.empty((n, h), dtype=torch.float32, device=dev)
     dc0 = torch.empty_like(dh0)
-    # r(dv) exchanged between blocks, by step parity (bf16 R; float32 R
-    # exchanges dv itself); padding rows and columns stay zero
-    xbuf = (torch.zeros(2 * plan.np * plan.kp, dtype=torch.bfloat16, device=dev)
-            if bf16 else None)
-    bar = torch.empty(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lstm_train_backward(
-            dy.data_ptr(), dc_in.data_ptr(), v.data_ptr(), c_seq.data_ptr(),
-            cprev.data_ptr(), r.data_ptr(), int(bf16), dv.data_ptr(),
-            dh0.data_ptr(), dc0.data_ptr(),
-            xbuf.data_ptr() if xbuf is not None else None, bar.data_ptr(),
-            n, t, h, plan.grid, plan.units, stream)
-    _raise_on(lib, fn, rc)
-    LAUNCHES[fn] += 1
+    # batch rows are independent in this backward: one cooperative launch
+    # per slice, each with its own exchange buffer and barrier counter;
+    # slices along dim 0 of contiguous tensors are contiguous
+    for s0, rows in slices:
+        plan = bwd_plan(rows, h, r.element_size(), sms)
+        part = [x[s0:s0 + rows] for x in (dy, dc_in, v, c_seq, cprev, dv, dh0, dc0)]
+        # r(dv) exchanged between blocks, by step parity (bf16 R; float32
+        # R exchanges dv itself); padding rows and columns stay zero
+        xbuf = (torch.zeros(2 * plan.np * plan.kp, dtype=torch.bfloat16,
+                            device=dev) if bf16 else None)
+        bar = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.lstm_train_backward(
+                *(x.data_ptr() for x in part[:5]), r.data_ptr(), int(bf16),
+                *(x.data_ptr() for x in part[5:]),
+                xbuf.data_ptr() if xbuf is not None else None, bar.data_ptr(),
+                rows, t, h, plan.grid, plan.units, stream)
+        _raise_on(lib, fn, rc)
+        LAUNCHES[fn] += 1
     return dv, dh0, dc0
 
 

@@ -162,7 +162,7 @@ def test_kernel_matches_twin_on_cuda(n, t, h):
         got = klstm.lstm_seq(wx, r, h0, c0, stream_c=stream_c)
         want = klstm.lstm_seq_reference(wx, r, h0, c0, stream_c)
         torch.cuda.synchronize()
-        assert klstm.LAUNCHES[name] == before + t
+        assert klstm.LAUNCHES[name] == before + 1  # one cooperative launch
         for a, b in zip(got, want):
             if a is None:
                 assert b is None
@@ -170,6 +170,40 @@ def test_kernel_matches_twin_on_cuda(n, t, h):
             d = (a - b).abs()
             assert float(d.max()) <= 4e-3 and float(d.mean()) <= 2e-4
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,h,slices", [(8, 37, 96, 1), (300, 20, 1024, 1),
+                                          (600, 6, 1024, 2)],
+                         ids=["golden", "n300", "sliced"])
+def test_seq_kernel_matches_twin_and_reruns_on_cuda(n, t, h, slices):
+    """Kernels A and B (one persistent cooperative launch per batch slice)
+    against their twin, tolerance as in chip_smoke.py (KERNEL_TOL: the
+    summation order and the bf16 flips of h it can cause, max 4e-3, mean
+    2e-4), and a rerun on the same inputs gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    rng = np.random.default_rng(n + t + h)
+
+    def rnd(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            dtype=torch.float32).cuda()
+
+    wx, r = rnd(n, t, 4 * h), rnd(h, 4 * h, scale=h ** -0.5)
+    h0, c0 = rnd(n, h, scale=0.5), rnd(n, h, scale=0.5)
+    for stream_c, name in ((False, "lstm_seq"), (True, "lstm_seq_cseq")):
+        before = klstm.LAUNCHES[name]
+        got = klstm.lstm_seq(wx, r, h0, c0, stream_c=stream_c)
+        assert klstm.LAUNCHES[name] == before + slices
+        again = klstm.lstm_seq(wx, r, h0, c0, stream_c=stream_c)
+        want = klstm.lstm_seq_reference(wx, r, h0, c0, stream_c)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, again):
+            if a is None:
+                assert b is None and c is None
+                continue
+            assert torch.equal(a, c)
+            d = (a - b).abs()
+            assert float(d.max()) <= 4e-3 and float(d.mean()) <= 2e-4
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,t,h", [(10, 20, 96), (3, 5, 98), (16, 30, 1024)])

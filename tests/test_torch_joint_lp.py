@@ -116,3 +116,33 @@ def test_dw_tensor_core_kernel_matches_twin_on_cuda(shape, cap):
     for a, r, c in zip(got, want, again):
         assert torch.equal(a, c)
         assert float((a - r).abs().max()) <= 2e-3 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cap", [
+    ((3, 13, 9, 96, 40), kj.DW_SCRATCH_CAP),          # golden-like
+    ((2, 11, 101, 200, 300), kj.DW_SCRATCH_CAP),      # U1 past 96, V off 8
+    ((16, 49, 41, 1024, 2048), kj.DW_SCRATCH_CAP),    # the main path
+    ((4, 37, 21, 256, 512), 4 * 2**20),               # two chunks
+], ids=["golden-like", "odd", "main", "chunked"])
+def test_dx_tensor_core_kernel_matches_twin_on_cuda(shape, cap):
+    """Kernel G with bf16 W_out (H's TMA + wgmma engine: the lse product,
+    the dlogits product, the dh product with its sums in the epilogue)
+    against its twin, within chip_smoke.py's JOINT_GRAD_TOL (2e-3 of each
+    gradient's largest entry) and JOINT_LP_TOL (lse, 2e-3); twice on the
+    same inputs, the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    enc, pred, w, b, lab, gb, ge = _inputs(*shape, seed=sum(shape))
+    x = [torch.from_numpy(a).cuda() for a in (enc, pred, w, b, lab, gb, ge)]
+    x[2] = x[2].bfloat16()
+    before = kj.LAUNCHES["joint_lp_dx"]
+    got = kj.joint_lp_dx(*x, scratch_cap=cap)
+    again = kj.joint_lp_dx(*x, scratch_cap=cap)
+    want = kj.joint_lp_dx_reference(*x)
+    torch.cuda.synchronize()
+    assert kj.LAUNCHES["joint_lp_dx"] == before + 2
+    for i, (a, r, c) in enumerate(zip(got, want, again)):
+        assert torch.equal(a, c)
+        tol = 2e-3 if i == 2 else 2e-3 * float(r.abs().max())
+        assert float((a - r).abs().max()) <= tol

@@ -317,3 +317,37 @@ def test_bwd_kernel_one_step_on_cuda(n, h, r_dtype):
     for a, b, c in zip(got, want, again):
         assert torch.equal(a, c)
         assert float((a - b).abs().max()) <= 4e-3 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_dtype", ["bfloat16", "float32"])
+def test_bwd_kernel_over_batch_slices_on_cuda(r_dtype):
+    """E at N 300, H 1024, above one launch's (row, unit) owners: one
+    cooperative launch per slice that bwd_plan takes, against the twin
+    (tolerance as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from libreasr_tpu_torch.ops.kernels import build
+
+    n, t, h = 300, 6, 1024
+    rng = np.random.default_rng(n + t + h)
+
+    def rnd(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            dtype=torch.float32).cuda()
+
+    wx, h0, c0 = rnd(n, t, 4 * h), rnd(n, h, scale=0.5), rnd(n, h, scale=0.5)
+    r = rnd(h, 4 * h, scale=h ** -0.5).to(getattr(torch, r_dtype))
+    _, c_seq, v = klt.lstm_train_fwd_reference(wx, r, h0, c0)
+    dy, dc = rnd(n, t, h, scale=0.1), rnd(n, t, h, scale=0.1)
+    cprev = torch.cat([c0[:, None], c_seq[:, :-1]], 1).contiguous()
+    slices = klt.batch_slices(n, klt.bwd_plan, h, r.element_size(),
+                              build.sm_count(0))
+    assert len(slices) == 2
+    before = klt.LAUNCHES["lstm_train_bwd"]
+    got = klt.lstm_train_bwd(dy, dc, v, c_seq, cprev, r)
+    want = klt.lstm_train_bwd_reference(dy, dc, v, c_seq, cprev, r)
+    torch.cuda.synchronize()
+    assert klt.LAUNCHES["lstm_train_bwd"] == before + len(slices)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 4e-3 * float(b.abs().max())
