@@ -22,18 +22,23 @@ Phases, one line each (any failure raises and exits non-zero):
      is held against the same model on the CPU (tolerance ENC_TOL), and
      the path is timed;
   6. kernel_int8: the int8 LSTM sequence kernel against its twin on the
-     card, with pack semantics (lengths 0 and T), at the shapes of 3 and
-     one H off its 4-column vector path (tolerance INT8_TOL); the port's
-     int8_matmul on the card equals its CPU result bit for bit;
+     card, with pack semantics (lengths 0 and T), at the shapes of 3 up
+     to N 64, one H off 64 (98), a batch of 300 (one launch), of 600 (two
+     batch slices) and an H whose slice of R is read from L2 (4096): bit
+     for bit (and within INT8_TOL), one cooperative launch per call and
+     slice, and a rerun gives the same bits; the port's int8_matmul on
+     the card equals its CPU result bit for bit; the kernel's quantization
+     of h (a reciprocal and one exact correction) equals the IEEE
+     quotient's on 2**32 seeded pairs;
   7. golden_int8: the golden bundle quantized by the port, and that
      bundle saved by the port and reloaded, each transcribe the 8 clips
-     exactly at 1 s (no int8 kernel launch) and padded to 3 s (2 layers
-     x 37 launches);
+     exactly at 1 s (no int8 kernel launch) and padded to 3 s (one
+     launch per encoder layer, 2);
   8. golden_bpe: the BPE golden bundle transcribes its 8 clips exactly,
      at 1 s and padded to 3 s;
   9. full_width_int8: the model of 5, quantized by the port, runs
-     transcribe_batch on the same clips: 6 x 74 int8 kernel launches and
-     none of the bf16-R kernel; its encoder output is held against the
+     transcribe_batch on the same clips: 6 int8 kernel launches (one per
+     encoder layer) and none of the bf16-R kernel; its encoder output is held against the
      same int8 model on the CPU (tolerance INT8_ENC_TOL), and the path
      is timed;
  10. kernel_joint: the joint log-prob kernels F, G, H against their twins
@@ -53,13 +58,15 @@ Phases, one line each (any failure raises and exits non-zero):
      against their twins on the card, bf16 and float32 R, at the main
      path's shape (N 16, T 49, H 1024), a golden-like one (N 3, T 37,
      H 96), a ragged one (N 13, H 100: off the batch tile and the vector
-     path), the small model's H 64 and T 1 (tolerances TRAIN_*); E is
-     one launch a call; E also at N 300, one launch per batch slice;
+     path), the small model's H 64 and T 1 (tolerances TRAIN_*); D and E
+     are one cooperative launch a call, and a rerun of D gives the same
+     bits; E also at N 300, D at N 600, one launch per batch slice; D at
+     an H whose slice of R is read from L2 (2048);
  12. train_full_width: the training main path, 4 Learner steps of the
      config/base.yaml model as written (bf16 compute, the encoder's LSTM
      layers on kernels D and E; accumulation over 2 batches and an
-     8-step schedule) on 16 ragged 2.5-4 s clips: losses finite, D 6 x 49
-     and E 6 launches a step, F/G/H once a step each, A/B/C never,
+     8-step schedule) on 16 ragged 2.5-4 s clips: losses finite, D 6 and
+     E 6 launches a step, F/G/H once a step each, A/B/C never,
      parameters updated on steps 2 and 4 only; step time and its split,
      peak memory;
  13. train_scan_route: the earlier path, the encoder on its scan cells
@@ -154,6 +161,9 @@ TRAIN_KERNEL_CASES = [(3, 37, 96), (13, 37, 100), (4, 49, 64), (16, 1, 1024),
                       (16, 49, 1024)]
 # E at a batch above one launch's epilogue owners (2 slices of bf16 R)
 TRAIN_BWD_SLICED_CASE = (300, 13, 1024)
+# D alone: a batch above one launch's epilogue owners (2 slices), and an
+# H whose slice of R does not fit shared memory (read from L2)
+TRAIN_FWD_EXTRA_CASES = [(600, 9, 1024), (8, 9, 2048)]
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -332,11 +342,10 @@ def phase_kernel(seed: int) -> dict:
 def _golden_check(name: str, bundle, kernel: str) -> None:
     """The golden clips at 1 s (T 12: the scan cells, no kernel launch)
     and zero-padded to 3 s with the true lengths (T 37: `kernel` once per
-    encoder layer, the int8 kernel once per step of each), with the launch
+    encoder layer), with the launch
     counts read around each call; raises unless both give the 8 texts
     exactly with those counts."""
     import numpy as np
-    import torch
 
     from libreasr_tpu_torch.data.audio import read_wav
     from libreasr_tpu_torch.ops.kernels import lstm as klstm
@@ -352,10 +361,8 @@ def _golden_check(name: str, bundle, kernel: str) -> None:
         klstm.reset_launches()
         texts, _ = bundle.transcribe_batch(clips, lengths)
         got[label] = (texts, dict(klstm.LAUNCHES))
-    t_3s = int(bundle.frontend.out_length(torch.tensor(48000)))
     want_3s = {k: 0 for k in klstm.LAUNCHES}
-    want_3s[kernel] = bundle.cfg.enc_num_layers * (
-        t_3s if kernel == "lstm_seq_int8" else 1)
+    want_3s[kernel] = bundle.cfg.enc_num_layers
     log(name, texts_1s=got["1s"][0], texts_3s=got["3s"][0],
         launches_1s=got["1s"][1], launches_3s=got["3s"][1],
         expected_launches_3s=want_3s)
@@ -561,12 +568,16 @@ def phase_full_width(seed: int, card: str, worst_err: dict) -> list[dict]:
 
 
 def phase_kernel_int8(seed: int) -> float:
-    """The int8 kernel vs its twin, and the port's int8 products on the
-    card vs on the host; returns the kernel's largest error."""
+    """The int8 kernel vs its twin, with the launches of each call and a
+    rerun on the same inputs (bit-identical), and the port's int8
+    products on the card vs on the host; returns the kernel's largest
+    error."""
     import torch
 
+    from libreasr_tpu_torch.ops.kernels import build
     from libreasr_tpu_torch.ops.kernels.lstm import (
-        lstm_pack, lstm_seq_int8, lstm_seq_int8_reference, pack_k4,
+        LAUNCHES, batch_slices, fwd_plan, int8_quotient_check, lstm_pack,
+        lstm_seq_int8, lstm_seq_int8_reference, pack_k4,
     )
     from libreasr_tpu_torch.ops.quant import (
         QuantizedTensor, int8_matmul, quantize,
@@ -598,10 +609,22 @@ def phase_kernel_int8(seed: int) -> float:
     if not all(exact.values()):
         raise AssertionError(f"int8 products differ between devices: {exact}")
 
-    # (N, T, H): phase_kernel's cases, and one H off the 4-column vector path
+    # the kernel's quantization of h against the IEEE quotient's, on 2**32
+    # seeded pairs: no quantized value may differ
+    quot = int8_quotient_check(2**32)
+    torch.cuda.synchronize()
+    log("int8_quotient_check", pairs=2**32, counts=quot)
+    if quot["hq_differ"] or quot["differ_above_4_ulps"]:
+        raise AssertionError(f"kernel C's quantization of h is not exact: {quot}")
+
+    # (N, T, H): phase_kernel's cases, one H off the 64-k granule, a batch
+    # of 300 (one launch), of 600 (two batch slices), and an H whose slice
+    # of R does not fit shared memory (read from L2)
     cases = [(8, 37, 96), (13, 37, 96), (5, 17, 100), (16, 74, 1024),
-             (64, 200, 1024), (3, 17, 98)]
+             (64, 200, 1024), (3, 17, 98), (300, 37, 1024), (600, 9, 1024),
+             (16, 20, 4096)]
     worst = 0.0
+    sms = build.sm_count(0)
     for n, t, h in cases:
         def rnd(*shape, scale=1.0):
             return (torch.randn(shape, generator=gen) * scale).cuda()
@@ -610,9 +633,15 @@ def phase_kernel_int8(seed: int) -> float:
         r = quantize(rnd(h, 4 * h, scale=1.0 / h ** 0.5))
         r = QuantizedTensor(r.q, r.scale, pack_k4(r.q))
         h0, c0 = rnd(n, h, scale=0.5), rnd(n, h, scale=0.5)
+        slices = batch_slices(n, fwd_plan, h, sms, 1)
+        plan = fwd_plan(slices[0][1], h, sms, 1)
+        before = LAUNCHES["lstm_seq_int8"]
         got = lstm_seq_int8(wx, r.q, r.scale, h0, c0, rq_packed=r.packed)
+        launches = LAUNCHES["lstm_seq_int8"] - before
+        again = lstm_seq_int8(wx, r.q, r.scale, h0, c0, rq_packed=r.packed)
         ref = lstm_seq_int8_reference(wx, r.q, r.scale, h0, c0)
         torch.cuda.synchronize()
+        identical = all(torch.equal(a, b) for a, b in zip(got, again))
         errs = {"seq": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
                 "seq_mean": max(float((a - b).abs().mean())
                                 for a, b in zip(got, ref))}
@@ -634,11 +663,18 @@ def phase_kernel_int8(seed: int) -> float:
                                 for a, b in zip((y, hf, cf), ref))
         worst = max(worst, errs["seq"], errs["pack"])
         log("kernel_int8", n=n, t=t, h=h, abs_err=errs, tol_max=INT8_TOL,
-            tol_mean=INT8_TOL_MEAN)
+            tol_mean=INT8_TOL_MEAN, launches_per_call=launches,
+            slices=len(slices), grid=plan.grid, units=plan.units, kw=plan.kw,
+            r_resident=plan.resident, rerun_bit_identical=identical)
         bad = {k: v for k, v in errs.items() if not v <= (
             INT8_TOL_MEAN if k.endswith("_mean") else INT8_TOL)}
         if bad:
             raise AssertionError(f"int8 kernel vs twin at {(n, t, h)}: {bad}")
+        # the design is bit-exact (module docstring of csrc/lstm_seq_int8.cu)
+        if any(errs.values()) or launches != len(slices) or not identical:
+            raise AssertionError(f"int8 kernel at {(n, t, h)}: errors {errs} "
+                                 f"(expected 0.0), launches {launches} for "
+                                 f"{len(slices)} slices, rerun identical {identical}")
     return worst
 
 
@@ -668,7 +704,7 @@ def phase_full_width_int8(seed: int, card: str, worst_err: float) -> dict:
     launches = dict(klstm.LAUNCHES)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     want = {"lstm_seq": 0, "lstm_seq_cseq": 0,
-            "lstm_seq_int8": cfg.enc_num_layers * t_enc}
+            "lstm_seq_int8": cfg.enc_num_layers}
     if launches != want:
         raise AssertionError(f"int8 main-path launches {launches}, "
                              f"expected {want}")
@@ -1145,7 +1181,7 @@ def phase_train_full_width(seed: int, card: str) -> dict:
     med = {k: statistics.median(v[1:]) for k, v in times.items()}
     step_ms = med.pop("step")
     layers = cfg.enc_num_layers
-    want_train = {"lstm_train_fwd": TRAIN_STEPS * layers * t_enc,
+    want_train = {"lstm_train_fwd": TRAIN_STEPS * layers,
                   "lstm_train_bwd": TRAIN_STEPS * layers}
     log("train_full_width", card=card, n=16, t_enc=t_enc, u=40,
         hidden=cfg.hidden_sz, vocab=cfg.vocab_sz, enc_layers=layers,
@@ -1299,36 +1335,55 @@ def _train_kernel_inputs(n, t, h, gen, r_dtype):
 
 def phase_kernel_train(seed: int) -> dict:
     """D and E against their twins at TRAIN_KERNEL_CASES, bf16 and float32
-    R; returns the largest error per kernel."""
+    R, one cooperative launch a call (per slice), D bit-identical on a
+    rerun; D also at TRAIN_FWD_EXTRA_CASES; returns the largest error per
+    kernel."""
     import torch
 
     from libreasr_tpu_torch.ops.kernels import build
     from libreasr_tpu_torch.ops.kernels import lstm_train as klt
 
     gen = torch.Generator().manual_seed(seed + 5)
+    sms = build.sm_count(0)
     worst = {"lstm_train_fwd": 0.0, "lstm_train_bwd": 0.0}
+
+    def run_fwd(fwd_in):
+        """D against its twin: errors, launches against the plan's slices,
+        and whether a rerun gives the same bits."""
+        (n, _, _), r = fwd_in[0].shape, fwd_in[1]
+        slices = klt.batch_slices(n, klt.fwd_plan, r.shape[0], sms, r.element_size())
+        before = klt.LAUNCHES["lstm_train_fwd"]
+        got = klt.lstm_train_fwd(*fwd_in)
+        launches = klt.LAUNCHES["lstm_train_fwd"] - before
+        again = klt.lstm_train_fwd(*fwd_in)
+        ref = klt.lstm_train_fwd_reference(*fwd_in)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(("y", "c_seq", "v"), got, ref):
+            d = (a - b).abs()
+            errs[name], errs[name + "_mean"] = float(d.max()), float(d.mean())
+        identical = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
+        return got, errs, finite, {"launches": launches, "slices": len(slices),
+                                   "rerun_bit_identical": identical}
+
     for n, t, h in TRAIN_KERNEL_CASES:
         for r_dtype in (torch.bfloat16, torch.float32):
             fwd_in, bwd_in = _train_kernel_inputs(n, t, h, gen, r_dtype)
-            got_f = klt.lstm_train_fwd(*fwd_in)
-            ref_f = klt.lstm_train_fwd_reference(*fwd_in)
+            got_f, errs, finite_f, fwd_run = run_fwd(fwd_in)
             before = klt.LAUNCHES["lstm_train_bwd"]
             got_b = klt.lstm_train_bwd(*bwd_in)
             bwd_launches = klt.LAUNCHES["lstm_train_bwd"] - before
             ref_b = klt.lstm_train_bwd_reference(*bwd_in)
             torch.cuda.synchronize()
-            errs = {}
-            for name, a, r in zip(("y", "c_seq", "v"), got_f, ref_f):
-                d = (a - r).abs()
-                errs[name], errs[name + "_mean"] = float(d.max()), float(d.mean())
             for name, a, r in zip(("dv", "dh0", "dc0"), got_b, ref_b):
                 scale = max(float(r.abs().max()), 1e-30)
                 d = (a - r).abs()
                 errs[name] = float(d.max()) / scale
                 errs[name + "_mean"] = float(d.mean()) / scale
-            finite = all(bool(torch.isfinite(x).all()) for x in (*got_f, *got_b))
+            finite = finite_f and all(bool(torch.isfinite(x).all()) for x in got_b)
             log("kernel_train", n=n, t=t, h=h, r_dtype=str(r_dtype),
-                finite=finite, err=errs, bwd_launches=bwd_launches,
+                finite=finite, err=errs, bwd_launches=bwd_launches, fwd=fwd_run,
                 tol_fwd_abs=TRAIN_FWD_TOL,
                 tol_fwd_mean=TRAIN_FWD_TOL_MEAN, tol_bwd_rel=TRAIN_BWD_TOL,
                 tol_bwd_mean_rel=TRAIN_BWD_TOL_MEAN)
@@ -1344,10 +1399,30 @@ def phase_kernel_train(seed: int) -> dict:
                        else (TRAIN_BWD_TOL_MEAN if mean else TRAIN_BWD_TOL))
                 if not e <= tol:
                     bad[k] = e
-            if bad or not finite or bwd_launches != 1:
+            if (bad or not finite or bwd_launches != 1 or fwd_run["launches"] != 1
+                    or not fwd_run["rerun_bit_identical"]):
                 raise AssertionError(f"training kernels vs twins at "
                                      f"{(n, t, h, r_dtype)}: {bad}, E launches "
-                                     f"{bwd_launches}")
+                                     f"{bwd_launches}, D {fwd_run}")
+    # D alone past one launch's batch and past the resident range
+    for n, t, h in TRAIN_FWD_EXTRA_CASES:
+        for r_dtype in (torch.bfloat16, torch.float32):
+            fwd_in, _ = _train_kernel_inputs(n, t, h, gen, r_dtype)
+            size = fwd_in[1].element_size()
+            plan = klt.fwd_plan(klt.batch_slices(n, klt.fwd_plan, h, sms, size)[0][1],
+                                h, sms, size)
+            _, errs, finite, fwd_run = run_fwd(fwd_in)
+            log("kernel_train_fwd", n=n, t=t, h=h, r_dtype=str(r_dtype),
+                finite=finite, err=errs, fwd=fwd_run, grid=plan.grid,
+                units=plan.units, kw=plan.kw, r_resident=plan.resident,
+                tol_fwd_abs=TRAIN_FWD_TOL, tol_fwd_mean=TRAIN_FWD_TOL_MEAN)
+            worst["lstm_train_fwd"] = max(worst["lstm_train_fwd"], errs["y"],
+                                          errs["c_seq"], errs["v"])
+            bad = {k: e for k, e in errs.items() if not e <= (
+                TRAIN_FWD_TOL_MEAN if k.endswith("_mean") else TRAIN_FWD_TOL)}
+            if (bad or not finite or fwd_run["launches"] != fwd_run["slices"]
+                    or not fwd_run["rerun_bit_identical"]):
+                raise AssertionError(f"D at {(n, t, h, r_dtype)}: {bad}, {fwd_run}")
     # E at a batch above one launch's (row, unit) owners: one cooperative
     # launch per slice that bwd_plan takes
     n, t, h = TRAIN_BWD_SLICED_CASE

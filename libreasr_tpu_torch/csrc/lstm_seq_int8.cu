@@ -1,4 +1,4 @@
-// Eval-mode int8 LSTM sequence kernel for Hopper (sm_90a).
+// Eval-mode int8 LSTM sequence kernel for Hopper (sm_90a): kernel C.
 //
 // Replaces the JAX package's Pallas TPU kernel
 // ops/pallas/lstm.py:_lstm_step_kernel_int8 (_lstm_seq_pallas_int8), which
@@ -20,270 +20,411 @@
 //
 // Exactness against the plain twin (ops/kernels/lstm.py:
 // lstm_seq_int8_reference): the scale uses IEEE division (never
-// -use_fast_math), rounding is rintf (half to even, as torch.round), the
-// int32 sum is exact in any order, and the epilogue is written with
-// __fmul_rn/__fadd_rn so that nvcc does not contract it into FMAs. The
-// pre-activation v therefore equals the twin's bit for bit on the same
-// h_{t-1}; what remains are expf/tanhf against PyTorch's own versions and
-// the rounding flips at .5 boundaries of h/hscale that a last-bit
-// difference in h can seed at the next step.
+// -use_fast_math), hq is the rint of the IEEE quotient h / hscale (see
+// quantize1), rounding is rintf (half to even, as torch.round), the
+// int32 sum is exact in any order (|acc| <= 127^2 H < 2^31 up to the
+// widest H), the row amax is a max (order-free), and the epilogue is
+// written with __fmul_rn/__fadd_rn so that nvcc does not contract it into
+// FMAs. The pre-activation v therefore equals the twin's bit for bit on
+// the same h_{t-1}, whatever the grid.
 //
-// What bounds it on an H100: each step reads all of rq (4 MB at H = 1024,
-// resident in the 50 MB L2 across steps) and does 2 * N * H * 4H int8
-// operations, a few hundred MOP at serving batch sizes against 1,979
-// TOP/s: the kernel is bound by the per-step launch and by latency, not by
-// bytes or operations. Design, kept simple (tensor-core int8 mma/wgmma
-// and a persistent single launch are later work):
-//   - one launch per step on the caller's stream, as in lstm_seq.cu:
-//     grid.x over tiles of BJ hidden units, grid.y over tiles of BN rows;
-//     a block owns the 4 * BJ gate columns {g * H + j} of its units, so
-//     the gate math fuses into the product's epilogue;
-//   - the per-row scale needs the whole row of h, and every block stages
-//     its BN rows of h_{t-1} in shared memory anyway: each block reduces
-//     amax (one warp per row) and quantizes into k-packed int8 words in
-//     shared memory. Redundant across blocks, but exact, and no state is
-//     shared between blocks;
-//   - rq is re-laid once per cell, when the weights are bound (never per
-//     call), into k-packed 32-bit words rw [ceil(H/4), 4H]: word (kk, col)
-//     holds rq[4kk + i, col] in byte i, k padded with zeros. A thread loads
-//     4 consecutive columns' words as one 16-byte vector and runs __dp4a
-//     against the packed h words: 4 multiply-adds per instruction;
-//   - the H/4-long reduction is split over KS interleaved k-slices whose
-//     int32 partial sums meet in shared memory;
-//   - step t reads h_{t-1} from y[:, t-1] (or h0) and c_{t-1} from
-//     yc[:, t-1] (or c0), so no block reads what another block of the
-//     same step writes.
+// What bounds it on an H100: each step needs all of rq (4 MB at H 1024)
+// for 2 N H 4H int8 operations, far below the tensor-core rate at serving
+// batch sizes, and step t + 1 cannot start before step t ends: a step is
+// bound by latency: moving h, and synchronising the card.
+//
+// This design is the int8 sibling of the persistent forward of kernels B
+// and D (csrc/lstm_persistent.cuh): one cooperative launch per call and
+// slice of the batch (ops/kernels/lstm.py:fwd_plan with r_itemsize 1).
+//   - Block b owns u hidden units and stages their 4u gate columns of the
+//     k-packed words of rq (ops/kernels/lstm.py:pack_k4: word (kk, col)
+//     holds rq[4kk + i, col] in byte i, which is how the m16n8k32 B
+//     fragment holds 4 consecutive k of a column) once per call: in
+//     shared memory (4u x H bytes, 32 KB at H 1024, u 8), or, where no
+//     partition fits that, in a global scratch read from L2 (RES).
+//   - The owners write h_t in float32 to an exchange buffer ([2][np][kp]
+//     by step parity: quantization needs the exact h), and each block's
+//     per-row max of |h_t| over its units to a partial-amax buffer
+//     ([2][np][grid]) beside it; then a grid barrier.
+//   - After the barrier every block folds the grid's partial maxima into
+//     the row's hscale (exact: max is order-free) and quantizes h_{t-1}
+//     itself as it loads the A fragments (the IEEE quotient's rint, from
+//     a reciprocal and one exact correction: quantize1; clip): no second
+//     barrier. Padding rows (past N) have h 0 and hscale 1e-12:
+//     hq 0.
+//   - The product runs on mma.sync.m16n8k32.s8.s8.s32 (M: batch rows
+//     padded to 16; N: 8 gate columns; K: H in slabs of 64, split kw ways
+//     over the warps). Thread (g = lane / 4, c = lane % 4) loads 16 bytes
+//     of column g's words at slab word 4c (k 16c .. 16c + 15) and quantizes
+//     the same 16 k of rows g and g + 8; each 4-k word feeds two
+//     m16n8k32 products as the logical k {4c..4c+3, 16+4c..16+4c+3}: A and
+//     B take the same permutation of the slab's 64 k, so the int32 sum is
+//     unchanged. The kw partial sums meet in shared memory.
+//   - The owner of each (row, unit) keeps c in registers and runs the
+//     epilogue with the exact operation order of the twin.
+// Traps (those of lstm_persistent.cuh): the exchange buffer and the
+// partial maxima are written and read by different blocks within the
+// launch, so both are read with ld.global.cg after the barrier, ordered by
+// the same fence and barrier.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lstm_persistent.cuh"
 
 namespace {
 
-constexpr int BN = 8;                 // batch rows per block
-constexpr int BJ = 16;                // hidden units per block
-constexpr int COLS = 4 * BJ;          // R columns per block (64)
-constexpr int CW = 4;                 // columns per thread (one 16-byte load)
-constexpr int CG = COLS / CW;         // column groups per block (16)
-constexpr int KS = 16;                // k-word slices of the reduction
-constexpr int THREADS = CG * KS;      // 256
-constexpr int WARPS = THREADS / 32;   // 8: one warp per row for amax
-constexpr int MAX_SMEM = 227 * 1024;  // per-block limit on sm_90
-static_assert(WARPS == BN, "the amax pass gives each row one warp");
-
-__device__ __forceinline__ float sigmoid_f(float x) {
+__device__ __forceinline__ float sigmoid_rn(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS) lstm_step_int8_kernel(
-    const float* __restrict__ wx, long long wx_stride,
-    const int* __restrict__ rw, const float* __restrict__ rscale,
-    const float* __restrict__ h_prev, long long h_stride,
-    const float* __restrict__ c_prev, long long c_stride,
-    float* __restrict__ y, float* __restrict__ c_out, long long out_stride,
-    int n, int hdim) {
-  extern __shared__ float smem[];
-  const int kw = (hdim + 3) / 4;
-  float* hs = smem;                                   // [BN][hdim]
-  float* hscale = hs + BN * hdim;                     // [BN]
-  int* hq = reinterpret_cast<int*>(hscale + BN);      // [BN][kw]
-  int* red = hq + BN * kw;                            // [KS][BN][COLS]
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * BJ;
-  const int b0 = blockIdx.y * BN;
+// x / s from rc = __frcp_rn(s): q = RN(x rc), corrected once by the
+// exact remainder, q' = RN(q + RN(x - q s) rc) (Markstein). Three
+// instructions where the IEEE quotient (__fdiv_rn) takes ~15, 16 k of
+// them per block and step; q' is within an ulp of the IEEE quotient, and
+// almost always equal to it (lstm_seq_int8_quotient_check counts both).
+__device__ __forceinline__ float quotient(float x, float s, float rc) {
+  const float q = __fmul_rn(x, rc);
+  return __fmaf_rn(__fmaf_rn(-q, s, x), rc, q);
+}
 
-  // 1. stage h_{t-1} and reduce each row's amax (warp w takes row w)
-  {
-    const int b = tid / 32;
-    const int lane = tid % 32;
-    const int row = b0 + b;
-    float m = 0.0f;
-    for (int k = lane; k < hdim; k += 32) {
-      const float v = row < n ? h_prev[(long long)row * h_stride + k] : 0.0f;
-      hs[b * hdim + k] = v;
-      m = fmaxf(m, fabsf(v));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    }
-    if (lane == 0) hscale[b] = fmaxf(__fdiv_rn(m, 127.0f), 1e-12f);
+// Whether q, with rq = rint(q), lies within 2^-13 of a half-integer:
+// |x / s| <= 127 (1 + 2^-24) here, where an ulp is at most 2^-17, so
+// that is 16 ulps or more.
+__device__ __forceinline__ bool near_tie(float q, float rq) {
+  return fabsf(q - rq) >= 0.5f - 0x1p-13f;
+}
+
+// clip(rint(x / s), +-127) with x / s the IEEE quotient: rint of two
+// values an ulp apart differs only where they straddle or touch a
+// half-integer, so there the IEEE quotient is taken (the rare case).
+__device__ __forceinline__ float quantize1(float x, float s, float rc) {
+  const float q = quotient(x, s, rc);
+  float rq = rintf(q);
+  if (near_tie(q, rq)) rq = rintf(__fdiv_rn(x, s));
+  return fminf(fmaxf(rq, -127.0f), 127.0f);
+}
+
+__device__ __forceinline__ uint32_t mix64(uint64_t v) {
+  v ^= v >> 33;
+  v *= 0xff51afd7ed558ccdull;
+  v ^= v >> 33;
+  v *= 0xc4ceb9fe1a85ec53ull;
+  v ^= v >> 33;
+  return (uint32_t)v;
+}
+
+// quantize1 against the IEEE quotient's clip(rint(.)) on `pairs` (x, s)
+// drawn as the kernel meets them: a row max m (mantissa and exponent
+// 2^-30 .. 2^10 at random), s = max(m / 127, 1e-12), x in [-m, m] (m
+// itself at times). counts: [0] quotients that differ from the IEEE one,
+// [1] of them by more than 4 ulps, [2] quantized values that differ,
+// [3] pairs that took the IEEE quotient.
+__global__ void quotient_check(unsigned long long* counts, unsigned long long pairs) {
+  const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+  unsigned long long c[4] = {0, 0, 0, 0};
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+       i < pairs; i += stride) {
+    const uint32_t u1 = mix64(3 * i), u2 = mix64(3 * i + 1), u3 = mix64(3 * i + 2);
+    const float m = ldexpf(1.0f + (u2 >> 9) * 0x1p-23f, (int)(u1 % 40) - 30);
+    const float s = fmaxf(__fdiv_rn(m, 127.0f), 1e-12f), rc = __frcp_rn(s);
+    float x = (u3 & 0xff) == 2 ? m : m * ((u3 >> 8) * 0x1p-24f);
+    if (u3 & 1) x = -x;
+    const float ieee = __fdiv_rn(x, s), q = quotient(x, s, rc);
+    const int ulps = ieee == q ? 0 : abs(__float_as_int(ieee) - __float_as_int(q));
+    c[0] += ulps != 0;
+    c[1] += ulps > 4;
+    c[2] += quantize1(x, s, rc) != fminf(fmaxf(rintf(ieee), -127.0f), 127.0f);
+    c[3] += near_tie(q, rintf(q));
   }
-  __syncthreads();
+  for (int k = 0; k < 4; ++k)
+    if (c[k]) atomicAdd(counts + k, c[k]);
+}
 
-  // 2. quantize into k-packed words: byte i of word kk is hq[4kk + i]
-  for (int idx = tid; idx < BN * kw; idx += THREADS) {
-    const int b = idx / kw;
-    const int kk = idx - b * kw;
-    const float s = hscale[b];
-    unsigned int word = 0u;
+// 16 consecutive float32 h at p (from the exchange buffer, 16-byte
+// aligned) quantized with scale s (reciprocal rc) into 4 words, byte i
+// of word w holding hq[4w + i]
+__device__ __forceinline__ void quantize16(const float* p, float s, float rc,
+                                           uint32_t (&w)[4]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = 4 * kk + i;
-      if (k < hdim) {
-        float q = rintf(__fdiv_rn(hs[b * hdim + k], s));
-        q = fminf(fmaxf(q, -127.0f), 127.0f);
-        word |= (static_cast<unsigned int>(static_cast<int>(q)) & 0xffu)
-                << (8 * i);
+  for (int i = 0; i < 4; ++i) {
+    const float4 x = __ldcg(reinterpret_cast<const float4*>(p) + i);
+    const float e[4] = {x.x, x.y, x.z, x.w};
+    uint32_t word = 0u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float q = quantize1(e[k], s, rc);
+      word |= (static_cast<uint32_t>(static_cast<int>(q)) & 0xffu) << (8 * k);
+    }
+    w[i] = word;
+  }
+}
+
+struct Int8Args {
+  const float* wx;      // [n, T, 4H]
+  const int* rw;        // [ceil(H/4), 4H] k-packed int8 words of rq
+  const float* rscale;  // [4H]
+  const float* h0;      // [n, H]
+  const float* c0;      // [n, H]
+  float* y;             // [n, T, H]
+  float* yc;            // [n, T, H]
+  float* xbuf;          // [2][np][kp] h by step parity, zeroed
+  float* amax;          // [2][np][grid] each block's per-row max |h|
+  int* rslice;          // !RES: [grid][4 units][rstride] words
+  unsigned int* bar;    // grid barrier counter, zeroed on the stream
+  int n, t_steps, hdim, np, kp, units, kw, rstride;
+};
+
+// Partial int32 products of hq [np, kp] (quantized here from the float32
+// exchange buffer x with the rows' scales hsc and their reciprocals
+// hsc[np ..]) with the block's staged words rs [4 units][rstride]: warp
+// w takes the 64-k slabs w % kw, w % kw + kw, ... of the batch tiles
+// w / kw, w / kw + 16 / kw, ...; red[kslice][mt][nt][lane * 4 + i].
+template <bool RES>
+__device__ void product_int8(const float* x, const float* hsc, const int* rs,
+                             int rstride, int* red, int mtiles, int ntiles, int kp,
+                             int kw) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int slabs = kp / 64, ks = warp % kw, mlanes = WARPS / kw;
+  for (int mt = warp / kw; mt < mtiles; mt += mlanes) {
+    const float* xlo = x + (size_t)(mt * 16 + g) * kp + 16 * c;
+    const float* xhi = xlo + (size_t)8 * kp;
+    const float slo = hsc[mt * 16 + g], shi = hsc[mt * 16 + g + 8];
+    const float rlo = hsc[mtiles * 16 + mt * 16 + g];
+    const float rhi = hsc[mtiles * 16 + mt * 16 + g + 8];
+    for (int nt0 = 0; nt0 < ntiles; nt0 += 4) {
+      int acc[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] = 0;
+      for (int s = ks; s < slabs; s += kw) {
+        uint32_t lo[4], hi[4];
+        quantize16(xlo + s * 64, slo, rlo, lo);
+        quantize16(xhi + s * 64, shi, rhi, hi);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const uint4 b = load_r<RES, uint4>(
+              rs + (size_t)((nt0 + nt) * 8 + g) * rstride + s * 16 + 4 * c);
+          mma_s8(acc[nt], lo[0], hi[0], lo[1], hi[1], b.x, b.y);
+          mma_s8(acc[nt], lo[2], hi[2], lo[3], hi[3], b.z, b.w);
+        }
       }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          red[((size_t)(ks * mtiles + mt) * ntiles + nt0 + nt) * 128 + lane * 4 + i] =
+              acc[nt][i];
     }
-    hq[idx] = static_cast<int>(word);
   }
+}
+
+template <bool RES>
+__global__ void __launch_bounds__(THREADS, 1) lstm_seq_int8_persistent(Int8Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = a.n, H = a.hdim, T = a.t_steps, u = a.units, kp = a.kp, np = a.np;
+  const int rstride = a.rstride, g4 = 4 * H, j0 = blockIdx.x * u, grid = gridDim.x;
+  const int mtiles = np / 16, ntiles = u / 2, cols = 4 * u;
+  int* rs = RES ? reinterpret_cast<int*>(smem)
+                : a.rslice + (size_t)blockIdx.x * cols * rstride;
+  int* red = reinterpret_cast<int*>(smem + (RES ? (size_t)cols * rstride * 4 : 0));
+  // the rows' scales, then their reciprocals; the block's maxima of |h|
+  // (as int bits: ordered as the nonnegative floats)
+  float* hsc = reinterpret_cast<float*>(red + (size_t)a.kw * mtiles * ntiles * 128);
+  int* bmax = reinterpret_cast<int*>(hsc + 2 * np);
+  const size_t half = (size_t)np * kp, ahalf = (size_t)np * grid;
+
+  stage_columns<int>(rs, a.rw, (H + 3) / 4, kp / 4, rstride, H, u, j0);
+  for (int r = threadIdx.x; r < np; r += THREADS) bmax[r] = 0;
   __syncthreads();
 
-  // 3. int8 x int8 -> int32 over this thread's k-slice and 4 columns
-  const int cg = tid % CG;
-  const int ks = tid / CG;
-  const int gate = cg / (BJ / CW);
-  const int jb = j0 + (cg % (BJ / CW)) * CW;  // hidden unit of column 0
-  const long long col = (long long)gate * hdim + jb;
-  const long long ld = 4LL * hdim;
-
-  int acc[BN][CW];
+  // the pairs this thread owns: c in registers; h0 to parity 1
+  float carry[MAXC];
 #pragma unroll
-  for (int b = 0; b < BN; ++b) {
-#pragma unroll
-    for (int e = 0; e < CW; ++e) acc[b][e] = 0;
-  }
-
-  for (int kk = ks; kk < kw; kk += KS) {
-    int rv[CW];
-    const int* rp = rw + (long long)kk * ld + col;
-    if (VEC) {
-      // hdim % 4 == 0: a group of 4 columns is wholly inside or outside
-      if (jb < hdim) {
-        const int4 u = __ldg(reinterpret_cast<const int4*>(rp));
-        rv[0] = u.x;
-        rv[1] = u.y;
-        rv[2] = u.z;
-        rv[3] = u.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < CW; ++e) rv[e] = 0;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < CW; ++e) rv[e] = (jb + e < hdim) ? __ldg(rp + e) : 0;
-    }
-#pragma unroll
-    for (int b = 0; b < BN; ++b) {
-      const int hv = hq[b * kw + kk];
-#pragma unroll
-      for (int e = 0; e < CW; ++e) acc[b][e] = __dp4a(hv, rv[e], acc[b][e]);
-    }
-  }
-
-#pragma unroll
-  for (int b = 0; b < BN; ++b) {
-#pragma unroll
-    for (int e = 0; e < CW; ++e) {
-      red[(ks * BN + b) * COLS + cg * CW + e] = acc[b][e];
-    }
-  }
-  __syncthreads();
-
-  // 4. epilogue: rescale, add wx, gates, state update
-  if (tid < BN * BJ) {
-    const int b = tid / BJ;
-    const int jj = tid % BJ;
-    const int row = b0 + b;
+  for (int q = 0; q < MAXC; ++q) {
+    int b, jj;
+    owner(q, u, b, jj);
     const int j = j0 + jj;
-    if (row < n && j < hdim) {
-      const float s = hscale[b];
+    carry[q] = 0.0f;
+    if (b < n && j < H) {
+      carry[q] = a.c0[(size_t)b * H + j];
+      const float h = a.h0[(size_t)b * H + j];
+      a.xbuf[half + (size_t)b * kp + j] = h;
+      atomicMax(&bmax[b], __float_as_int(fabsf(h)));
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < n; r += THREADS)
+    a.amax[ahalf + (size_t)r * grid + blockIdx.x] = __int_as_float(bmax[r]);
+  unsigned int target = grid;
+  grid_sync(a.bar, target);
+
+  // the column scales of the first PRE pairs, for the whole call
+  float csc[PRE][4];
+#pragma unroll
+  for (int q = 0; q < PRE; ++q) {
+    int b, jj;
+    owner(q, u, b, jj);
+    if (b < n && j0 + jj < H) {
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) csc[q][gate] = a.rscale[gate * H + j0 + jj];
+    }
+  }
+
+  const size_t seq = (size_t)T * H, gseq = (size_t)T * g4;
+  for (int t = 0; t < T; ++t) {
+    const int src = (t + 1) & 1;
+    // this step's projections of the first PRE pairs, loaded ahead of the
+    // fold and the product
+    float in[PRE][4];
+#pragma unroll
+    for (int q = 0; q < PRE; ++q) {
+      int b, jj;
+      owner(q, u, b, jj);
+      if (b < n && j0 + jj < H) {
+        const float* w = a.wx + b * gseq + (size_t)t * g4 + j0 + jj;
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) in[q][gate] = w[(size_t)gate * H];
+      }
+    }
+    // each row's scale from the grid's partial maxima (warp w: rows w,
+    // w + 16, ...); padding rows get 1 (their h is 0); the block's maxima
+    // restart for this step
+    {
+      const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+      for (int r = warp; r < np; r += WARPS) {
+        float m = 0.0f;
+        if (r < n) {
+          const float* p = a.amax + src * ahalf + (size_t)r * grid;
+          for (int k = lane; k < grid; k += 32) m = fmaxf(m, __ldcg(p + k));
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        }
+        if (lane == 0) {
+          const float sc = r < n ? fmaxf(__fdiv_rn(m, 127.0f), 1e-12f) : 1.0f;
+          hsc[r] = sc;
+          hsc[np + r] = __frcp_rn(sc);
+          bmax[r] = 0;
+        }
+      }
+    }
+    __syncthreads();
+    product_int8<RES>(a.xbuf + (size_t)src * half, hsc, rs, rstride, red, mtiles, ntiles,
+                      kp, a.kw);
+    __syncthreads();
+    float* xo = a.xbuf + (size_t)(t & 1) * half;
+#pragma unroll
+    for (int q = 0; q < MAXC; ++q) {
+      int b, jj;
+      owner(q, u, b, jj);
+      const int j = j0 + jj;
+      if (b >= n || j >= H) continue;
+      const float s = hsc[b];
+      const float* w = a.wx + b * gseq + (size_t)t * g4 + j;
       float v[4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
+      for (int gate = 0; gate < 4; ++gate) {
+        int mt, nt;
+        const int slot = tile_slot(b, gate * u + jj, mt, nt);
         int sum = 0;
-        for (int q = 0; q < KS; ++q) sum += red[(q * BN + b) * COLS + g * BJ + jj];
-        const long long gc = (long long)g * hdim + j;
-        v[g] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(sum), s), rscale[gc]),
-                         wx[(long long)row * wx_stride + gc]);
+        for (int k = 0; k < a.kw; ++k)
+          sum += red[((size_t)(k * mtiles + mt) * ntiles + nt) * 128 + slot];
+        const float cs = q < PRE ? csc[q < PRE ? q : 0][gate] : a.rscale[gate * H + j];
+        const float wv = q < PRE ? in[q < PRE ? q : 0][gate] : w[(size_t)gate * H];
+        v[gate] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(sum), s), cs), wv);
       }
-      const float ig = sigmoid_f(v[0]);
+      const float ig = sigmoid_rn(v[0]);
       const float gg = tanhf(v[1]);
-      const float fg = sigmoid_f(v[2]);
-      const float og = sigmoid_f(v[3]);
-      const float c = __fadd_rn(
-          __fmul_rn(fg, c_prev[(long long)row * c_stride + j]),
-          __fmul_rn(ig, gg));
-      y[(long long)row * out_stride + j] = __fmul_rn(og, tanhf(c));
-      c_out[(long long)row * out_stride + j] = c;
+      const float fg = sigmoid_rn(v[2]);
+      const float og = sigmoid_rn(v[3]);
+      const float cn = __fadd_rn(__fmul_rn(fg, carry[q]), __fmul_rn(ig, gg));
+      const float hn = __fmul_rn(og, tanhf(cn));
+      carry[q] = cn;
+      const size_t hi = b * seq + (size_t)t * H + j;
+      a.y[hi] = hn;
+      a.yc[hi] = cn;
+      xo[(size_t)b * kp + j] = hn;
+      atomicMax(&bmax[b], __float_as_int(fabsf(hn)));
+    }
+    if (t + 1 < T) {
+      __syncthreads();
+      for (int r = threadIdx.x; r < n; r += THREADS)
+        a.amax[(size_t)(t & 1) * ahalf + (size_t)r * grid + blockIdx.x] =
+            __int_as_float(bmax[r]);
+      target += grid;
+      grid_sync(a.bar, target);
     }
   }
-}
-
-size_t smem_bytes(int hdim) {
-  const size_t kw = (size_t)(hdim + 3) / 4;
-  return sizeof(float) * ((size_t)BN * hdim + BN) + sizeof(int) * BN * kw +
-         sizeof(int) * (size_t)KS * BN * COLS;
-}
-
-template <bool VEC>
-cudaError_t run(const float* wx, const int* rw, const float* rscale,
-                const float* h0, const float* c0, float* y, float* yc, int n,
-                int t_steps, int hdim, cudaStream_t stream) {
-  const size_t smem = smem_bytes(hdim);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_step_int8_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((hdim + BJ - 1) / BJ, (n + BN - 1) / BN);
-  const long long seq = (long long)t_steps * hdim;  // row stride of y, yc
-  for (int t = 0; t < t_steps; ++t) {
-    const float* hp = t == 0 ? h0 : y + (long long)(t - 1) * hdim;
-    const float* cp = t == 0 ? c0 : yc + (long long)(t - 1) * hdim;
-    const long long ps = t == 0 ? hdim : seq;
-    lstm_step_int8_kernel<VEC><<<grid, THREADS, smem, stream>>>(
-        wx + (long long)t * 4 * hdim, (long long)t_steps * 4 * hdim, rw,
-        rscale, hp, ps, cp, ps, y + (long long)t * hdim,
-        yc + (long long)t * hdim, seq, n, hdim);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest hidden size the shared-memory layout takes.
-int lstm_seq_int8_max_hidden() {
-  // per row: hdim floats of h and ceil(hdim/4) packed words <= 5 bytes/k
-  const size_t fixed = sizeof(int) * (size_t)KS * BN * COLS +
-                       sizeof(float) * BN + sizeof(int) * BN;
-  return (int)((MAX_SMEM - fixed) / (5 * BN));
-}
-
-// Runs t_steps step kernels on `stream`. All pointers are device memory:
-//   wx [n, t_steps, 4h] f32; rw [ceil(h/4), 4h] int32, the k-packed int8
-//   recurrent matrix; rscale [4h] f32; h0, c0 [n, h] f32;
-//   y, yc [n, t_steps, h] f32 receive every h_t and c_t.
-// Returns 0, or the cudaError_t of the first launch that failed.
+// One cooperative launch of `grid` blocks of `units` hidden units each (a
+// multiple of 8, grid * units >= h) on `stream`, K split `kw` ways (1, 2,
+// 4, 8 or 16), the slice of rw in shared memory (resident != 0) or in
+// rslice. Device pointers: wx [n, t_steps, 4h] f32; rw [ceil(h/4), 4h]
+// int32, the k-packed int8 recurrent matrix; rscale [4h] f32; h0, c0
+// [n, h] f32; y, yc [n, t_steps, h] f32 receive every h_t and c_t;
+// xbuf [2, np, kp] f32, zeroed (np = n rounded up to 16, kp = h rounded
+// up to 64); amax [2, np, grid] f32; rslice [grid, 4 units, rstride]
+// int32 when not resident (else null); bar one counter, zeroed on the
+// stream here.
+// Returns 0, or the cudaError_t of the call that failed
+// (cudaErrorCooperativeLaunchTooLarge: the grid cannot be co-resident).
 int lstm_seq_int8_forward(const void* wx, const void* rw, const void* rscale,
-                          const void* h0, const void* c0, void* y, void* yc,
-                          int n, int t_steps, int hdim, void* stream) {
-  if (n <= 0 || t_steps <= 0 || hdim <= 0 ||
-      hdim > lstm_seq_int8_max_hidden()) {
+                          const void* h0, const void* c0, void* y, void* yc, void* xbuf,
+                          void* amax, void* rslice, void* bar, int n, int t_steps,
+                          int hdim, int grid, int units, int kw, int resident,
+                          void* stream) {
+  if (!fwd_args_ok(n, t_steps, hdim, grid, units, kw, resident, rslice)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* wx_f = static_cast<const float*>(wx);
-  const int* rw_i = static_cast<const int*>(rw);
-  const float* rs_f = static_cast<const float*>(rscale);
-  const float* h0_f = static_cast<const float*>(h0);
-  const float* c0_f = static_cast<const float*>(c0);
-  float* y_f = static_cast<float*>(y);
-  float* yc_f = static_cast<float*>(yc);
+  Int8Args a;
+  a.wx = static_cast<const float*>(wx);
+  a.rw = static_cast<const int*>(rw);
+  a.rscale = static_cast<const float*>(rscale);
+  a.h0 = static_cast<const float*>(h0);
+  a.c0 = static_cast<const float*>(c0);
+  a.y = static_cast<float*>(y);
+  a.yc = static_cast<float*>(yc);
+  a.xbuf = static_cast<float*>(xbuf);
+  a.amax = static_cast<float*>(amax);
+  a.rslice = static_cast<int*>(rslice);
+  a.bar = static_cast<unsigned int*>(bar);
+  a.n = n;
+  a.t_steps = t_steps;
+  a.hdim = hdim;
+  a.np = (n + 15) / 16 * 16;
+  a.kp = fwd_kpad(hdim, 1);
+  a.units = units;
+  a.kw = kw;
+  a.rstride = fwd_rstride(a.kp, 1);
+  const size_t smem = fwd_smem_bytes(n, a.kp, units, kw, resident != 0, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 16-byte vector loads of rw need each row segment 4-word aligned
-  const bool vec = hdim % 4 == 0 && reinterpret_cast<uintptr_t>(rw) % 16 == 0;
   const cudaError_t err =
-      vec ? run<true>(wx_f, rw_i, rs_f, h0_f, c0_f, y_f, yc_f, n, t_steps,
-                      hdim, s)
-          : run<false>(wx_f, rw_i, rs_f, h0_f, c0_f, y_f, yc_f, n, t_steps,
-                       hdim, s);
+      resident ? launch_cooperative(lstm_seq_int8_persistent<true>, a, a.bar, grid, smem, s)
+               : launch_cooperative(lstm_seq_int8_persistent<false>, a, a.bar, grid, smem,
+                                    s);
   return (int)err;
+}
+
+// Runs quotient_check on `pairs` pairs into counts [4] (device memory,
+// zeroed by the caller) on `stream`. Returns 0 or the launch's error.
+int lstm_seq_int8_quotient_check(void* counts, long long pairs, void* stream) {
+  quotient_check<<<264, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(counts), (unsigned long long)pairs);
+  return (int)cudaGetLastError();
 }
 
 const char* lstm_seq_int8_error_string(int code) {

@@ -29,14 +29,20 @@
 // training batch sizes, and step t + 1 must finish before step t starts,
 // so a step is bound by latency: moving R or the exchanged state, and
 // synchronising the card. The TPU kernels held R in VMEM for the whole
-// grid.
-//   - D launches one fused step kernel per timestep on the caller's
-//     stream and spreads R over the grid (the step kernel of
-//     csrc/lstm_seq.cu with a third output, v, and a float32-R variant:
-//     grid.x over tiles of BJ hidden units, grid.y over tiles of BN batch
-//     rows, KS k-slices of the H-long reduction; R streams out of L2).
-//   - E is one persistent cooperative launch for the whole sequence. The
-//     grid is no larger than the blocks that can be resident at once
+// grid. Both are one persistent cooperative launch per call (per slice
+// of the batch), so R is read from memory once per call, not once a
+// step.
+//   - D is kernel B's persistent forward (csrc/lstm_persistent.cuh:
+//     lstm_fwd_persistent) with v streamed out, planned by
+//     ops/kernels/lstm.py:fwd_plan: block b owns u hidden units and keeps
+//     their 4u gate columns of R in shared memory (or, past that, in a
+//     global scratch read from L2). bf16 R: r(h) = bf16(h) is exchanged
+//     through L2 by step parity and the product runs on mma.sync.m16n8k16,
+//     as B's. float32 R: the exchange holds h itself, R's slice is float32
+//     (4u x H x 4 B, 96 KB at H 768, u 8), and the product is a float32 FMA
+//     loop with K split over the warps in a fixed order (no TF32), so the
+//     result differs from the twin in summation order only.
+//   - E: the grid is no larger than the blocks that can be resident at once
 //     (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs; the launch is
 //     refused otherwise, never split). Block b owns the hidden units
 //     [b * bj, (b + 1) * bj) and keeps rows j of R, the contiguous runs
@@ -53,11 +59,10 @@
 //     fixed order; the epilogue owner of (row, unit) keeps the dc carry in
 //     registers, writes dv_t in float32 and its rounded copy to the
 //     exchange buffer; then a grid barrier. After step 0 the same launch
-//     forms dh0 and dc0: one launch per call, where the per-step design
-//     took T + 1. With float32 R nothing is rounded: the exchange is dv
-//     itself and the product a float32 FMA loop.
-//   Traps: the exchange buffer (and dv on the float32 route) is written
-//   and read by different blocks within the launch, so it is read with
+//     forms dh0 and dc0. With float32 R nothing is rounded: the exchange
+//     is dv itself and the product a float32 FMA loop.
+//   Traps: the exchange buffers (and dv on E's float32 route) are written
+//   and read by different blocks within the launch, so they are read with
 //   ld.global.cg (L2, coherent) after the barrier, never through __ldg,
 //   const __restrict__ or ld.global.nc, which could return the previous
 //   step's values; writes are released by __threadfence() before the
@@ -65,203 +70,15 @@
 //   barrier is a counter of its own (zeroed per launch by a memset on the
 //   stream), so the source builds without -rdc.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lstm_persistent.cuh"
 
 namespace {
-
-constexpr int BN = 8;                 // D: batch rows per block
-constexpr int BJ = 16;                // D: hidden units per block
-constexpr int CG = 4 * BJ / 8;        // D: 8-column groups per block (8)
-constexpr int KS = 32;                // D: k-slices of the reduction
-constexpr int THREADS = CG * KS;      // 256
-constexpr int COLS = 4 * BJ;          // D: R columns per block (64)
-constexpr int MAX_SMEM = 227 * 1024;  // per-block limit on sm_90
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// x rounded to R's type and widened back (exact for the product in float32)
-template <typename RT>
-__device__ __forceinline__ float round_r(float x);
-template <>
-__device__ __forceinline__ float round_r<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-template <>
-__device__ __forceinline__ float round_r<float>(float x) {
-  return x;
-}
-
-// 8 consecutive elements of R from p as float32; `valid` of them in range.
-// VEC: all 8 valid and p 16-byte aligned.
-template <typename RT, bool VEC>
-__device__ __forceinline__ void load8(const RT* p, int valid, float (&v)[8]);
-
-template <>
-__device__ __forceinline__ void load8<__nv_bfloat16, true>(
-    const __nv_bfloat16* p, int, float (&v)[8]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(p2[e]);
-    v[2 * e] = f.x;
-    v[2 * e + 1] = f.y;
-  }
-}
-
-template <>
-__device__ __forceinline__ void load8<float, true>(const float* p, int,
-                                                   float (&v)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-template <>
-__device__ __forceinline__ void load8<__nv_bfloat16, false>(
-    const __nv_bfloat16* p, int valid, float (&v)[8]) {
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = e < valid ? __bfloat162float(p[e]) : 0.0f;
-}
-
-template <>
-__device__ __forceinline__ void load8<float, false>(const float* p, int valid,
-                                                    float (&v)[8]) {
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = e < valid ? p[e] : 0.0f;
-}
-
-// ---------------------------------------------------------------------------
-// D: one forward step
-// ---------------------------------------------------------------------------
-
-template <typename RT, bool VEC>
-__global__ void __launch_bounds__(THREADS) train_fwd_step(
-    const float* __restrict__ wx, long long wx_stride,
-    const RT* __restrict__ r,
-    const float* __restrict__ h_prev, long long h_stride,
-    const float* __restrict__ c_prev, long long c_stride,
-    float* __restrict__ y, float* __restrict__ c_out, long long seq_stride,
-    float* __restrict__ v_out, int n, int hdim) {
-  extern __shared__ float smem[];
-  float* hs = smem;                // [BN][hdim]   r(h_{t-1})
-  float* red = smem + BN * hdim;   // [KS][BN][COLS] partial sums
-
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * BJ;
-  const int b0 = blockIdx.y * BN;
-
-  for (int idx = tid; idx < BN * hdim; idx += THREADS) {
-    const int b = idx / hdim;
-    const int k = idx - b * hdim;
-    hs[idx] = b0 + b < n
-                  ? round_r<RT>(h_prev[(long long)(b0 + b) * h_stride + k])
-                  : 0.0f;
-  }
-  __syncthreads();
-
-  const int cg = tid % CG;
-  const int ks = tid / CG;
-  const int gate = cg / (BJ / 8);
-  const int jb = j0 + (cg % (BJ / 8)) * 8;  // hidden unit of element 0
-  const long long col = (long long)gate * hdim + jb;
-  const long long ld = 4LL * hdim;
-  const int valid = hdim - jb < 8 ? hdim - jb : 8;
-
-  float acc[BN][8];
-#pragma unroll
-  for (int b = 0; b < BN; ++b) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[b][e] = 0.0f;
-  }
-
-  if (valid > 0) {
-    for (int k = ks; k < hdim; k += KS) {
-      float rv[8];
-      load8<RT, VEC>(r + (long long)k * ld + col, valid, rv);
-#pragma unroll
-      for (int b = 0; b < BN; ++b) {
-        const float hv = hs[b * hdim + k];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[b][e] = fmaf(hv, rv[e], acc[b][e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int b = 0; b < BN; ++b) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      red[(ks * BN + b) * COLS + cg * 8 + e] = acc[b][e];
-    }
-  }
-  __syncthreads();
-
-  if (tid < BN * BJ) {
-    const int b = tid / BJ;
-    const int jj = tid % BJ;
-    const int row = b0 + b;
-    const int j = j0 + jj;
-    if (row < n && j < hdim) {
-      float v[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float s = 0.0f;
-        for (int q = 0; q < KS; ++q) s += red[(q * BN + b) * COLS + g * BJ + jj];
-        v[g] = s + wx[(long long)row * wx_stride + (long long)g * hdim + j];
-        v_out[(long long)row * wx_stride + (long long)g * hdim + j] = v[g];
-      }
-      const float ig = sigmoid_f(v[0]);
-      const float gg = tanhf(v[1]);
-      const float fg = sigmoid_f(v[2]);
-      const float og = sigmoid_f(v[3]);
-      const float c = fg * c_prev[(long long)row * c_stride + j] + ig * gg;
-      y[(long long)row * seq_stride + j] = og * tanhf(c);
-      c_out[(long long)row * seq_stride + j] = c;
-    }
-  }
-}
-
-size_t fwd_smem_bytes(int hdim) {
-  return sizeof(float) * ((size_t)BN * hdim + (size_t)KS * BN * COLS);
-}
-
-template <typename RT, bool VEC>
-cudaError_t run_fwd(const float* wx, const RT* r, const float* h0,
-                    const float* c0, float* y, float* c_seq, float* v, int n,
-                    int t_steps, int hdim, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(hdim);
-  cudaError_t err = cudaFuncSetAttribute(
-      train_fwd_step<RT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((hdim + BJ - 1) / BJ, (n + BN - 1) / BN);
-  const long long seq = (long long)t_steps * hdim;    // row stride of y, c
-  const long long gseq = 4 * seq;                     // row stride of wx, v
-  for (int t = 0; t < t_steps; ++t) {
-    const float* hp = t == 0 ? h0 : y + (long long)(t - 1) * hdim;
-    const float* cp = t == 0 ? c0 : c_seq + (long long)(t - 1) * hdim;
-    const long long ps = t == 0 ? hdim : seq;
-    train_fwd_step<RT, VEC><<<grid, THREADS, smem, stream>>>(
-        wx + (long long)t * 4 * hdim, gseq, r, hp, ps, cp, ps,
-        y + (long long)t * hdim, c_seq + (long long)t * hdim, seq,
-        v + (long long)t * 4 * hdim, n, hdim);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
 
 // ---------------------------------------------------------------------------
 // E: the reverse-time recurrence in one cooperative launch
 // ---------------------------------------------------------------------------
 
-constexpr int E_THREADS = 512;
+constexpr int E_THREADS = THREADS;  // the shared cooperative launch's block
 constexpr int E_WARPS = E_THREADS / 32;
 constexpr int E_MAXC = 4;    // (row, unit) pairs an epilogue thread owns
 constexpr int E_BATCH = 8;   // k-slabs a warp has in flight per batch
@@ -294,42 +111,6 @@ __host__ __device__ inline size_t bwd_smem_bytes(int n, int kp, int bj, int rbyt
       ? (size_t)E_WARPS * ((n + 15) / 16) * (bj / 8) * 128 * sizeof(float)
       : (size_t)E_WARPS * n * bj * sizeof(float);
   return rs + red;
-}
-
-template <typename RT> __device__ __forceinline__ RT zero_r();
-template <> __device__ __forceinline__ __nv_bfloat16 zero_r<__nv_bfloat16>() {
-  return __float2bfloat16(0.0f);
-}
-template <> __device__ __forceinline__ float zero_r<float>() { return 0.0f; }
-
-// all blocks of the grid arrive; the `target`-th arrival releases them.
-// A wait that outlasts ~2^35 cycles (~20 s) traps: a launch error, never
-// a hung card (the cooperative launch makes it unreachable).
-__device__ __forceinline__ void grid_sync(unsigned int* bar, unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    unsigned int seen = 0;
-    const long long t0 = clock64();
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(seen) : "l"(bar) : "memory");
-      if (clock64() - t0 > (1ll << 35)) asm volatile("trap;");
-    } while (seen < target);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Partial products of r(dv) [np, kp] (bf16, the exchange buffer) with the
@@ -426,7 +207,7 @@ __global__ void __launch_bounds__(E_THREADS, 1) train_bwd_seq(BwdArgs a) {
   for (int idx = threadIdx.x; idx < bj * rstride; idx += E_THREADS) {
     const int jj = idx / rstride, k = idx - (idx / rstride) * rstride;
     const int j = j0 + jj;
-    rs[idx] = (j < H && k < g4) ? r[(size_t)j * g4 + k] : zero_r<RT>();
+    rs[idx] = (j < H && k < g4) ? r[(size_t)j * g4 + k] : zero_of<RT>();
   }
   __syncthreads();
 
@@ -522,74 +303,55 @@ __global__ void __launch_bounds__(E_THREADS, 1) train_bwd_seq(BwdArgs a) {
 template <typename RT, int NT>
 cudaError_t launch_bwd(const BwdArgs& args, int grid, cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes(args.n, args.kp, args.bj, sizeof(RT));
-  if (smem > (size_t)MAX_SMEM || args.bj != 8 * NT ||
-      (size_t)args.n * args.bj > (size_t)E_MAXC * E_THREADS ||
+  if (args.bj != 8 * NT || (size_t)args.n * args.bj > (size_t)E_MAXC * E_THREADS ||
       (long long)grid * args.bj < args.hdim) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = train_bwd_seq<RT, NT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, E_THREADS,
-                                                           smem)) != cudaSuccess)
-    return err;
-  if (grid > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaMemsetAsync(args.bar, 0, sizeof(unsigned int), stream);
-  if (err != cudaSuccess) return err;
-  BwdArgs a = args;
-  void* params[] = {&a};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
-                                     dim3(E_THREADS), params, smem, stream);
+  return launch_cooperative(train_bwd_seq<RT, NT>, args, args.bar, grid, smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest hidden size D's shared-memory layout takes.
-int lstm_train_max_hidden() {
-  return (int)((MAX_SMEM - sizeof(float) * KS * BN * COLS) / (sizeof(float) * BN));
-}
-
-// D: t_steps step kernels on `stream`. Device pointers:
-//   wx [n, t_steps, 4h] f32; r [h, 4h] bf16 (r_bf16 != 0) or f32;
-//   h0, c0 [n, h] f32; outputs y, c_seq [n, t_steps, h] f32 and
-//   v [n, t_steps, 4h] f32.
-// Returns 0, or the cudaError_t of the first call that failed.
-int lstm_train_forward(const void* wx, const void* r, int r_bf16,
-                       const void* h0, const void* c0, void* y, void* c_seq,
-                       void* v, int n, int t_steps, int hdim, void* stream) {
-  if (n <= 0 || t_steps <= 0 || hdim <= 0 || hdim > lstm_train_max_hidden()) {
+// D: one cooperative launch of `grid` blocks of `units` hidden units
+// each (a multiple of 8, grid * units >= h) on `stream`, K split `kw`
+// ways (1, 2, 4, 8 or 16), R's slice in shared memory (resident != 0) or
+// in rslice. Device pointers: wx [n, t_steps, 4h] f32; r [h, 4h] bf16
+// (r_bf16 != 0) or f32; h0, c0 [n, h] f32; outputs y, c_seq
+// [n, t_steps, h] f32 and v [n, t_steps, 4h] f32; xbuf [2, np, kp] of R's
+// type, zeroed (np = n rounded up to 16, kp = h rounded up to 32); rslice
+// [grid, 4 units, rstride] of R's type when not resident (else null); bar
+// one counter, zeroed on the stream here.
+// Returns 0, or the cudaError_t of the call that failed
+// (cudaErrorCooperativeLaunchTooLarge: the grid cannot be co-resident).
+int lstm_train_forward(const void* wx, const void* r, int r_bf16, const void* h0,
+                       const void* c0, void* y, void* c_seq, void* v, void* xbuf,
+                       void* rslice, void* bar, int n, int t_steps, int hdim, int grid,
+                       int units, int kw, int resident, void* stream) {
+  if (!fwd_args_ok(n, t_steps, hdim, grid, units, kw, resident, rslice)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* wx_f = static_cast<const float*>(wx);
-  const float* h0_f = static_cast<const float*>(h0);
-  const float* c0_f = static_cast<const float*>(c0);
-  float* y_f = static_cast<float*>(y);
-  float* c_f = static_cast<float*>(c_seq);
-  float* v_f = static_cast<float*>(v);
+  FwdArgs a;
+  a.wx = static_cast<const float*>(wx);
+  a.r = r;
+  a.h0 = static_cast<const float*>(h0);
+  a.c0 = static_cast<const float*>(c0);
+  a.y = static_cast<float*>(y);
+  a.yc = static_cast<float*>(c_seq);
+  a.c_t = nullptr;
+  a.v = static_cast<float*>(v);
+  a.xbuf = xbuf;
+  a.rslice = rslice;
+  a.bar = static_cast<unsigned int*>(bar);
+  a.n = n;
+  a.t_steps = t_steps;
+  a.hdim = hdim;
+  a.units = units;
+  a.kw = kw;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 16-byte vector loads of R need each 8-column group inside one row
-  const bool vec = hdim % 8 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0;
-  cudaError_t err;
-  if (r_bf16) {
-    const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(r);
-    err = vec ? run_fwd<__nv_bfloat16, true>(wx_f, rb, h0_f, c0_f, y_f, c_f,
-                                              v_f, n, t_steps, hdim, s)
-              : run_fwd<__nv_bfloat16, false>(wx_f, rb, h0_f, c0_f, y_f, c_f,
-                                               v_f, n, t_steps, hdim, s);
-  } else {
-    const float* rf = static_cast<const float*>(r);
-    err = vec ? run_fwd<float, true>(wx_f, rf, h0_f, c0_f, y_f, c_f, v_f, n,
-                                     t_steps, hdim, s)
-              : run_fwd<float, false>(wx_f, rf, h0_f, c0_f, y_f, c_f, v_f, n,
-                                      t_steps, hdim, s);
-  }
+  const cudaError_t err = r_bf16 ? launch_fwd<bf16>(a, grid, resident != 0, s)
+                                 : launch_fwd<float>(a, grid, resident != 0, s);
   return (int)err;
 }
 

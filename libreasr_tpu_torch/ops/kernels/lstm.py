@@ -11,9 +11,10 @@ row each step, int32 accumulation), which serves quantized cells.
 `lstm_seq` and `lstm_seq_int8` take their kernel for CUDA tensors and
 their plain twins for CPU tensors; a CUDA tensor never falls back.
 `LAUNCHES` counts kernel launches so a run can show that its encoder
-went through the kernels: the bf16-R kernel is one persistent
-cooperative launch per call (per slice of the batch that `fwd_plan`
-takes, `batch_slices`), the int8 kernel one launch per timestep.
+went through the kernels: each is one persistent cooperative launch per
+call (per slice of the batch that `fwd_plan` takes, `batch_slices`).
+`fwd_plan` also plans the training forward D (ops/kernels/lstm_train.py),
+which shares the bf16-R kernel's template (csrc/lstm_persistent.cuh).
 """
 
 from __future__ import annotations
@@ -85,21 +86,26 @@ def batch_slices(n: int, plan, *args) -> list[tuple[int, int]]:
     return [(s, min(lo, n - s)) for s in range(0, n, lo)]
 
 
-# the persistent kernel's launch geometry, as csrc/lstm_seq.cu defines it
+# the persistent kernels' launch geometry, as csrc/lstm_persistent.cuh
+# defines it (kernels B, C and D; E shares the block size)
 SEQ_THREADS = 512
 SEQ_MAXC = 8            # (row, unit) pairs an epilogue thread owns
 SEQ_MAX_HIDDEN = 8192
-MAX_SMEM = 227 * 1024  # per-block shared memory on sm_90 (kernels A/B and E)
+MAX_SMEM = 227 * 1024  # per-block shared memory on sm_90 (kernels A-E)
+# what the plan calls each R entry size: 2 bf16 (A/B, D), 4 float32 (D),
+# 1 int8 (C)
+_KIND = {2: "bf16 R", 4: "float32 R", 1: "int8 R"}
 
 
 @dataclass(frozen=True)
 class FwdPlan:
-    """The sequence kernel's grid: block b owns hidden units [b * units,
-    (b + 1) * units) & [0, hidden) and stages those 4 * units gate
-    columns of R, in shared memory when `resident`, else in a global
-    scratch read from L2 each step; the warps split K `kw` ways; `smem`
-    bytes of shared memory a block; np, kp: the batch and H padded to
-    the mma tiles; rstride: the staged columns' row stride."""
+    """A persistent forward's grid (kernels A/B, C and D): block b owns
+    hidden units [b * units, (b + 1) * units) & [0, hidden) and stages
+    those 4 * units gate columns of R, in shared memory when `resident`,
+    else in a global scratch read from L2 each step; the warps split K
+    `kw` ways; `smem` bytes of shared memory a block; np, kp: the batch
+    and H padded to the product's tiles; rstride: the staged columns'
+    row stride (bf16 or float32 entries, or int32 words of 4 int8 k)."""
     hidden: int
     grid: int
     units: int
@@ -109,48 +115,82 @@ class FwdPlan:
     np: int
     kp: int
     rstride: int
+    r_itemsize: int = 2
 
     def units_of(self, block: int) -> range:
         return range(block * self.units, min((block + 1) * self.units, self.hidden))
 
 
-def _rstride(kp: int) -> int:
-    """Row stride of a staged column of R (csrc/lstm_seq.cu's seq_rstride)."""
-    return -(-kp // 64) * 64 + 32
+def _kpad(hidden: int, r_itemsize: int = 2) -> int:
+    """H padded to the product's k granule (csrc/lstm_persistent.cuh's
+    fwd_kpad): 64 for int8's m16n8k32 pairs, else 32."""
+    g = 64 if r_itemsize == 1 else 32
+    return -(-hidden // g) * g
 
 
-def fwd_smem_bytes(n: int, kp: int, units: int, kw: int, resident: bool) -> int:
-    """Shared memory of one block (csrc/lstm_seq.cu's seq_smem_bytes):
-    the staged columns of R when resident, and the kw K-slices' partial
-    products of every 16-row batch tile and 8-column gate tile."""
-    red = kw * (-(-n // 16)) * (units // 2) * 128 * 4
-    return (4 * units * _rstride(kp) * 2 if resident else 0) + red
+def _rstride(kp: int, r_itemsize: int = 2) -> int:
+    """Row stride of a staged column of R (fwd_rstride): bf16 entries
+    (kp rounded up to 64, plus 32), float32 entries (kp + 4) or int32
+    words of 4 int8 k (kp / 4 rounded up to 32, plus 16)."""
+    if r_itemsize == 2:
+        return -(-kp // 64) * 64 + 32
+    if r_itemsize == 4:
+        return kp + 4
+    return -(-(kp // 4) // 32) * 32 + 16
 
 
-def fwd_plan(n: int, hidden: int, sms: int) -> FwdPlan:
-    """The sequence kernel's partition of [0, hidden) over at most `sms`
+def fwd_smem_bytes(n: int, kp: int, units: int, kw: int, resident: bool,
+                   r_itemsize: int = 2) -> int:
+    """Shared memory of one block (fwd_smem_bytes): the staged columns of
+    R when resident; the kw K-slices' partial products (float32 R: one
+    per (row, column) pair; bf16 and int8: the mma accumulators of every
+    16-row batch tile and 8-column gate tile); for int8 the rows' scales,
+    their reciprocals and the block's maxima of |h|."""
+    cols, np_ = 4 * units, -(-n // 16) * 16
+    entry = 2 if r_itemsize == 2 else 4
+    rs = cols * _rstride(kp, r_itemsize) * entry if resident else 0
+    red = (kw * n * cols * 4 if r_itemsize == 4
+           else kw * (np_ // 16) * (units // 2) * 128 * 4)
+    scales = 3 * np_ * 4 if r_itemsize == 1 else 0
+    return rs + red + scales
+
+
+def fwd_plan(n: int, hidden: int, sms: int, r_itemsize: int = 2) -> FwdPlan:
+    """A persistent forward's partition of [0, hidden) over at most `sms`
     blocks (one resident block per SM, which the launch checks against
     the occupancy the card reports): the fewest units a block, a multiple
     of 8; R's slice resident in shared memory with the widest K split that
-    fits, else read from L2. Raises where the batch is above the
+    fits, else read from L2. `r_itemsize`: 2 (bf16 R: A/B, D), 4 (float32
+    R: D) or 1 (int8 R: C). Raises where the batch is above the
     epilogue's (row, unit) owners (the wrapper then slices the batch)."""
+    kind = _KIND[r_itemsize]
     if hidden > SEQ_MAX_HIDDEN:
-        raise ValueError(f"lstm_seq: hidden size {hidden} exceeds the kernel's "
-                         f"{SEQ_MAX_HIDDEN}")
+        raise ValueError(f"lstm forward ({kind}): hidden size {hidden} exceeds "
+                         f"the kernel's {SEQ_MAX_HIDDEN}")
     units = -(-(-(-hidden // sms)) // 8) * 8
     grid = -(-hidden // units)
     if n * units > SEQ_MAXC * SEQ_THREADS:
-        raise ValueError(f"lstm_seq: batch {n} x {units} units is above the "
-                         f"epilogue's {SEQ_MAXC * SEQ_THREADS} pairs")
-    kp = -(-hidden // 32) * 32
+        raise ValueError(f"lstm forward ({kind}): batch {n} x {units} units is "
+                         f"above the epilogue's {SEQ_MAXC * SEQ_THREADS} pairs")
+    kp = _kpad(hidden, r_itemsize)
     for resident in (True, False):
         for kw in (16, 8, 4, 2, 1):
-            smem = fwd_smem_bytes(n, kp, units, kw, resident)
+            smem = fwd_smem_bytes(n, kp, units, kw, resident, r_itemsize)
             if smem <= MAX_SMEM:
                 return FwdPlan(hidden, grid, units, kw, resident, smem,
-                               -(-n // 16) * 16, kp, _rstride(kp))
-    raise ValueError(f"lstm_seq: batch {n} at hidden size {hidden} needs more "
-                     f"than {MAX_SMEM} B of shared memory a block")
+                               -(-n // 16) * 16, kp, _rstride(kp, r_itemsize),
+                               r_itemsize)
+    raise ValueError(f"lstm forward ({kind}): batch {n} at hidden size {hidden} "
+                     f"needs more than {MAX_SMEM} B of shared memory a block")
+
+
+def rslice_scratch(plan: FwdPlan, dtype, device):
+    """The L2 variant's global copy of each block's R slice, or None when
+    the slice is resident in shared memory."""
+    if plan.resident:
+        return None
+    return torch.empty(plan.grid * 4 * plan.units * plan.rstride, dtype=dtype,
+                       device=device)
 
 
 def _lib():
@@ -219,9 +259,7 @@ def lstm_seq(wx, r, h0, c0, *, stream_c: bool = False):
         part = [None if x is None else x[s0:s0 + rows]
                 for x in (wx, h0, c0, y, yc, c_t)]
         xbuf = torch.zeros(2 * plan.np * plan.kp, dtype=torch.bfloat16, device=dev)
-        rslice = None if plan.resident else torch.empty(
-            plan.grid * 4 * plan.units * plan.rstride, dtype=torch.bfloat16,
-            device=dev)
+        rslice = rslice_scratch(plan, torch.bfloat16, dev)
         bar = torch.empty(1, dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -275,14 +313,36 @@ def _lib_int8():
     lib = build.load(KERNEL_INT8)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_seq_int8_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.lstm_seq_int8_forward.argtypes = [p] * 11 + [i] * 7 + [p]
         lib.lstm_seq_int8_forward.restype = i
         lib.lstm_seq_int8_error_string.argtypes = [i]
         lib.lstm_seq_int8_error_string.restype = ctypes.c_char_p
-        lib.lstm_seq_int8_max_hidden.argtypes = []
-        lib.lstm_seq_int8_max_hidden.restype = i
+        lib.lstm_seq_int8_quotient_check.argtypes = [p, ctypes.c_longlong, p]
+        lib.lstm_seq_int8_quotient_check.restype = i
         lib._argtypes_set = True
     return lib
+
+
+def int8_quotient_check(pairs: int, device="cuda") -> dict:
+    """Kernel C's quantization of h (csrc/lstm_seq_int8.cu: quantize1, a
+    reciprocal and one exact correction, the IEEE quotient near a
+    half-integer) against clip(rint(IEEE h / hscale)) on `pairs` seeded
+    (h, hscale) pairs on the card. Returns the counts: quotients that
+    differ from the IEEE one (`differ`), by more than 4 ulps
+    (`differ_above_4_ulps`), quantized values that differ (`hq_differ`,
+    0 for an exact kernel), and pairs that took the IEEE quotient
+    (`ieee_fallbacks`)."""
+    lib = _lib_int8()
+    counts = torch.zeros(4, dtype=torch.int64, device=device)
+    dev = counts.device
+    with torch.cuda.device(dev):
+        rc = lib.lstm_seq_int8_quotient_check(
+            counts.data_ptr(), pairs, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("int8_quotient_check failed: "
+                           f"{lib.lstm_seq_int8_error_string(rc).decode()}")
+    names = ("differ", "differ_above_4_ulps", "hq_differ", "ieee_fallbacks")
+    return dict(zip(names, counts.tolist()))
 
 
 def lstm_seq_int8(wx, rq, rscale, h0, c0, *, rq_packed=None):
@@ -312,23 +372,35 @@ def lstm_seq_int8(wx, rq, rscale, h0, c0, *, rq_packed=None):
     _check("rscale", rscale, (1, g4), torch.float32, dev, fn)
     _check("h0", h0, (n, h), torch.float32, dev, fn)
     _check("c0", c0, (n, h), torch.float32, dev, fn)
+    sms = build.sm_count(dev.index or 0)
+    slices = batch_slices(n, fwd_plan, h, sms, 1)
     lib = _lib_int8()
-    if h > lib.lstm_seq_int8_max_hidden():
-        raise ValueError(f"{fn}: hidden size {h} exceeds the kernel's "
-                         f"{lib.lstm_seq_int8_max_hidden()}")
     y = torch.empty((n, t, h), dtype=torch.float32, device=dev)
     yc = torch.empty((n, t, h), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lstm_seq_int8_forward(
-            wx.data_ptr(), rq_packed.data_ptr(), rscale.data_ptr(),
-            h0.data_ptr(), c0.data_ptr(), y.data_ptr(), yc.data_ptr(),
-            n, t, h, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{fn} kernel failed: "
-                           f"{lib.lstm_seq_int8_error_string(rc).decode()}")
-    LAUNCHES["lstm_seq_int8"] += t
+    # one cooperative launch per slice, each with its own exchange buffers
+    # (float32 h by step parity, padding zero; each block's row maxima of
+    # |h|, every slot written before it is read) and barrier counter
+    for s0, rows in slices:
+        plan = fwd_plan(rows, h, sms, 1)
+        xbuf = torch.zeros(2 * plan.np * plan.kp, dtype=torch.float32, device=dev)
+        amax = torch.empty(2 * plan.np * plan.grid, dtype=torch.float32, device=dev)
+        rslice = rslice_scratch(plan, torch.int32, dev)
+        bar = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.lstm_seq_int8_forward(
+                wx[s0:s0 + rows].data_ptr(), rq_packed.data_ptr(), rscale.data_ptr(),
+                h0[s0:s0 + rows].data_ptr(), c0[s0:s0 + rows].data_ptr(),
+                y[s0:s0 + rows].data_ptr(), yc[s0:s0 + rows].data_ptr(),
+                xbuf.data_ptr(), amax.data_ptr(),
+                None if rslice is None else rslice.data_ptr(), bar.data_ptr(),
+                rows, t, h, plan.grid, plan.units, plan.kw, int(plan.resident),
+                stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"{fn} kernel failed: "
+                               f"{lib.lstm_seq_int8_error_string(rc).decode()}")
+        LAUNCHES["lstm_seq_int8"] += 1
     return y, yc
 
 

@@ -12,12 +12,13 @@ R comes in the training compute type (bf16 under a bf16 policy, else
 float32); h is rounded to it before D's product, and dv before E's, as
 in JAX. `lstm_train_fwd` and `lstm_train_bwd` take their kernel for
 CUDA tensors and their plain twins for CPU tensors; a CUDA tensor never
-falls back. `LAUNCHES` counts kernel launches: D launches once per
-timestep; E once per slice of the batch (one persistent cooperative
-launch for all T steps and dh0, planned by `bwd_plan`; the batch goes in
-the largest slices the plan takes, `batch_slices`: a width whose grid
-could not be co-resident, or whose slice of R does not fit a block's
-shared memory, raises here and is never run another way).
+falls back. `LAUNCHES` counts kernel launches: D and E each launch once
+per slice of the batch (one persistent cooperative launch for all T
+steps, and for E dh0; D planned by ops/kernels/lstm.py:fwd_plan, E by
+`bwd_plan`; the batch goes in the largest slices the plan takes,
+`batch_slices`: a width whose grid could not be co-resident, or whose
+slice of R does not fit a block's shared memory, raises here and is
+never run another way).
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import torch
 
 from ..rnn import round_to
 from . import build
-from .lstm import MAX_SMEM, _check, batch_slices, pack_outputs
+from .lstm import (MAX_SMEM, _check, batch_slices, fwd_plan, pack_outputs,
+                   rslice_scratch)
 
 KERNEL = "lstm_train"
 LAUNCHES = {"lstm_train_fwd": 0, "lstm_train_bwd": 0}
@@ -145,22 +147,20 @@ def _lib():
     lib = build.load(KERNEL)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_train_forward.argtypes = [p, p, i, p, p, p, p, p, i, i, i, p]
+        lib.lstm_train_forward.argtypes = [p, p, i] + [p] * 8 + [i] * 7 + [p]
         lib.lstm_train_forward.restype = i
         lib.lstm_train_backward.argtypes = [p, p, p, p, p, p, i, p, p, p, p,
                                             p, i, i, i, i, i, p]
         lib.lstm_train_backward.restype = i
         lib.lstm_train_error_string.argtypes = [i]
         lib.lstm_train_error_string.restype = ctypes.c_char_p
-        lib.lstm_train_max_hidden.argtypes = []
-        lib.lstm_train_max_hidden.restype = i
         lib._argtypes_set = True
     return lib
 
 
 def _prepare(fn, x, r):
-    """Checks shared by both wrappers; returns (lib, n, t, h); D's width
-    limit is checked by its wrapper, E's by its plan."""
+    """Checks shared by both wrappers; returns (lib, n, t, h); the width
+    limits are their plans'."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
     n, t = x.shape[:2]
@@ -187,24 +187,34 @@ def lstm_train_fwd(wx, r, h0, c0):
         return lstm_train_fwd_reference(wx, r, h0, c0)
     fn = "lstm_train_fwd"
     lib, n, t, h = _prepare(fn, wx, r)
-    if h > lib.lstm_train_max_hidden():
-        raise ValueError(f"{fn}: hidden size {h} exceeds the kernel's "
-                         f"{lib.lstm_train_max_hidden()}")
     dev = wx.device
     _check("wx", wx, (n, t, 4 * h), torch.float32, dev, fn)
     _check("h0", h0, (n, h), torch.float32, dev, fn)
     _check("c0", c0, (n, h), torch.float32, dev, fn)
+    sms = build.sm_count(dev.index or 0)
+    slices = batch_slices(n, fwd_plan, h, sms, r.element_size())
     y = torch.empty((n, t, h), dtype=torch.float32, device=dev)
     c_seq = torch.empty_like(y)
     v = torch.empty((n, t, 4 * h), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lstm_train_forward(
-            wx.data_ptr(), r.data_ptr(), int(r.dtype == torch.bfloat16),
-            h0.data_ptr(), c0.data_ptr(), y.data_ptr(), c_seq.data_ptr(),
-            v.data_ptr(), n, t, h, stream)
-    _raise_on(lib, fn, rc)
-    LAUNCHES[fn] += t
+    # one cooperative launch per slice, each with its own exchange buffer
+    # (r(h) in R's type by step parity; padding rows and columns stay
+    # zero) and barrier counter; slices along dim 0 are contiguous
+    for s0, rows in slices:
+        plan = fwd_plan(rows, h, sms, r.element_size())
+        part = [x[s0:s0 + rows] for x in (wx, h0, c0, y, c_seq, v)]
+        xbuf = torch.zeros(2 * plan.np * plan.kp, dtype=r.dtype, device=dev)
+        rslice = rslice_scratch(plan, r.dtype, dev)
+        bar = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.lstm_train_forward(
+                part[0].data_ptr(), r.data_ptr(), int(r.dtype == torch.bfloat16),
+                *(x.data_ptr() for x in part[1:]), xbuf.data_ptr(),
+                None if rslice is None else rslice.data_ptr(), bar.data_ptr(),
+                rows, t, h, plan.grid, plan.units, plan.kw, int(plan.resident),
+                stream)
+        _raise_on(lib, fn, rc)
+        LAUNCHES[fn] += 1
     return y, c_seq, v
 
 

@@ -206,13 +206,19 @@ def test_seq_kernel_matches_twin_and_reruns_on_cuda(n, t, h, slices):
             assert float(d.max()) <= 4e-3 and float(d.mean()) <= 2e-4
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t,h", [(10, 20, 96), (3, 5, 98), (16, 30, 1024)])
+@pytest.mark.parametrize("n,t,h", [(10, 20, 96), (3, 5, 98), (16, 30, 1024),
+                                   (300, 7, 1024), (600, 3, 1024), (4, 6, 4096)])
 def test_int8_kernel_matches_twin_on_cuda(n, t, h):
-    """Tolerance as in chip_smoke.py (INT8_TOL): the pre-activations are
-    computed alike bit for bit; expf/tanhf against PyTorch's can flip an
-    element of the quantized h (max 4e-3, mean 2e-4)."""
+    """Bit for bit: both compute the pre-activation v alike from the same
+    h (IEEE quotient for the scale, round half to even, exact int32 sums,
+    no FMA contraction in the epilogue), and on the card the twin's
+    sigmoid and tanh meet the kernel's expf/tanhf (chip_smoke.py reads
+    0.0 at every case; INT8_TOL, 4e-3, bounds what a flip would move).
+    One cooperative launch per batch slice (N 600: two), R's slice read
+    from L2 at H 4096, and a rerun gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
+    from libreasr_tpu_torch.ops.kernels import build
     from libreasr_tpu_torch.ops.quant import quantize
 
     rng = np.random.default_rng(n + t + h)
@@ -221,17 +227,33 @@ def test_int8_kernel_matches_twin_on_cuda(n, t, h):
                               dtype=torch.float32).cuda())
     h0 = torch.tensor(rng.standard_normal((n, h)) * 0.5, dtype=torch.float32).cuda()
     c0 = torch.tensor(rng.standard_normal((n, h)) * 0.5, dtype=torch.float32).cuda()
+    packed = klstm.pack_k4(r.q)
+    slices = klstm.batch_slices(n, klstm.fwd_plan, h, build.sm_count(0), 1)
     before = klstm.LAUNCHES["lstm_seq_int8"]
-    got = klstm.lstm_seq_int8(wx, r.q, r.scale, h0, c0,
-                              rq_packed=klstm.pack_k4(r.q))
+    got = klstm.lstm_seq_int8(wx, r.q, r.scale, h0, c0, rq_packed=packed)
+    assert klstm.LAUNCHES["lstm_seq_int8"] == before + len(slices)
+    again = klstm.lstm_seq_int8(wx, r.q, r.scale, h0, c0, rq_packed=packed)
     want = klstm.lstm_seq_int8_reference(wx, r.q, r.scale, h0, c0)
     torch.cuda.synchronize()
-    assert klstm.LAUNCHES["lstm_seq_int8"] == before + t
-    for a, b in zip(got, want):
-        d = (a - b).abs()
-        assert float(d.max()) <= 4e-3 and float(d.mean()) <= 2e-4
+    assert len(slices) == (2 if n == 600 else 1)
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, c)
+        assert float((a - b).abs().max()) == 0.0
     with pytest.raises(ValueError, match="rq_packed"):
         klstm.lstm_seq_int8(wx, r.q, r.scale, h0, c0)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_quantizes_h_as_the_ieee_quotient_on_cuda():
+    """Kernel C forms h / hscale from a reciprocal and one exact
+    correction, and takes the IEEE quotient only near a half-integer: on
+    2**28 seeded pairs no quantized value differs from clip(rint(IEEE
+    quotient)), and no quotient is more than 4 ulps off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    counts = klstm.int8_quotient_check(2**28)
+    assert counts["hq_differ"] == 0 and counts["differ_above_4_ulps"] == 0
+    assert counts["ieee_fallbacks"] < 2**28 // 1000
 
 
 def test_training_kernel_path_raises_off_the_cpu():

@@ -329,3 +329,183 @@ def test_dx_chunked_twin_matches_unchunked_and_jax(shape, w_dtype, tol):
         b = np.asarray(b, np.float32)
         np.testing.assert_allclose(a.numpy(), b, rtol=0,
                                    atol=tol * float(np.abs(b).max()))
+
+
+# C (int8 R, r_itemsize 1) and D (bf16 R 2, float32 R 4) share fwd_plan
+# with the sequence kernel A/B: the same partition, their own k granule,
+# row stride and shared memory (csrc/lstm_persistent.cuh)
+FWD_KINDS = {"int8": 1, "bf16": 2, "float32": 4}
+
+
+@pytest.mark.parametrize("kind", list(FWD_KINDS))
+@pytest.mark.parametrize("n,h", [(16, 1024), (8, 96), (13, 100), (64, 1024),
+                                 (300, 1024)])
+def test_int8_and_train_fwd_plans_partition_units_once(n, h, kind):
+    size = FWD_KINDS[kind]
+    plan = klstm.fwd_plan(n, h, 132, size)
+    assert plan.r_itemsize == size
+    assert plan.grid <= 132 and plan.units % 8 == 0
+    assert plan.kw in (1, 2, 4, 8, 16)
+    owned = np.zeros(h, np.int64)
+    for b in range(plan.grid):
+        for j in plan.units_of(b):
+            owned[j] += 1
+    assert (owned == 1).all()
+    assert n * plan.units <= klstm.SEQ_MAXC * klstm.SEQ_THREADS
+    assert plan.smem == klstm.fwd_smem_bytes(n, plan.kp, plan.units, plan.kw,
+                                             plan.resident, size) <= klstm.MAX_SMEM
+    assert plan.np % 16 == 0 and plan.np >= n
+    granule = 64 if size == 1 else 32  # m16n8k32 pairs of int8, else 32 k
+    assert plan.kp % granule == 0 and h <= plan.kp < h + granule
+    # the staged row stride: 16-byte rows, and the eight rows a quarter
+    # warp reads start in distinct bank groups
+    row_bytes = plan.rstride * (2 if size == 2 else 4)
+    assert row_bytes % 16 == 0 and row_bytes % 128 in (16, 64)
+    assert plan.rstride * (4 if size == 1 else 1) >= plan.kp
+
+
+@pytest.mark.parametrize("kind", ["int8", "float32"])
+@pytest.mark.parametrize("h", [96, 1024])
+@pytest.mark.parametrize("n", [1, 8, 300, 512, 513, 600, 1024])
+def test_batch_slices_cover_rows_under_int8_and_train_plans(n, h, kind):
+    size = FWD_KINDS[kind]
+    slices = klstm.batch_slices(n, klstm.fwd_plan, h, 132, size)
+    assert _covers_once(n, slices)
+    for _, rows in slices:
+        klstm.fwd_plan(rows, h, 132, size)
+    assert len(slices) == -(-n // slices[0][1])
+
+
+def test_int8_and_train_fwd_plans_main_path_keep_r_slice_resident():
+    # C at N 16, H 1024: 32 gate columns of 1024 int8 k (32 KB and
+    # padding) plus the int32 partials and the rows' scales
+    c = klstm.fwd_plan(16, 1024, 132, 1)
+    assert (c.grid, c.units, c.kw, c.resident) == (128, 8, 16, True)
+    assert 32 * 1024 < c.smem <= 72 * 1024
+    assert klstm.batch_slices(16, klstm.fwd_plan, 1024, 132, 1) == [(0, 16)]
+    assert klstm.batch_slices(600, klstm.fwd_plan, 1024, 132, 1) == [(0, 512),
+                                                                     (512, 88)]
+    # golden int8 encoder (N 8, H 96): 12 blocks, resident
+    golden = klstm.fwd_plan(8, 96, 132, 1)
+    assert (golden.grid, golden.resident) == (12, True)
+    # D at N 16, H 1024, bf16 R: kernel B's plan
+    assert klstm.fwd_plan(16, 1024, 132, 2) == klstm.fwd_plan(16, 1024, 132)
+    # D's float32 R up to the route's 9 MiB budget (H 768): 32 columns of
+    # 768 float32 (96 KB) resident; the small model's H 64 too
+    f32 = klstm.fwd_plan(16, 768, 132, 4)
+    assert (f32.grid, f32.units, f32.resident) == (96, 8, True)
+    assert 32 * 768 * 4 < f32.smem <= 140 * 1024
+    assert klstm.fwd_plan(16, 64, 132, 4).resident
+
+
+@pytest.mark.parametrize("kind,h", [("int8", 4096), ("float32", 2048),
+                                    ("bfloat16", 2048), ("float32", 5216),
+                                    ("int8", 4990)])
+def test_int8_and_train_fwd_plans_read_r_from_l2_past_the_resident_range(kind, h):
+    size = {"int8": 1, "bfloat16": 2, "float32": 4}[kind]
+    plan = klstm.fwd_plan(16, h, 132, size)
+    assert not plan.resident
+    assert klstm.fwd_smem_bytes(16, plan.kp, plan.units, 1, True, size) > klstm.MAX_SMEM
+
+
+@pytest.mark.parametrize("kind", list(FWD_KINDS))
+@pytest.mark.parametrize("n,h,match", [
+    (513, 1024, "epilogue"),        # above 8 x 512 (row, unit) owners
+    (16, 8200, "exceeds"),          # above the kernels' widest H
+])
+def test_int8_and_train_fwd_plans_raise_where_they_cannot_run(n, h, match, kind):
+    with pytest.raises(ValueError, match=match):
+        klstm.fwd_plan(n, h, 132, FWD_KINDS[kind])
+
+
+def _s8(word):
+    """The four signed bytes of int32 words, byte i at bits 8i."""
+    w = np.asarray(word, np.int64) & 0xFFFFFFFF
+    return np.stack([((w >> (8 * i)) & 0xFF).astype(np.int8) for i in range(4)],
+                    -1).astype(np.int64)
+
+
+def _mma_m16n8k32(a, b):
+    """mma.sync.m16n8k32.row.col.s32.s8.s8 from its register fragments
+    (PTX ISA): a[lane] = 4 words, b[lane] = 2 words; lane = 4 g + c.
+    A word holds 4 consecutive k: a0 (row g, k 4c), a1 (row g + 8, k 4c),
+    a2 (row g, k 16 + 4c), a3 (row g + 8, k 16 + 4c); b0 (column g, k 4c),
+    b1 (column g, k 16 + 4c). Returns the [16, 8] int product."""
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        g, c = divmod(lane, 4)
+        for reg, (row, k0) in enumerate([(g, 4 * c), (g + 8, 4 * c),
+                                         (g, 16 + 4 * c), (g + 8, 16 + 4 * c)]):
+            A[row, k0:k0 + 4] = _s8(a[lane][reg])
+        for reg, k0 in enumerate([4 * c, 16 + 4 * c]):
+            B[k0:k0 + 4, g] = _s8(b[lane][reg])
+    return A @ B
+
+
+def test_int8_kernel_permuted_fragments_sum_to_the_exact_product():
+    """Kernel C's product (csrc/lstm_seq_int8.cu:product_int8) on its
+    fragments: thread (g, c) quantizes k 16c .. 16c + 15 of a 64-k slab of
+    rows g and g + 8 into 4 words, loads the same 16 k of column g as 4
+    pack_k4 words staged k along a row, and feeds words (0, 1) and (2, 3)
+    to two m16n8k32 products. Over every slab and 8-column tile of a
+    block, read back through the accumulator layout (tile_slot), the int32
+    sums equal hq @ rq exactly: padding rows (N 13 of 16) and k past H
+    (100 of kp 128) included."""
+    from libreasr_tpu_torch.ops.quant import quantize
+
+    n, h, units, block = 13, 100, 8, 1
+    rng = np.random.default_rng(3)
+    r = quantize(torch.tensor(rng.standard_normal((h, 4 * h)) / np.sqrt(h),
+                              dtype=torch.float32))
+    x = torch.tensor(rng.standard_normal((n, h)), dtype=torch.float32)
+    x[2] = 0.0  # a zero row: hscale 1e-12, hq 0
+    hq = quantize(x.t()).q.t().numpy().astype(np.int64)  # per-row scale
+    plan = klstm.fwd_plan(n, h, 132, 1)
+    kp, np_ = plan.kp, plan.np
+    xq = np.zeros((np_, kp), np.int64)
+    xq[:n, :h] = hq
+    packed = klstm.pack_k4(r.q).numpy()  # [ceil(H/4), 4H]
+    # the block's staged columns: cc = gate * u + jj is column gate H + j
+    j0 = block * units
+    cols = [gate * h + j0 + jj for gate in range(4) for jj in range(units)]
+    rs = np.zeros((4 * units, kp // 4), np.int64)
+    rs[:, :packed.shape[0]] = packed[:, cols].T
+
+    def words(row_vals):
+        v = (row_vals.reshape(-1, 4) & 0xFF) << (8 * np.arange(4))
+        return v.sum(-1)
+
+    red = np.zeros((np_ // 16, units // 2, 128), np.int64)
+    for mt in range(np_ // 16):
+        for nt in range(units // 2):
+            acc = np.zeros((16, 8), np.int64)
+            for s in range(kp // 64):
+                a1, a2, b1, b2 = [], [], [], []
+                for lane in range(32):
+                    g, c = divmod(lane, 4)
+                    k0 = 64 * s + 16 * c
+                    lo = words(xq[mt * 16 + g, k0:k0 + 16])
+                    hi = words(xq[mt * 16 + g + 8, k0:k0 + 16])
+                    bw = rs[nt * 8 + g, 16 * s + 4 * c:16 * s + 4 * c + 4]
+                    a1.append((lo[0], hi[0], lo[1], hi[1]))
+                    a2.append((lo[2], hi[2], lo[3], hi[3]))
+                    b1.append((bw[0], bw[1]))
+                    b2.append((bw[2], bw[3]))
+                acc += _mma_m16n8k32(a1, b1) + _mma_m16n8k32(a2, b2)
+            # the accumulator layout: lane (g, c) holds rows g, g + 8 of
+            # columns 2c, 2c + 1
+            for lane in range(32):
+                g, c = divmod(lane, 4)
+                red[mt, nt, lane * 4:lane * 4 + 4] = [
+                    acc[g, 2 * c], acc[g, 2 * c + 1],
+                    acc[g + 8, 2 * c], acc[g + 8, 2 * c + 1]]
+    want = hq @ r.q.numpy().astype(np.int64)[:, cols]
+    got = np.zeros_like(want)
+    for b in range(n):
+        for cc in range(4 * units):
+            rr, c8 = b % 16, cc % 8
+            slot = ((rr % 8) * 4 + c8 // 2) * 4 + (rr // 8) * 2 + c8 % 2
+            got[b, cc] = red[b // 16, cc // 8, slot]
+    np.testing.assert_array_equal(got, want)
+    assert np.abs(want).max() <= 127 ** 2 * h

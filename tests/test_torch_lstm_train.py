@@ -255,9 +255,10 @@ def test_wrappers_refuse_other_devices():
 @pytest.mark.parametrize("r_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,t,h", [(3, 37, 96), (13, 20, 100), (16, 24, 1024)])
 def test_train_kernels_match_twins_on_cuda(n, t, h, r_dtype):
-    """D and E against their twins; tolerances as in chip_smoke.py
-    (TRAIN_FWD_TOL, TRAIN_BWD_TOL: summation order, and the bf16 rounding
-    flips of h and dv it can cause)."""
+    """D and E against their twins, one cooperative launch each;
+    tolerances as in chip_smoke.py (TRAIN_FWD_TOL, TRAIN_BWD_TOL:
+    summation order, and the bf16 rounding flips of h and dv it can
+    cause)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     if r_dtype == "float32" and h > 768:
@@ -279,7 +280,7 @@ def test_train_kernels_match_twins_on_cuda(n, t, h, r_dtype):
     got_b = klt.lstm_train_bwd(dy, dc, v, c_seq, cprev, r)
     want_b = klt.lstm_train_bwd_reference(dy, dc, v, c_seq, cprev, r)
     torch.cuda.synchronize()
-    assert klt.LAUNCHES["lstm_train_fwd"] == before["lstm_train_fwd"] + t
+    assert klt.LAUNCHES["lstm_train_fwd"] == before["lstm_train_fwd"] + 1
     assert klt.LAUNCHES["lstm_train_bwd"] == before["lstm_train_bwd"] + 1
     for a, b in zip(got, want):
         d = (a - b).abs()
@@ -351,3 +352,38 @@ def test_bwd_kernel_over_batch_slices_on_cuda(r_dtype):
     assert klt.LAUNCHES["lstm_train_bwd"] == before + len(slices)
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 4e-3 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,t,h", [(600, 5, 1024), (16, 1, 1024), (8, 6, 2048)])
+def test_fwd_kernel_over_batch_slices_on_cuda(n, t, h, r_dtype):
+    """D at N 600 (two slices of the epilogue's owners), at T 1 (no step
+    barrier) and at H 2048 (R's slice read from L2): one cooperative
+    launch per slice that fwd_plan takes, against the twin (TRAIN_FWD_TOL,
+    as above), and a rerun on the same inputs gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from libreasr_tpu_torch.ops.kernels import build
+
+    rng = np.random.default_rng(n + t + h)
+
+    def rnd(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            dtype=torch.float32).cuda()
+
+    wx, h0, c0 = rnd(n, t, 4 * h), rnd(n, h, scale=0.5), rnd(n, h, scale=0.5)
+    r = rnd(h, 4 * h, scale=h ** -0.5).to(getattr(torch, r_dtype))
+    slices = klt.batch_slices(n, klt.fwd_plan, h, build.sm_count(0),
+                              r.element_size())
+    assert len(slices) == (2 if n == 600 else 1)
+    before = klt.LAUNCHES["lstm_train_fwd"]
+    got = klt.lstm_train_fwd(wx, r, h0, c0)
+    assert klt.LAUNCHES["lstm_train_fwd"] == before + len(slices)
+    again = klt.lstm_train_fwd(wx, r, h0, c0)
+    want = klt.lstm_train_fwd_reference(wx, r, h0, c0)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, c)
+        d = (a - b).abs()
+        assert float(d.max()) <= 4e-3 and float(d.mean()) <= 2e-4
