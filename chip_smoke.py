@@ -44,16 +44,16 @@ Phases, one line each (any failure raises and exits non-zero):
  10. kernel_joint: the joint log-prob kernels F, G, H against their twins
      on the card, with bf16 and float32 W_out, at a golden-like shape,
      one with U1 > 96 and every dimension off its tile, and the main
-     path's (N 16, T 49, U1 41, J 1024, V 2048), with ragged lengths and
-     a label equal to the blank (tolerances JOINT_*); H with bf16 W_out
-     also across row-chunk boundaries (a small scratch cap, at a mid
-     shape and at the main one; no lattice here has rows a multiple of
-     the 128-row tile), and run twice on the same inputs at the main
-     shape with bit-identical dW and db; G with bf16 W_out likewise across
-     frame-group chunks and twice (bit-identical d_enc_proj, d_pred_proj
-     and lse); then rnnt_loss_fused on the
-     kernels against its chunked path on the card (loss relative error
-     < 1e-3, every gradient's cosine > 0.999);
+     path's (N 16, T 49, U1 41, J 1024, V 2048), with ragged lengths,
+     labels padded with -1 past each length and a label equal to the
+     blank (tolerances JOINT_*); G and H take F's lse, and each twin the
+     same lse as its kernel; with bf16 W_out, F, G and H also across
+     chunk boundaries (a small scratch cap, at a mid shape and at the
+     main one; no lattice here has rows a multiple of the 128-row tile),
+     F against its chunked twin and the same bits as in one chunk; F, G
+     and H run twice on the same inputs give the same bits; then
+     rnnt_loss_fused on the kernels against its chunked path on the card
+     (loss relative error < 1e-3, every gradient's cosine > 0.999);
  11. kernel_train: the LSTM training kernels D (forward) and E (backward)
      against their twins on the card, bf16 and float32 R, at the main
      path's shape (N 16, T 49, H 1024), a golden-like one (N 3, T 37,
@@ -80,8 +80,8 @@ Phases, one line each (any failure raises and exits non-zero):
      process) at full width on a corpus of noise WAVs written here: 2
      steps with an eval and a bundle export, then a resume to step 3;
      the bundle reloads on cuda and transcribes;
- 16. joint_timing and train_kernel_timing (G's and H's launches each by
-     device time under torch.profiler): F, G, H and D, E timed at the
+ 16. joint_timing and train_kernel_timing (F's, G's and H's launches each
+     by device time under torch.profiler): F, G, H and D, E timed at the
      main path's shapes beside their twins and, for D and E, cuDNN's bf16
      LSTM in training (forward, backward) as the yardstick; for H also
      torch.matmul of its two bf16 products alone, as context.
@@ -782,9 +782,10 @@ FUSED_MIN_COS = 0.999
 # every tile (BT 4/2, BU 8, J chunk 64, V tiles 64/32); the main path
 JOINT_CASES = [(3, 13, 9, 96, 40), (2, 11, 101, 200, 300),
                (16, 49, 41, 1024, 2048)]
-# G and H with bf16 W_out under a small scratch cap: H in 5 chunks of 640
-# rows at a mid shape (3,108 rows, 6 row groups) and 4 of 9,344 at the
-# main one; G in 2 and 4 chunks of frame groups
+# F, G and H with bf16 W_out under a small scratch cap: H in 5 chunks of
+# 640 rows at a mid shape (3,108 rows, 6 row groups) and 4 of 9,344 at the
+# main one; G in 2 and 4 chunks of frame groups; F in 1 chunk at the mid
+# shape and 2 (30,720 + 1,424 rows) at the main one
 JOINT_CHUNK_CASES = [((4, 37, 21, 256, 512), 4 * 2**20),
                      ((16, 49, 41, 1024, 2048), 64 * 2**20)]
 
@@ -792,8 +793,9 @@ JOINT_CHUNK_CASES = [((4, 37, 21, 256, 512), 4 * 2**20),
 
 def _joint_inputs(n, t, u1, j, v, gen, w_dtype):
     """Seeded projections and weights at the joint's scale, ragged frame
-    and label lengths (one of each full), a label equal to the blank, and
-    the loss's own cotangents (zero outside each lattice)."""
+    and label lengths (one of each full), labels padded with -1 past each
+    length, a label equal to the blank, and the loss's own cotangents
+    (zero outside each lattice)."""
     import torch
 
     from libreasr_tpu_torch.ops.kernels.joint_lp import joint_lp_fwd_reference
@@ -806,12 +808,13 @@ def _joint_inputs(n, t, u1, j, v, gen, w_dtype):
     w = (torch.randn((j, v), generator=gen) / j ** 0.5).to(w_dtype)
     b = torch.randn((v,), generator=gen) * 0.1
     labels = torch.randint(1, v, (n, u1 - 1), generator=gen).to(torch.int32)
-    labels[0, 0] = 0
     fl = torch.randint(max(1, t // 2), t + 1, (n,), generator=gen)
     yl = torch.randint(0, u1, (n,), generator=gen)
     fl[0], yl[-1] = t, u1 - 1
+    labels[torch.arange(u1 - 1)[None, :] >= yl[:, None]] = -1
+    labels[0, 0] = 0
     cuda = [x.cuda() for x in (enc, pred, w, b, labels)]
-    lpb, lpe = joint_lp_fwd_reference(*cuda)
+    lpb, lpe, _ = joint_lp_fwd_reference(*cuda)
     fl, yl = fl.cuda(), yl.cuda()
     alpha, lpe_m = forward_alphas(lpb, lpe, yl)
     beta = backward_betas(lpb, lpe_m, fl, yl)
@@ -828,14 +831,26 @@ def _cosine(a, b) -> float:
 
 def phase_kernel_joint(seed: int) -> dict:
     """F, G, H against their twins on the card, in bf16 and float32
-    W_out, at JOINT_CASES; then rnnt_loss_fused on the kernels against
-    the chunked path. Returns the largest error per kernel."""
+    W_out, at JOINT_CASES, G and H with F's lse; with bf16 W_out across
+    chunks at JOINT_CHUNK_CASES and twice on the same inputs; then
+    rnnt_loss_fused on the kernels against the chunked path. Returns the
+    largest error per kernel."""
     import torch
 
     from libreasr_tpu_torch.ops import fused_loss as fl_mod
     from libreasr_tpu_torch.ops.kernels import build
     from libreasr_tpu_torch.ops.kernels import joint_lp as kj
 
+    def abs_err(a, r):
+        return float((a - r).abs().max()) if r.numel() else 0.0
+
+    def rel_err(a, r):
+        return abs_err(a, r) / max(float(r.abs().max()), 1e-30)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    lp_names = ("lp_blank", "lp_emit", "lse")
     gen = torch.Generator().manual_seed(seed + 3)
     worst = {"joint_lp_fwd": 0.0, "joint_lp_dx": 0.0, "joint_lp_dw": 0.0}
     for n, t, u1, j, v in JOINT_CASES:
@@ -844,78 +859,84 @@ def phase_kernel_joint(seed: int) -> dict:
                 n, t, u1, j, v, gen, w_dtype)
             got_f = kj.joint_lp_fwd(enc, pred, w, b, lab)
             ref_f = kj.joint_lp_fwd_reference(enc, pred, w, b, lab)
-            got_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)
-            ref_g = kj.joint_lp_dx_reference(enc, pred, w, b, lab, gb, ge)
-            got_h = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, got_g[2])
-            ref_h = kj.joint_lp_dw_reference(enc, pred, w, b, lab, gb, ge,
-                                             ref_g[2])
+            lse = got_f[2]
+            got_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge, lse)
+            ref_g = kj.joint_lp_dx_reference(enc, pred, w, b, lab, gb, ge, lse)
+            got_h = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse)
+            ref_h = kj.joint_lp_dw_reference(enc, pred, w, b, lab, gb, ge, lse)
             torch.cuda.synchronize()
-
-            def abs_err(a, r):
-                return float((a - r).abs().max()) if r.numel() else 0.0
-
-            def rel_err(a, r):
-                return abs_err(a, r) / max(float(r.abs().max()), 1e-30)
-
-            errs = {
-                "lp_blank": abs_err(got_f[0], ref_f[0]),
-                "lp_emit": abs_err(got_f[1], ref_f[1]),
-                "lse": abs_err(got_g[2], ref_g[2]),
-                "d_enc_proj": rel_err(got_g[0], ref_g[0]),
-                "d_pred_proj": rel_err(got_g[1], ref_g[1]),
-                "d_w_out": rel_err(got_h[0], ref_h[0]),
-                "d_b_out": rel_err(got_h[1], ref_h[1]),
-            }
+            errs = {k: abs_err(a, r) for k, a, r in zip(lp_names, got_f, ref_f)}
+            errs.update({k: rel_err(a, r) for k, a, r in zip(
+                ("d_enc_proj", "d_pred_proj", "d_w_out", "d_b_out"),
+                (*got_g, *got_h), (*ref_g, *ref_h))})
             finite = all(bool(torch.isfinite(x).all())
                          for x in (*got_f, *got_g, *got_h))
             log("kernel_joint", n=n, t=t, u1=u1, j=j, v=v,
-                w_dtype=str(w_dtype), finite=finite, err=errs,
-                tol_lp_abs=JOINT_LP_TOL, tol_grad_rel=JOINT_GRAD_TOL)
-            worst["joint_lp_fwd"] = max(worst["joint_lp_fwd"], errs["lp_blank"],
-                                        errs["lp_emit"])
-            worst["joint_lp_dx"] = max(worst["joint_lp_dx"], errs["lse"],
-                                       errs["d_enc_proj"], errs["d_pred_proj"])
+                w_dtype=str(w_dtype), padded_label_rows=int((lab < 0).any(1).sum()),
+                finite=finite, err=errs, tol_lp_abs=JOINT_LP_TOL,
+                tol_grad_rel=JOINT_GRAD_TOL)
+            worst["joint_lp_fwd"] = max(worst["joint_lp_fwd"],
+                                        *(errs[k] for k in lp_names))
+            worst["joint_lp_dx"] = max(worst["joint_lp_dx"], errs["d_enc_proj"],
+                                       errs["d_pred_proj"])
             worst["joint_lp_dw"] = max(worst["joint_lp_dw"], errs["d_w_out"],
                                        errs["d_b_out"])
             bad = {k: e for k, e in errs.items() if not e <= (
-                JOINT_LP_TOL if k in ("lp_blank", "lp_emit", "lse")
-                else JOINT_GRAD_TOL)}
+                JOINT_LP_TOL if k in lp_names else JOINT_GRAD_TOL)}
             if bad or not finite:
                 raise AssertionError(f"joint kernels vs twins at "
                                      f"{(n, t, u1, j, v, w_dtype)}: {bad}")
 
-    # G and H with bf16 W_out across chunk boundaries (a scratch cap set
-    # here, far below the main path's), and twice on the same inputs
+    # F, G and H with bf16 W_out across chunk boundaries (a scratch cap set
+    # here, far below the main path's), and twice on the same inputs; F's
+    # outputs are the same bits as in one chunk (a row's sums do not
+    # depend on the chunk that holds it)
+    f_chunks = 0
     for (n, t, u1, j, v), cap in JOINT_CHUNK_CASES:
         enc, pred, w, b, lab, gb, ge, _, _ = _joint_inputs(
             n, t, u1, j, v, gen, torch.bfloat16)
-        gplan = kj.dx_plan(n, t, u1, j, v, cap=cap)
-        got_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge, scratch_cap=cap)
-        again_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge, scratch_cap=cap)
-        ref_g = kj.joint_lp_dx_reference(enc, pred, w, b, lab, gb, ge)
+        fplan = kj.lp_plan(n, t, u1, j, v, cap=cap)
+        got_f = kj.joint_lp_fwd(enc, pred, w, b, lab, scratch_cap=cap)
+        again_f = kj.joint_lp_fwd(enc, pred, w, b, lab, scratch_cap=cap)
+        whole_f = kj.joint_lp_fwd(enc, pred, w, b, lab)
+        ref_f = kj.joint_lp_fwd_chunked_reference(enc, pred, w, b, lab, fplan)
         torch.cuda.synchronize()
-        errs = {k: float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        errs = {k: abs_err(a, r) for k, a, r in zip(lp_names, got_f, ref_f)}
+        identical = same(got_f, again_f)
+        as_one_chunk = same(got_f, whole_f)
+        log("kernel_joint_fwd_chunks", n=n, t=t, u1=u1, j=j, v=v, scratch_cap=cap,
+            chunks=len(fplan.chunks), chunk_rows=fplan.chunk_rows, err=errs,
+            rerun_bit_identical=identical, bit_identical_to_one_chunk=as_one_chunk,
+            tol_lp_abs=JOINT_LP_TOL)
+        worst["joint_lp_fwd"] = max(worst["joint_lp_fwd"], *errs.values())
+        f_chunks = max(f_chunks, len(fplan.chunks))
+        if not identical or not as_one_chunk or not max(errs.values()) <= JOINT_LP_TOL:
+            raise AssertionError(f"F across chunks at {(n, t, u1, j, v)}: {errs}, "
+                                 f"identical {identical}, as one chunk {as_one_chunk}")
+        lse = got_f[2]
+        gplan = kj.dx_plan(n, t, u1, j, v, cap=cap)
+        got_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge, lse, scratch_cap=cap)
+        again_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge, lse, scratch_cap=cap)
+        ref_g = kj.joint_lp_dx_reference(enc, pred, w, b, lab, gb, ge, lse)
+        torch.cuda.synchronize()
+        errs = {k: rel_err(a, r)
                 for k, a, r in zip(("d_enc_proj", "d_pred_proj"), got_g, ref_g)}
-        errs["lse"] = float((got_g[2] - ref_g[2]).abs().max())
-        identical = all(torch.equal(a, r) for a, r in zip(got_g, again_g))
+        identical = same(got_g, again_g)
         log("kernel_joint_dx_chunks", n=n, t=t, u1=u1, j=j, v=v, scratch_cap=cap,
             chunks=len(gplan.chunks), chunk_rows=gplan.chunk_rows, err=errs,
-            rerun_bit_identical=identical, tol_grad_rel=JOINT_GRAD_TOL,
-            tol_lse_abs=JOINT_LP_TOL)
+            rerun_bit_identical=identical, tol_grad_rel=JOINT_GRAD_TOL)
         worst["joint_lp_dx"] = max(worst["joint_lp_dx"], *errs.values())
         if len(gplan.chunks) < 2 or not identical or \
-                not max(errs.values()) <= min(JOINT_GRAD_TOL, JOINT_LP_TOL):
+                not max(errs.values()) <= JOINT_GRAD_TOL:
             raise AssertionError(f"G across chunks at {(n, t, u1, j, v)}: "
                                  f"{errs}, identical {identical}")
-        lse = got_g[2]
         plan = kj.dw_plan(n, t, u1, j, v, cap=cap, sms=build.sm_count(0))
         got = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse, scratch_cap=cap)
         ref = kj.joint_lp_dw_reference(enc, pred, w, b, lab, gb, ge, lse)
         again = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse, scratch_cap=cap)
         torch.cuda.synchronize()
-        errs = {k: float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
-                for k, a, r in zip(("d_w_out", "d_b_out"), got, ref)}
-        identical = all(torch.equal(a, r) for a, r in zip(got, again))
+        errs = {k: rel_err(a, r) for k, a, r in zip(("d_w_out", "d_b_out"), got, ref)}
+        identical = same(got, again)
         log("kernel_joint_chunks", n=n, t=t, u1=u1, j=j, v=v, rows=plan.rows,
             scratch_cap=cap, chunks=len(plan.chunks), chunk_rows=plan.chunk_rows,
             groups=plan.groups, err=errs, rerun_bit_identical=identical,
@@ -925,21 +946,25 @@ def phase_kernel_joint(seed: int) -> dict:
                 not max(errs.values()) <= JOINT_GRAD_TOL:
             raise AssertionError(f"H across chunks at {(n, t, u1, j, v)}: "
                                  f"{errs}, identical {identical}")
+    if f_chunks < 2:
+        raise AssertionError("no JOINT_CHUNK_CASES cap cut F into chunks")
     n, t, u1, j, v = JOINT_CASES[-1]
     enc, pred, w, b, lab, gb, ge, _, _ = _joint_inputs(n, t, u1, j, v, gen,
                                                       torch.bfloat16)
-    first_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)
-    second_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)
-    lse = first_g[2]
+    first_f = kj.joint_lp_fwd(enc, pred, w, b, lab)
+    second_f = kj.joint_lp_fwd(enc, pred, w, b, lab)
+    lse = first_f[2]
+    first_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge, lse)
+    second_g = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge, lse)
     first = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse)
     second = kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse)
     torch.cuda.synchronize()
-    identical = {"G": all(torch.equal(a, r) for a, r in zip(first_g, second_g)),
-                 "H": all(torch.equal(a, r) for a, r in zip(first, second))}
+    identical = {"F": same(first_f, second_f), "G": same(first_g, second_g),
+                 "H": same(first, second)}
     log("kernel_joint_rerun", n=n, t=t, u1=u1, j=j, v=v,
         rerun_bit_identical=identical)
     if not all(identical.values()):
-        raise AssertionError(f"G or H differs between two runs on the same "
+        raise AssertionError(f"F, G or H differs between two runs on the same "
                              f"inputs: {identical}")
 
     # the fused loss: kernels against the chunked path, on the card
@@ -978,14 +1003,15 @@ def phase_kernel_joint(seed: int) -> dict:
 
 def joint_bound_ms(kind: str, n, t, u1, j, v, w_bytes: int = 2):
     """Least time for one call of F ("fwd"), G ("dx") or H ("dw") at the
-    main path's shape: each input read once, each output written once,
-    against the bf16 tensor rate for the products the function needs on
-    its R = N T U1 rows (F: the logits, 2 R J V flops; G and H: the
-    logits and one more product of that size each)."""
+    main path's shape: each input read once, each output written once
+    (F writes lp_blank, lp_emit and lse; G and H read that lse), against
+    the bf16 tensor rate for the products the function needs on its
+    R = N T U1 rows (F: the logits, 2 R J V flops; G and H: the logits
+    and one more product of that size each)."""
     r, u = n * t * u1, u1 - 1
     inputs = 4 * n * t * j + 4 * n * u1 * j + w_bytes * j * v + 4 * v + 4 * n * u
     cot = 4 * r + 4 * n * t * u
-    nbytes = {"fwd": inputs + 4 * r + 4 * n * t * u,
+    nbytes = {"fwd": inputs + 8 * r + 4 * n * t * u,
               "dx": inputs + cot + 4 * n * t * j + 4 * n * u1 * j + 4 * r,
               "dw": inputs + cot + 4 * r + 4 * j * v + 4 * v}[kind]
     flops = (2.0 if kind == "fwd" else 4.0) * r * j * v
@@ -995,9 +1021,10 @@ def joint_bound_ms(kind: str, n, t, u1, j, v, w_bytes: int = 2):
 
 def joint_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
     """F, G and H timed at the main path's shape (bf16 W_out), beside
-    their twins; the rows of the kernels line. cuBLAS's bf16 product of
-    the same [R, J] x [J, V] shape is printed as context: no single
-    PyTorch call computes these kernels' function."""
+    their twins, G and H with F's lse; the rows of the kernels line, each
+    with its device launches a call. cuBLAS's bf16 product of the same
+    [R, J] x [J, V] shape is printed as context: no single PyTorch call
+    computes these kernels' function."""
     import torch
 
     from libreasr_tpu_torch.ops.kernels import build
@@ -1007,12 +1034,14 @@ def joint_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
     gen = torch.Generator().manual_seed(seed + 4)
     enc, pred, w, b, lab, gb, ge, _, _ = _joint_inputs(n, t, u1, j, v, gen,
                                                       torch.bfloat16)
-    _, _, lse = kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge)
+    _, _, lse = kj.joint_lp_fwd(enc, pred, w, b, lab)
     calls = {
         "joint_lp_fwd": ("fwd", 341, lambda: kj.joint_lp_fwd(enc, pred, w, b, lab),
                          lambda: kj.joint_lp_fwd_reference(enc, pred, w, b, lab)),
-        "joint_lp_dx": ("dx", 394, lambda: kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge),
-                        lambda: kj.joint_lp_dx_reference(enc, pred, w, b, lab, gb, ge)),
+        "joint_lp_dx": ("dx", 394,
+                        lambda: kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge, lse),
+                        lambda: kj.joint_lp_dx_reference(enc, pred, w, b, lab, gb,
+                                                         ge, lse)),
         "joint_lp_dw": ("dw", 429,
                         lambda: kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse),
                         lambda: kj.joint_lp_dw_reference(enc, pred, w, b, lab, gb,
@@ -1039,27 +1068,34 @@ def joint_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": None,
             })
-    # G's launches (w(h), the lse product and fold, the dlogits product,
-    # the dh product, the partials' fold) and H's (w(h), the logits
-    # product, dW, the fold), by device time
+    # F's launches (w(h), the logits product with its (max, sum) and picks
+    # epilogue, the fold), G's (w(h), the dlogits product, the dh product,
+    # the partials' fold) and H's (w(h), the logits product, dW, the
+    # fold): device ms a call by kernel, and device launches a call
     from torch.profiler import ProfilerActivity, profile
 
-    def launch_ms(fn):
+    def launch_ms(fn, reps=5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
+            for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         mark = "(anonymous namespace)::"
-        return {e.key.split(mark, 1)[1].split("(")[0]: e.self_device_time_total / 5e3
-                for e in prof.key_averages() if mark in e.key}
+        events = [e for e in prof.key_averages() if mark in e.key]
+        return ({e.key.split(mark, 1)[1].split("(")[0]:
+                 e.self_device_time_total / (reps * 1e3) for e in events},
+                sum(e.count for e in events) / reps)
 
-    g_launch_ms = launch_ms(lambda: kj.joint_lp_dx(enc, pred, w, b, lab, gb, ge))
-    h_launch_ms = launch_ms(lambda: kj.joint_lp_dw(enc, pred, w, b, lab, gb, ge, lse))
+    per_call = {name: launch_ms(kernel) for name, (_, _, kernel, _) in calls.items()}
+    for row in rows:
+        row["device_launches_per_call"] = per_call[row["name"]][1]
     log("joint_timing", n=n, t=t, u1=u1, j=j, v=v, rows=n * t * u1,
-        w_dtype="bfloat16", kernels=times, g_launch_ms=g_launch_ms,
-        h_launch_ms=h_launch_ms,
+        w_dtype="bfloat16", kernels=times,
+        f_launch_ms=per_call["joint_lp_fwd"][0], g_launch_ms=per_call["joint_lp_dx"][0],
+        h_launch_ms=per_call["joint_lp_dw"][0],
+        device_launches_per_call={k: c for k, (_, c) in per_call.items()},
         context_cublas_bf16_rows_x_w_ms=cublas_ms,
         context_matmul_bf16_h_products_ms=matmul_h_ms,
+        f_scratch_bytes=kj.lp_plan(n, t, u1, j, v, kj.DW_SCRATCH_CAP).scratch_bytes,
         g_scratch_bytes=kj.dx_plan(n, t, u1, j, v, kj.DW_SCRATCH_CAP).scratch_bytes,
         h_scratch_bytes=kj.dw_plan(n, t, u1, j, v, kj.DW_SCRATCH_CAP,
                                    build.sm_count(0)).scratch_bytes)

@@ -10,79 +10,85 @@
 //   h      = tanh(enc_proj[n, t] + pred_proj[n, u])            float32 [J]
 //   logits = w(h) @ W_out + b_out     (float32 accumulation)    [V]
 //   lse    = logsumexp(logits)
-//   F: lp_blank = logits[blank] - lse; lp_emit = logits[label_u] - lse
-//   G: p = exp(logits - lse);
+//   F: lp_blank = logits[blank] - lse; lp_emit = logits[label_u] - lse,
+//      where a label outside [0, V) (the padding -1) picks 0; and lse
+//   G: p = exp(logits - lse), with F's lse;
 //      dlogits = 1[v = blank] g_lpb + 1[v = label_u] g_lpe - p (g_lpb + g_lpe)
 //      dh = (w(dlogits) @ W_out^T) * (1 - h^2);
-//      d_enc_proj[n, t] = sum_u dh, d_pred_proj[n, u] = sum_t dh; and lse
+//      d_enc_proj[n, t] = sum_u dh, d_pred_proj[n, u] = sum_t dh
 //   H: dW_out = sum_rows w(h)^T w(dlogits), db_out = sum_rows dlogits,
-//      the softmax taken with G's lse
+//      the softmax taken with F's lse
 // w() rounds to W_out's type (bf16 or float32); h, dlogits and every sum
 // stay float32. Both one-hot terms are added, never if/else, so a label
 // equal to the blank gets both. The emit column of u = U1 - 1 does not
-// exist (label -1, g_lpe 0).
+// exist (label -1, g_lpe 0). The JAX backward recomputes lse in its dx
+// kernel; here F computes it once and the loss saves it for G and H.
 //
 // What bounds them on an H100: the [rows, J] x [J, V] products, 2 R J V
 // flops each (135 GFLOP at N 16, T 49, U1 41, J 1024, V 2048; F does one,
-// G three, H two), against a few tens of MB of inputs and outputs: all
+// G and H two each), against a few tens of MB of inputs and outputs: all
 // three are compute-bound, at the tensor cores' rate (989 TFLOP/s bf16).
 //
-// F, and G and H with float32 W_out, keep the [rows, V] logits and
-// dlogits out of device memory, as the TPU kernels kept them in VMEM: a
-// block owns a tile of BM rows (BT frames x BU labels of one utterance),
-// holds w(h) for its rows in shared memory and walks V in tiles,
-// recomputing the logits tile by tile:
-//   - the products are bf16 WMMA fragments (mma.sync 16x16x16) with
-//     float32 accumulation when W_out is bf16, and a plain float32 loop
-//     when W_out is float32 (no tensor-core mode is exact in float32);
-//     W_out reaches shared memory in 64-row chunks by 16-byte cp.async
-//     copies, the next chunk in flight while the current one is
-//     multiplied;
-//   - F keeps an online max/sum per row over the V tiles;
-//   - G with float32 W_out makes two passes over V: the first finds lse,
-//     the second forms dlogits and accumulates w(dlogits) @ W_out^T into
-//     a [BM, J] float32 block in shared memory.
+// With float32 W_out (no tensor-core mode is exact in float32) the three
+// keep the [rows, V] logits and dlogits out of device memory, as the TPU
+// kernels kept them in VMEM: a block owns a tile of BM rows (BT frames x
+// BU labels of one utterance), holds h for its rows in shared memory and
+// walks V in tiles, recomputing the logits tile by tile in a plain
+// float32 loop; W_out reaches shared memory in 64-row chunks by 16-byte
+// cp.async copies, the next chunk in flight while the current one is
+// multiplied. F keeps an online max/sum per row over the V tiles; G forms
+// dlogits from F's lse and accumulates w(dlogits) @ W_out^T into a
+// [BM, J] float32 block in shared memory.
 //
-// H with bf16 W_out is built for Hopper's tensor cores instead. Recomputing
-// w(h) and the logits inside every V tile (the first design: 64 rebuilds
-// of w(h) per row, 16x16 WMMA fragments fed from shared memory, nothing
-// pipelined) left it 35x its bound. Now the lattice rows go in chunks
-// (dw_plan in ops/kernels/joint_lp.py keeps the scratch under a cap the
-// wrapper states; one chunk at the main path's shape), and per chunk:
-//   1. joint_dw_fill makes w(h) once per row into a bf16 scratch
-//      [rows_c, jp] (66 MB at the main shape);
-//   2. joint_dw_tc<TC_DLOGITS>, the logits product [rows_c, J] x [J, V]: a
-//      128 x 128 tile per block, 64-deep K stages of w(h) (K-major) and
-//      W_out (MN-major, wgmma's transposed B) brought by TMA
-//      (cp.async.bulk.tensor, 128-byte swizzle) into a ring of 5 stages
-//      with full/empty mbarriers, one producer thread, and two consumer
-//      warpgroups issuing wgmma.mma_async m64n128k16 with float32 sums in
-//      registers. The epilogue forms dlogits in registers from G's lse,
-//      the cotangents and the labels, writes w(dlogits) to a bf16 scratch
-//      [rows_c, vp] (132 MB) and the tile's column sums of the float32
-//      dlogits, db's partials;
-//   3. joint_dw_tc<TC_DW>, dW = w(h)^T w(dlogits): the same kernel with
-//      both operands MN-major from the two scratches (w(h)^T needs no
-//      copy: wgmma transposes 16-bit operands in its descriptor), K the
-//      chunk's rows, split over blockIdx.z into partials when the J x V
-//      tiles alone would leave SMs idle;
+// With bf16 W_out all three run on one tensor-core engine,
+// joint_dw_tc<MODE>: a 128 x 128 tile of a product per block, 64-deep K
+// stages of both operands brought by TMA (cp.async.bulk.tensor, 128-byte
+// swizzle) into a ring with full/empty mbarriers, one producer thread,
+// and two consumer warpgroups issuing wgmma.mma_async m64n128k16 with
+// float32 sums in registers; the epilogue is the MODE's. The lattice goes
+// in chunks whose bf16 scratch stays under a cap the wrapper states
+// (ops/kernels/joint_lp.py: lp_plan, dx_plan, dw_plan; one chunk each at
+// the main path's shape), and every chunk starts with joint_dw_fill,
+// which makes w(h) once per row into a bf16 scratch [rows_c, jp] (66 MB
+// at the main shape).
+//
+// F, per chunk of lattice rows (3 launches). Its first design, a block
+// of 32 rows walking V on 16x16 WMMA fragments and rebuilding w(h) per
+// block, took 3.5 ms, 25x its bound.
+//   1. joint_dw_fill, w(h);
+//   2. joint_dw_tc<TC_LSE>, the logits product [rows_c, J] x [J, V]; the
+//      epilogue writes each row's max and sum of exp over the tile's 128
+//      columns to [2][ceil(V / 128)][rows_c], and the picks: the thread
+//      that holds column blank of a row writes that logit (+ bias) to
+//      lb[rows_c], the thread that holds column label_u writes it to
+//      le[rows_c] (one thread per (row, column): no race, no atomic);
+//   3. joint_lp_fold folds the V tiles in order into the row lse and
+//      writes lse, lp_blank = lb - lse and lp_emit = le - lse (le counted
+//      as 0 unless 0 <= label_u < V, read by the fold itself).
+// A row's sums do not depend on which tile or chunk holds it, so the lse
+// is the same bits under any cap.
+//
+// H, per chunk of lattice rows (4 launches). Its first design (64
+// rebuilds of w(h) per row on 16x16 WMMA fragments) was 35x its bound.
+//   1. joint_dw_fill, w(h);
+//   2. joint_dw_tc<TC_DLOGITS>, the logits product again; the epilogue
+//      forms dlogits in registers from F's lse, the cotangents and the
+//      labels, writes w(dlogits) to a bf16 scratch [rows_c, vp] (132 MB)
+//      and the tile's column sums of the float32 dlogits, db's partials;
+//   3. joint_dw_tc<TC_DW>, dW = w(h)^T w(dlogits): both operands MN-major
+//      from the two scratches (w(h)^T needs no copy: wgmma transposes
+//      16-bit operands in its descriptor), K the chunk's rows, split over
+//      blockIdx.z into partials when the J x V tiles alone would leave
+//      SMs idle;
 //   4. joint_dw_fold adds the group partials and db's row-tile partials
 //      to dW and db in a fixed order.
-// No float atomics anywhere: dW and db are the same bits from run to run.
 //
-// G with bf16 W_out runs on H's engine. Its first design (a block of 32
-// rows making two passes over V on 16x16 WMMA, rebuilding the logits in
-// each) took 7.7 ms, 28x its bound. Now the lattice goes in chunks of
-// whole frame groups (DX_FRAMES frames of one utterance; dx_plan in
-// ops/kernels/joint_lp.py keeps the chunk's scratch under the cap), and
-// per chunk:
-//   1. joint_dw_fill makes w(h) into the bf16 scratch, as for H;
-//   2. joint_dw_tc<TC_LSE>, the logits product, writes each row's max and
-//      sum of exp over each 128-column tile of V; joint_lse_fold folds the
-//      tiles in order into the row lse;
-//   3. joint_dw_tc<TC_DLOGITS>, the logits product again with H's dlogits
-//      epilogue, writes w(dlogits) [rows_c, vp];
-//   4. joint_dw_tc<TC_DH>, dh = w(dlogits) @ W_out^T [rows_c, V] x [V, J]:
+// G, per chunk of whole frame groups (DX_FRAMES frames of one utterance;
+// 3 launches, then one fold). Its first design (two passes over V on
+// 16x16 WMMA) took 7.7 ms, 28x its bound.
+//   1. joint_dw_fill, w(h);
+//   2. joint_dw_tc<TC_DLOGITS>, as for H, writes w(dlogits) [rows_c, vp];
+//   3. joint_dw_tc<TC_DH>, dh = w(dlogits) @ W_out^T [rows_c, V] x [V, J]:
 //      A is w(dlogits) read through a 3-D tensor map in tiles of 8 frames
 //      x 16 labels (the product's 128 rows), B is W_out's rows, already
 //      K-major along V (no transposed copy). The epilogue multiplies by
@@ -90,31 +96,28 @@
 //      frame's 16 labels in registers (d_enc_proj partials [N, T, nub, J])
 //      and each label's 8 frames through shared memory (d_pred_proj
 //      partials [N, ntb, U1, J]).
-// After the chunks joint_dx_reduce adds the partials in a fixed order:
-// d_enc_proj and d_pred_proj are the same bits from run to run.
+// After the chunks joint_dx_reduce adds the partials in a fixed order.
+// No float atomics anywhere: every output is the same bits from run to
+// run.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;  // F; G and H with float32 W_out
+// F, G and H with float32 W_out
+constexpr int THREADS = 256;
+constexpr int BT = 2, BU = 8, BM = BT * BU;  // a block's rows: BT frames x BU labels
+constexpr int PAD = 4;    // row padding of the shared tiles, in floats (16 bytes)
 constexpr int BN = 64;    // V tile of F and G
-constexpr int BNH = 32;   // V tile of H with float32 W_out
+constexpr int BNH = 32;   // V tile of H
 constexpr int BK = 64;    // J chunk of W staged per step (also G's dh chunk)
 constexpr int MAX_SMEM = 232448;  // per-block limit on sm_90
-
-template <typename WT> struct Tile;
-template <> struct Tile<bf16> { static constexpr int BT = 4, BU = 8; };
-template <> struct Tile<float> { static constexpr int BT = 2, BU = 8; };
 
 struct Shape {
   int N, T, U1, J, V, blank, Jp, nTB, nUB;
@@ -127,12 +130,6 @@ struct RowInfo {
 
 __host__ __device__ inline size_t align128(size_t x) {
   return (x + 127) & ~size_t(127);
-}
-
-template <typename WT> __device__ __forceinline__ WT from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -156,33 +153,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// c[M x N] (float32, row-major, ldc) += A[M x K] B[K x N] from shared
-// memory. A(m, k) = a[k * lda + m] if A_T else a[m * lda + k];
-// B(k, n) = b[n * ldb + k] if B_T else b[k * ldb + n]. M, N, K are
-// multiples of 16. All threads of the block take part; no barrier.
-template <bool A_T, bool B_T>
-__device__ void smem_mma(const bf16* a, int lda, const bf16* b, int ldb,
-                         float* c, int ldc, int M, int N, int K) {
-  using namespace nvcuda;
-  using LA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using LB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-  const int warp = threadIdx.x / 32;
-  const int tn = N / 16;
-  for (int tile = warp; tile < (M / 16) * tn; tile += blockDim.x / 32) {
-    const int m0 = (tile / tn) * 16, n0 = (tile % tn) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, c + m0 * ldc + n0, ldc, wmma::mem_row_major);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-      wmma::load_matrix_sync(fa, A_T ? a + k0 * lda + m0 : a + m0 * lda + k0, lda);
-      wmma::load_matrix_sync(fb, B_T ? b + n0 * ldb + k0 : b + k0 * ldb + n0, ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + m0 * ldc + n0, acc, ldc, wmma::mem_row_major);
-  }
-}
-
+// c[M x N] (row-major, ldc) += A[M x K] B[K x N] from shared memory, in
+// float32. A(m, k) = a[k * lda + m] if A_T else a[m * lda + k];
+// B(k, n) = b[n * ldb + k] if B_T else b[k * ldb + n]. All threads of the
+// block take part; no barrier.
 template <bool A_T, bool B_T>
 __device__ void smem_mma(const float* a, int lda, const float* b, int ldb,
                          float* c, int ldc, int M, int N, int K) {
@@ -199,12 +173,10 @@ __device__ void smem_mma(const float* a, int lda, const float* b, int ldb,
 }
 
 // Row bookkeeping of one tile: utterance n, frames t0.., labels u0...
-template <typename WT>
 __device__ void setup_rows(int tile, const Shape& s, RowInfo* ri, int& n,
                            int& t0, int& u0, const int* labels,
                            const float* glpb, const float* glpe,
                            const float* lse_in) {
-  constexpr int BT = Tile<WT>::BT, BU = Tile<WT>::BU, BM = BT * BU;
   n = tile / (s.nTB * s.nUB);
   const int rem = tile - n * s.nTB * s.nUB;
   t0 = (rem / s.nUB) * BT;
@@ -228,35 +200,33 @@ __device__ void setup_rows(int tile, const Shape& s, RowInfo* ri, int& n,
   }
 }
 
-// hs[i, j] = w(tanh(enc_proj[n, t_i, j] + pred_proj[n, u_i, j])), zero
-// on invalid rows and for J <= j < Jp. One warp per row.
-template <typename WT>
-__device__ void fill_h(WT* hs, int ldh, const RowInfo* ri, int n,
+// hs[i, j] = tanh(enc_proj[n, t_i, j] + pred_proj[n, u_i, j]), zero on
+// invalid rows and for J <= j < Jp. One warp per row.
+__device__ void fill_h(float* hs, int ldh, const RowInfo* ri, int n,
                        const Shape& s, const float* enc, const float* pred) {
-  constexpr int BM = Tile<WT>::BT * Tile<WT>::BU;
   const int lane = threadIdx.x % 32;
   for (int i = threadIdx.x / 32; i < BM; i += blockDim.x / 32) {
-    WT* row = hs + i * ldh;
+    float* row = hs + i * ldh;
     const bool valid = ri[i].valid;
     const float* e = enc + ((size_t)n * s.T + ri[i].t) * s.J;
     const float* p = pred + ((size_t)n * s.U1 + ri[i].u) * s.J;
     for (int j = lane; j < s.Jp; j += 32)
-      row[j] = from_f<WT>(valid && j < s.J ? tanhf(e[j] + p[j]) : 0.f);
+      row[j] = valid && j < s.J ? tanhf(e[j] + p[j]) : 0.f;
   }
 }
 
 // Copies W_out[k0 : k0 + kc, v0 : v0 + W] into dst (row stride ldw), zero
 // past J and V: 16-byte cp.async copies when the tile lies inside V and
-// W_out's rows are 16-byte aligned (V a multiple of 16 / sizeof(WT)),
-// plain loads otherwise. The caller commits the copies and waits.
-template <typename WT, int W>
-__device__ void stage_w(WT* dst, int ldw, const WT* w, int k0, int kc, int v0,
+// W_out's rows are 16-byte aligned (V a multiple of 4), plain loads
+// otherwise. The caller commits the copies and waits.
+template <int W>
+__device__ void stage_w(float* dst, int ldw, const float* w, int k0, int kc, int v0,
                         const Shape& s) {
-  constexpr int VEC = 16 / sizeof(WT), SEGS = W / VEC;
+  constexpr int VEC = 4, SEGS = W / VEC;
   if (s.V % VEC == 0 && v0 + W <= s.V) {
     for (int idx = threadIdx.x; idx < kc * SEGS; idx += blockDim.x) {
       const int kk = idx / SEGS, seg = idx % SEGS, j = k0 + kk;
-      WT* d = dst + kk * ldw + seg * VEC;
+      float* d = dst + kk * ldw + seg * VEC;
       if (j < s.J)
         cp_async16(d, w + (size_t)j * s.V + v0 + seg * VEC);
       else
@@ -266,7 +236,7 @@ __device__ void stage_w(WT* dst, int ldw, const WT* w, int k0, int kc, int v0,
     for (int idx = threadIdx.x; idx < kc * W; idx += blockDim.x) {
       const int kk = idx / W, vv = idx % W;
       const int j = k0 + kk, v = v0 + vv;
-      dst[kk * ldw + vv] = (j < s.J && v < s.V) ? w[(size_t)j * s.V + v] : from_f<WT>(0.f);
+      dst[kk * ldw + vv] = (j < s.J && v < s.V) ? w[(size_t)j * s.V + v] : 0.f;
     }
   }
 }
@@ -274,22 +244,20 @@ __device__ void stage_w(WT* dst, int ldw, const WT* w, int k0, int kc, int v0,
 // cs[BM x W] = hs @ W_out[:, v0 : v0 + W] (zero past V), J in BK chunks
 // through two staging buffers in ws: the copy of chunk c + 1 is in
 // flight while chunk c is multiplied. Ends with a barrier.
-template <typename WT, int W>
-__device__ void logits_tile(const WT* hs, int ldh, WT* ws, float* cs, int v0,
-                            const Shape& s, const WT* w) {
-  constexpr int BM = Tile<WT>::BT * Tile<WT>::BU;
-  constexpr int PAD = 16 / sizeof(WT);
+template <int W>
+__device__ void logits_tile(const float* hs, int ldh, float* ws, float* cs, int v0,
+                            const Shape& s, const float* w) {
   constexpr int LDW = W + PAD, LDC = W + 4, BUF = BK * LDW;
   for (int idx = threadIdx.x; idx < BM * W; idx += blockDim.x)
     cs[(idx / W) * LDC + idx % W] = 0.f;
   const int nk = (s.Jp + BK - 1) / BK;
-  stage_w<WT, W>(ws, LDW, w, 0, min(BK, s.Jp), v0, s);
+  stage_w<W>(ws, LDW, w, 0, min(BK, s.Jp), v0, s);
   cp_async_commit();
   for (int c = 0; c < nk; ++c) {
     const int k0 = c * BK, kc = min(BK, s.Jp - k0);
     if (c + 1 < nk) {
-      stage_w<WT, W>(ws + ((c + 1) & 1) * BUF, LDW, w, k0 + BK,
-                     min(BK, s.Jp - k0 - BK), v0, s);
+      stage_w<W>(ws + ((c + 1) & 1) * BUF, LDW, w, k0 + BK, min(BK, s.Jp - k0 - BK), v0,
+                 s);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -303,10 +271,9 @@ __device__ void logits_tile(const WT* hs, int ldh, WT* ws, float* cs, int v0,
 
 // Online max / sum of exp over one tile of logits (+ bias), and the
 // blank and label logits when the tile holds them. One warp per row.
-template <typename WT, int W>
-__device__ void online_lse(const float* cs, RowInfo* ri, int v0,
-                           const Shape& s, const float* bias) {
-  constexpr int BM = Tile<WT>::BT * Tile<WT>::BU;
+template <int W>
+__device__ void online_lse(const float* cs, RowInfo* ri, int v0, const Shape& s,
+                           const float* bias) {
   constexpr int LDC = W + 4;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int i = warp; i < BM; i += blockDim.x / 32) {
@@ -340,13 +307,12 @@ __device__ void online_lse(const float* cs, RowInfo* ri, int v0,
   __syncthreads();
 }
 
-// dlogits of a tile in float32, in place in cs (zero on invalid rows
-// and columns), and rounded to W_out's type into ds.
-template <typename WT, int W>
-__device__ void dlogits_tile(float* cs, WT* ds, const RowInfo* ri, int v0,
+// dlogits of a tile, in place in cs and copied into ds (zero on invalid
+// rows and columns).
+template <int W>
+__device__ void dlogits_tile(float* cs, float* ds, const RowInfo* ri, int v0,
                              const Shape& s, const float* bias) {
-  constexpr int BM = Tile<WT>::BT * Tile<WT>::BU;
-  constexpr int LDC = W + 4, LDD = W + 16 / sizeof(WT);
+  constexpr int LDC = W + 4, LDD = W + PAD;
   for (int idx = threadIdx.x; idx < BM * W; idx += blockDim.x) {
     const int i = idx / W, vv = idx % W, v = v0 + vv;
     float d = 0.f;
@@ -356,25 +322,22 @@ __device__ void dlogits_tile(float* cs, WT* ds, const RowInfo* ri, int v0,
           - p * (ri[i].gb + ri[i].ge);
     }
     cs[i * LDC + vv] = d;
-    ds[i * LDD + vv] = from_f<WT>(d);
+    ds[i * LDD + vv] = d;
   }
   __syncthreads();
 }
 
-template <typename WT>
 struct Smem {
-  static constexpr int BM = Tile<WT>::BT * Tile<WT>::BU;
-  static constexpr int PAD = 16 / sizeof(WT);
   size_t hs, ws, cs, ds, acc, rows, total;
-  // kind 0: F; 1: G and 2: H with float32 W_out
+  // kind 0: F; 1: G and 2: H
   __host__ __device__ Smem(int Jp, int kind) {
     const int w = kind == 2 ? BNH : BN;
     size_t o = 0;
-    hs = o; o = align128(o + (size_t)BM * (Jp + PAD) * sizeof(WT));
+    hs = o; o = align128(o + (size_t)BM * (Jp + PAD) * sizeof(float));
     ws = o;
-    o = align128(o + 2 * (size_t)BK * (w + PAD) * sizeof(WT));
+    o = align128(o + 2 * (size_t)BK * (w + PAD) * sizeof(float));
     cs = o; o = align128(o + (size_t)BM * (w + 4) * sizeof(float));
-    ds = o; o = align128(o + (kind ? (size_t)BM * (w + PAD) * sizeof(WT) : 0));
+    ds = o; o = align128(o + (kind ? (size_t)BM * (w + PAD) * sizeof(float) : 0));
     acc = o;
     if (kind == 1) o = align128(o + (size_t)BM * (Jp + 4) * sizeof(float));
     if (kind == 2) o = align128(o + (size_t)Jp * BNH * sizeof(float));
@@ -383,83 +346,70 @@ struct Smem {
   }
 };
 
-template <typename WT>
 __global__ void __launch_bounds__(THREADS)
-joint_fwd_kernel(const float* enc, const float* pred, const WT* w,
+joint_fwd_kernel(const float* enc, const float* pred, const float* w,
                  const float* bias, const int* labels, float* lpb, float* lpe,
-                 Shape s) {
+                 float* lse_out, Shape s) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<WT> L(s.Jp, 0);
-  constexpr int PAD = 16 / sizeof(WT);
-  WT* hs = reinterpret_cast<WT*>(smem + L.hs);
-  WT* ws = reinterpret_cast<WT*>(smem + L.ws);
+  const Smem L(s.Jp, 0);
+  float* hs = reinterpret_cast<float*>(smem + L.hs);
+  float* ws = reinterpret_cast<float*>(smem + L.ws);
   float* cs = reinterpret_cast<float*>(smem + L.cs);
   RowInfo* ri = reinterpret_cast<RowInfo*>(smem + L.rows);
   const int ldh = s.Jp + PAD;
   int n, t0, u0;
-  setup_rows<WT>(blockIdx.x, s, ri, n, t0, u0, labels, nullptr, nullptr, nullptr);
+  setup_rows(blockIdx.x, s, ri, n, t0, u0, labels, nullptr, nullptr, nullptr);
   __syncthreads();
-  fill_h<WT>(hs, ldh, ri, n, s, enc, pred);
+  fill_h(hs, ldh, ri, n, s, enc, pred);
   for (int v0 = 0; v0 < s.V; v0 += BN) {
-    logits_tile<WT, BN>(hs, ldh, ws, cs, v0, s, w);
-    online_lse<WT, BN>(cs, ri, v0, s, bias);
+    logits_tile<BN>(hs, ldh, ws, cs, v0, s, w);
+    online_lse<BN>(cs, ri, v0, s, bias);
   }
   const int U = s.U1 - 1;
-  for (int i = threadIdx.x; i < Smem<WT>::BM; i += blockDim.x) {
+  for (int i = threadIdx.x; i < BM; i += blockDim.x) {
     const RowInfo r = ri[i];
     if (!r.valid) continue;
     const float lse = r.m + logf(r.s);
-    lpb[((size_t)n * s.T + r.t) * s.U1 + r.u] = r.lb - lse;
+    const size_t row = ((size_t)n * s.T + r.t) * s.U1 + r.u;
+    lse_out[row] = lse;
+    lpb[row] = r.lb - lse;
     if (r.u < U) lpe[((size_t)n * s.T + r.t) * U + r.u] = r.le - lse;
   }
 }
 
-template <typename WT>
 __global__ void __launch_bounds__(THREADS)
-joint_dx_kernel(const float* enc, const float* pred, const WT* w,
+joint_dx_kernel(const float* enc, const float* pred, const float* w,
                 const float* bias, const int* labels, const float* glpb,
-                const float* glpe, float* lse_out, float* part_enc,
+                const float* glpe, const float* lse_in, float* part_enc,
                 float* part_pred, Shape s) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<WT> L(s.Jp, 1);
-  constexpr int BT = Tile<WT>::BT, BU = Tile<WT>::BU, BM = BT * BU;
-  constexpr int PAD = 16 / sizeof(WT);
-  WT* hs = reinterpret_cast<WT*>(smem + L.hs);
-  WT* ws = reinterpret_cast<WT*>(smem + L.ws);
+  const Smem L(s.Jp, 1);
+  float* hs = reinterpret_cast<float*>(smem + L.hs);
+  float* ws = reinterpret_cast<float*>(smem + L.ws);
   float* cs = reinterpret_cast<float*>(smem + L.cs);
-  WT* ds = reinterpret_cast<WT*>(smem + L.ds);
+  float* ds = reinterpret_cast<float*>(smem + L.ds);
   float* acc = reinterpret_cast<float*>(smem + L.acc);
   RowInfo* ri = reinterpret_cast<RowInfo*>(smem + L.rows);
   const int ldh = s.Jp + PAD, lda = s.Jp + 4, ldw = BN + PAD, ldd = BN + PAD;
   int n, t0, u0;
-  setup_rows<WT>(blockIdx.x, s, ri, n, t0, u0, labels, glpb, glpe, nullptr);
+  setup_rows(blockIdx.x, s, ri, n, t0, u0, labels, glpb, glpe, lse_in);
   __syncthreads();
-  fill_h<WT>(hs, ldh, ri, n, s, enc, pred);
-  // pass 1: the row logsumexp
-  for (int v0 = 0; v0 < s.V; v0 += BN) {
-    logits_tile<WT, BN>(hs, ldh, ws, cs, v0, s, w);
-    online_lse<WT, BN>(cs, ri, v0, s, bias);
-  }
-  for (int i = threadIdx.x; i < BM; i += blockDim.x) {
-    ri[i].lse = ri[i].m + logf(ri[i].s);
-    if (ri[i].valid)
-      lse_out[((size_t)n * s.T + ri[i].t) * s.U1 + ri[i].u] = ri[i].lse;
-  }
+  fill_h(hs, ldh, ri, n, s, enc, pred);
   for (int idx = threadIdx.x; idx < BM * s.Jp; idx += blockDim.x)
     acc[(idx / s.Jp) * lda + idx % s.Jp] = 0.f;
   __syncthreads();
-  // pass 2: dlogits, and acc += w(dlogits) @ W_out[:, v-tile]^T
+  // dlogits from F's lse, and acc += w(dlogits) @ W_out[:, v-tile]^T
   for (int v0 = 0; v0 < s.V; v0 += BN) {
-    logits_tile<WT, BN>(hs, ldh, ws, cs, v0, s, w);
-    dlogits_tile<WT, BN>(cs, ds, ri, v0, s, bias);
+    logits_tile<BN>(hs, ldh, ws, cs, v0, s, w);
+    dlogits_tile<BN>(cs, ds, ri, v0, s, bias);
     const int nj = (s.Jp + BK - 1) / BK;
-    stage_w<WT, BN>(ws, ldw, w, 0, min(BK, s.Jp), v0, s);
+    stage_w<BN>(ws, ldw, w, 0, min(BK, s.Jp), v0, s);
     cp_async_commit();
     for (int c = 0; c < nj; ++c) {
       const int j0 = c * BK, jc = min(BK, s.Jp - j0);
       if (c + 1 < nj) {
-        stage_w<WT, BN>(ws + ((c + 1) & 1) * BK * ldw, ldw, w, j0 + BK,
-                        min(BK, s.Jp - j0 - BK), v0, s);
+        stage_w<BN>(ws + ((c + 1) & 1) * BK * ldw, ldw, w, j0 + BK,
+                    min(BK, s.Jp - j0 - BK), v0, s);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -471,7 +421,7 @@ joint_dx_kernel(const float* enc, const float* pred, const WT* w,
       __syncthreads();
     }
   }
-  // dh = acc * (1 - h^2) with the float32 h, zero on invalid rows
+  // dh = acc * (1 - h^2), zero on invalid rows
   for (int idx = threadIdx.x; idx < BM * s.J; idx += blockDim.x) {
     const int i = idx / s.J, j = idx - (idx / s.J) * s.J;
     float d = 0.f;
@@ -523,20 +473,17 @@ __global__ void joint_dx_reduce(const float* part_enc, const float* part_pred,
   }
 }
 
-template <typename WT>
 __global__ void __launch_bounds__(THREADS)
-joint_dw_kernel(const float* enc, const float* pred, const WT* w,
+joint_dw_kernel(const float* enc, const float* pred, const float* w,
                 const float* bias, const int* labels, const float* glpb,
                 const float* glpe, const float* lse_in, float* part_w,
                 float* part_b, int tiles_per_group, Shape s) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<WT> L(s.Jp, 2);
-  constexpr int BM = Tile<WT>::BT * Tile<WT>::BU;
-  constexpr int PAD = 16 / sizeof(WT);
-  WT* hs = reinterpret_cast<WT*>(smem + L.hs);
-  WT* ws = reinterpret_cast<WT*>(smem + L.ws);
+  const Smem L(s.Jp, 2);
+  float* hs = reinterpret_cast<float*>(smem + L.hs);
+  float* ws = reinterpret_cast<float*>(smem + L.ws);
   float* cs = reinterpret_cast<float*>(smem + L.cs);
-  WT* ds = reinterpret_cast<WT*>(smem + L.ds);
+  float* ds = reinterpret_cast<float*>(smem + L.ds);
   float* accw = reinterpret_cast<float*>(smem + L.acc);
   RowInfo* ri = reinterpret_cast<RowInfo*>(smem + L.rows);
   const int ldh = s.Jp + PAD, ldd = BNH + PAD, ldc = BNH + 4;
@@ -549,14 +496,14 @@ joint_dw_kernel(const float* enc, const float* pred, const WT* w,
   for (int tile = first; tile < last; ++tile) {
     int n, t0, u0;
     __syncthreads();
-    setup_rows<WT>(tile, s, ri, n, t0, u0, labels, glpb, glpe, lse_in);
+    setup_rows(tile, s, ri, n, t0, u0, labels, glpb, glpe, lse_in);
     __syncthreads();
-    fill_h<WT>(hs, ldh, ri, n, s, enc, pred);
-    logits_tile<WT, BNH>(hs, ldh, ws, cs, v0, s, w);
-    dlogits_tile<WT, BNH>(cs, ds, ri, v0, s, bias);
+    fill_h(hs, ldh, ri, n, s, enc, pred);
+    logits_tile<BNH>(hs, ldh, ws, cs, v0, s, w);
+    dlogits_tile<BNH>(cs, ds, ri, v0, s, bias);
     if (threadIdx.x < BNH)
       for (int i = 0; i < BM; ++i) db += cs[i * ldc + threadIdx.x];
-    // accw[J x BNH] += w(h)^T @ w(dlogits)
+    // accw[J x BNH] += h^T @ dlogits
     smem_mma<true, false>(hs, ldh, ds, ldd, accw, BNH, s.Jp, BNH, BM);
   }
   __syncthreads();
@@ -585,8 +532,8 @@ __global__ void joint_dw_reduce(const float* part_w, const float* part_b,
 }
 
 // ---------------------------------------------------------------------------
-// H with bf16 W_out: per chunk of lattice rows, w(h) once, then two TMA +
-// wgmma products (the logits with the dlogits epilogue, and dW)
+// F, G and H with bf16 W_out: per chunk of lattice rows, w(h) once, then
+// TMA + wgmma products with the epilogue of each MODE
 // ---------------------------------------------------------------------------
 
 constexpr int GM = 128;        // product tile rows: two consumer warpgroups x 64
@@ -595,11 +542,11 @@ constexpr int GK = 64;         // K per stage: one 128-byte swizzle row of bf16
 constexpr int GTHREADS = 288;  // warps 0-7: two wgmma warpgroups; warp 8: TMA
 constexpr int BOX = 64 * 64 * 2;  // one {64, 64} bf16 TMA box, 128B-swizzled
 constexpr int STAGE = 4 * BOX;    // A: 2 boxes, B: 2 boxes
-// The products of H and G, one kernel (joint_dw_tc<MODE>) with four
-// epilogues: TC_DLOGITS, the logits with the dlogits epilogue (H, G);
-// TC_DW, dW = w(h)^T w(dlogits) (H); TC_LSE, the logits with a (max,
-// sum) epilogue (G); TC_DH, dh = w(dlogits) W_out^T with the (1 - h^2)
-// and the label and frame sums in its epilogue (G).
+// The products of F, G and H, one kernel (joint_dw_tc<MODE>) with four
+// epilogues: TC_LSE, the logits with the (max, sum) and picks epilogue
+// (F); TC_DLOGITS, the logits with the dlogits epilogue (G, H); TC_DW,
+// dW = w(h)^T w(dlogits) (H); TC_DH, dh = w(dlogits) W_out^T with the
+// (1 - h^2) and the label and frame sums in its epilogue (G).
 enum : int { TC_DLOGITS = 0, TC_DW = 1, TC_LSE = 2, TC_DH = 3 };
 // Ring depth: the logits passes run 4,032 short tiles (K 1024) at the
 // main shape, so they take 3 stages and two blocks per SM, one block's
@@ -633,6 +580,8 @@ struct DwChunk {
   float* pred_part;   // TC_DH: [N, ntb, U1, J] sums over each tile's frames
   float* mpart;       // TC_LSE: [ceil(V / GN), rows_c] row max, and sum of exp
   float* spart;
+  float* lb;          // TC_LSE: [rows_c] the logit of the blank, and of the label
+  float* le;
   int r0, rows_c, T, U1, J, V, vp, blank;
   int k_iters;    // logits: Jp / GK; dW: K stages per group; dh: ceil(vp / GK)
   int k_total;    // dW: K stages of the chunk
@@ -784,7 +733,9 @@ __global__ void joint_dw_fill(const float* enc, const float* pred, bf16* hs, int
 //     from the row lse, writes w(dlogits) to p.d and, when p.dbpart is not
 //     null, the tile's column sums of the float32 dlogits to p.dbpart.
 //   TC_LSE, the logits as above; the epilogue writes each row's max and
-//     sum of exp over the tile's columns to p.mpart and p.spart.
+//     sum of exp over the tile's columns to p.mpart and p.spart, and the
+//     picks: the logit of column blank to p.lb, of column label_u to p.le,
+//     each by the one thread that holds that (row, column).
 //   TC_DW, dW: A = w(h)^T, the same scratch read MN-major (tile rows =
 //     J, K along the chunk's rows), B = w(dlogits) [rows_c, vp] MN-major;
 //     K split over blockIdx.z into p.part[z].
@@ -956,6 +907,31 @@ joint_dw_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
 #pragma unroll
           for (int h = 0; h < 2; ++h) mx[h] = fmaxf(mx[h], acc[nb * 4 + 2 * h + e] + p.bias[v]);
       }
+    // the picks: the logit (+ bias) of column blank and of column label_u
+    // of each of the thread's two rows, written by the one thread that
+    // holds that (row, column); most threads hold neither and skip
+    const int U = p.U1 - 1, cq = n0 + (lane % 4) * 2;  // cq: the column of nb 0, e 0
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = row0 + 8 * h, r = p.r0 + rl, f = r / p.U1, u = r - f * p.U1;
+      const int lab = rl < p.rows_c && u < U ? p.labels[(f / p.T) * U + u] : -1;
+      const int db = p.blank - cq, dl = lab - cq;  // nb 8 + e of the column, if held
+      const bool hb = db >= 0 && db < GN && (db & 6) == 0;
+      const bool hl = lab >= 0 && lab < p.V && dl >= 0 && dl < GN && (dl & 6) == 0;
+      if (rl < p.rows_c && (hb || hl)) {
+#pragma unroll
+        for (int nb = 0; nb < GN / 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = nb * 8 + e;
+            if ((hb && d == db) || (hl && d == dl)) {
+              const float x = acc[nb * 4 + 2 * h + e] + p.bias[cq + d];
+              if (hb && d == db) p.lb[rl] = x;
+              if (hl && d == dl) p.le[rl] = x;
+            }
+          }
+      }
+    }
     // a row's 128 columns lie in the 4 lanes of equal lane / 4
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1049,9 +1025,15 @@ joint_dw_tc(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   }
 }
 
-// lse of the chunk's rows from the TC_LSE partials, the V tiles in order
-__global__ void joint_lse_fold(const float* mpart, const float* spart, int vtiles,
-                               int rows_c, float* lse) {
+// F's last step over the chunk's rows: the lse from the TC_LSE partials,
+// the V tiles folded in order, and the log-probs from the picks. A label
+// outside [0, V) (the padding -1) picked nothing, so its logit counts as
+// 0 (lp_emit = -lse), as in the JAX kernel; u = U1 - 1 has no emit column.
+__global__ void joint_lp_fold(const float* mpart, const float* spart, int vtiles,
+                              int rows_c, const float* lb, const float* le,
+                              const int* labels, int r0, int T, int U1, int V,
+                              float* lse, float* lpb, float* lpe) {
+  const int U = U1 - 1;
   for (int rl = blockIdx.x * blockDim.x + threadIdx.x; rl < rows_c;
        rl += gridDim.x * blockDim.x) {
     float top = -INFINITY;
@@ -1059,7 +1041,14 @@ __global__ void joint_lse_fold(const float* mpart, const float* spart, int vtile
     float sum = 0.f;
     for (int k = 0; k < vtiles; ++k)
       sum += spart[(size_t)k * rows_c + rl] * expf(mpart[(size_t)k * rows_c + rl] - top);
-    lse[rl] = top + logf(sum);
+    const float x = top + logf(sum);
+    const int r = r0 + rl, f = r / U1, u = r - f * U1;  // f = n T + t
+    lse[r] = x;
+    lpb[r] = lb[rl] - x;
+    if (u < U) {
+      const int lab = labels[(f / T) * U + u];
+      lpe[(size_t)f * U + u] = (lab >= 0 && lab < V ? le[rl] : 0.f) - x;
+    }
   }
 }
 
@@ -1083,13 +1072,12 @@ __global__ void joint_dw_fold(const float* part, int groups, const float* dbpart
   }
 }
 
-template <typename WT>
 Shape make_shape(int N, int T, int U1, int J, int V, int blank) {
   Shape s;
   s.N = N; s.T = T; s.U1 = U1; s.J = J; s.V = V; s.blank = blank;
   s.Jp = (J + 15) / 16 * 16;
-  s.nTB = (T + Tile<WT>::BT - 1) / Tile<WT>::BT;
-  s.nUB = (U1 + Tile<WT>::BU - 1) / Tile<WT>::BU;
+  s.nTB = (T + BT - 1) / BT;
+  s.nUB = (U1 + BU - 1) / BU;
   return s;
 }
 
@@ -1115,65 +1103,56 @@ int grid_1d(size_t n) {
   return (int)(b < 4096 ? (b ? b : 1) : 4096);
 }
 
-template <typename WT>
-int fwd(const void* enc, const void* pred, const void* w, const void* b,
-        const void* labels, void* lpb, void* lpe, int N, int T, int U1, int J,
-        int V, int blank, cudaStream_t st) {
-  const Shape s = make_shape<WT>(N, T, U1, J, V, blank);
-  const Smem<WT> L(s.Jp, 0);
-  cudaError_t err = prepare(joint_fwd_kernel<WT>, L.total);
+// F with float32 W_out (bf16 W_out takes lp_tc below)
+int fwd_f32(const float* enc, const float* pred, const float* w, const float* b,
+            const int* labels, float* lpb, float* lpe, float* lse, int N, int T, int U1,
+            int J, int V, int blank, cudaStream_t st) {
+  const Shape s = make_shape(N, T, U1, J, V, blank);
+  const Smem L(s.Jp, 0);
+  cudaError_t err = prepare(joint_fwd_kernel, L.total);
   if (err != cudaSuccess) return (int)err;
-  joint_fwd_kernel<WT><<<N * s.nTB * s.nUB, THREADS, L.total, st>>>(
-      (const float*)enc, (const float*)pred, (const WT*)w, (const float*)b,
-      (const int*)labels, (float*)lpb, (float*)lpe, s);
+  joint_fwd_kernel<<<N * s.nTB * s.nUB, THREADS, L.total, st>>>(enc, pred, w, b, labels,
+                                                                lpb, lpe, lse, s);
   return (int)cudaGetLastError();
 }
 
 // G with float32 W_out (bf16 W_out takes dx_tc below)
-int dx_f32(const void* enc, const void* pred, const void* w, const void* b,
-           const void* labels, const void* glpb, const void* glpe, void* d_enc,
-           void* d_pred, void* lse, void* part_enc, void* part_pred, int N, int T,
+int dx_f32(const float* enc, const float* pred, const float* w, const float* b,
+           const int* labels, const float* glpb, const float* glpe, const float* lse,
+           float* d_enc, float* d_pred, float* part_enc, float* part_pred, int N, int T,
            int U1, int J, int V, int blank, cudaStream_t st) {
-  using WT = float;
-  const Shape s = make_shape<WT>(N, T, U1, J, V, blank);
-  const Smem<WT> L(s.Jp, 1);
-  cudaError_t err = prepare(joint_dx_kernel<WT>, L.total);
+  const Shape s = make_shape(N, T, U1, J, V, blank);
+  const Smem L(s.Jp, 1);
+  cudaError_t err = prepare(joint_dx_kernel, L.total);
   if (err != cudaSuccess) return (int)err;
-  joint_dx_kernel<WT><<<N * s.nTB * s.nUB, THREADS, L.total, st>>>(
-      (const float*)enc, (const float*)pred, (const WT*)w, (const float*)b,
-      (const int*)labels, (const float*)glpb, (const float*)glpe, (float*)lse,
-      (float*)part_enc, (float*)part_pred, s);
+  joint_dx_kernel<<<N * s.nTB * s.nUB, THREADS, L.total, st>>>(
+      enc, pred, w, b, labels, glpb, glpe, lse, part_enc, part_pred, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   joint_dx_reduce<<<grid_1d((size_t)N * (T + U1) * J), THREADS, 0, st>>>(
-      (const float*)part_enc, (const float*)part_pred, (float*)d_enc,
-      (float*)d_pred, s);
+      part_enc, part_pred, d_enc, d_pred, s);
   return (int)cudaGetLastError();
 }
 
 // H with float32 W_out (bf16 W_out takes dw_tc below)
-int dw_f32(const void* enc, const void* pred, const void* w, const void* b,
-           const void* labels, const void* glpb, const void* glpe, const void* lse,
-           void* dwo, void* dbo, void* part_w, void* part_b, int groups, int N,
+int dw_f32(const float* enc, const float* pred, const float* w, const float* b,
+           const int* labels, const float* glpb, const float* glpe, const float* lse,
+           float* dwo, float* dbo, float* part_w, float* part_b, int groups, int N,
            int T, int U1, int J, int V, int blank, cudaStream_t st) {
-  using WT = float;
-  const Shape s = make_shape<WT>(N, T, U1, J, V, blank);
-  const Smem<WT> L(s.Jp, 2);
+  const Shape s = make_shape(N, T, U1, J, V, blank);
+  const Smem L(s.Jp, 2);
   const int n_tiles = N * s.nTB * s.nUB;
   const int per = (n_tiles + groups - 1) / groups;
   dim3 grid((V + BNH - 1) / BNH, groups);
   cudaError_t err;
-  err = prepare(joint_dw_kernel<WT>, L.total);
+  err = prepare(joint_dw_kernel, L.total);
   if (err != cudaSuccess) return (int)err;
-  joint_dw_kernel<WT><<<grid, THREADS, L.total, st>>>(
-      (const float*)enc, (const float*)pred, (const WT*)w, (const float*)b,
-      (const int*)labels, (const float*)glpb, (const float*)glpe,
-      (const float*)lse, (float*)part_w, (float*)part_b, per, s);
+  joint_dw_kernel<<<grid, THREADS, L.total, st>>>(enc, pred, w, b, labels, glpb, glpe,
+                                                  lse, part_w, part_b, per, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  joint_dw_reduce<<<grid_1d((size_t)J * V + V), THREADS, 0, st>>>(
-      (const float*)part_w, (const float*)part_b, (float*)dwo, (float*)dbo,
-      groups, s);
+  joint_dw_reduce<<<grid_1d((size_t)J * V + V), THREADS, 0, st>>>(part_w, part_b, dwo,
+                                                                   dbo, groups, s);
   return (int)cudaGetLastError();
 }
 
@@ -1294,29 +1273,77 @@ int dw_tc(const float* enc, const float* pred, const bf16* w, int vw, const floa
   return 0;
 }
 
+// F with bf16 W_out (vw as for H) over the lattice rows in chunks of
+// chunk_rows (a multiple of GM; ops/kernels/joint_lp.py:lp_plan): per
+// chunk, w(h) into hs, the logits product with its (max, sum) partials
+// into ms ([2][ceil(V / GN)][rows_c]) and its picks into picks ([2][rows_c]),
+// then the fold into lse, lp_blank and lp_emit: 3 launches a chunk.
+int lp_tc(const float* enc, const float* pred, const bf16* w, int vw, const float* b,
+          const int* labels, float* lpb, float* lpe, float* lse, bf16* hs, float* ms,
+          float* picks, int N, int T, int U1, int J, int V, int blank, int jp,
+          int chunk_rows, cudaStream_t st) {
+  if (jp % GK || jp < J || vw % 8 || vw < V || chunk_rows <= 0 || chunk_rows % GM ||
+      blank < 0 || blank >= V)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(joint_dw_tc<TC_LSE>, Ring<TC_LSE>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tw;
+  if (!tensor_map(&tw, w, vw, J, (uint64_t)vw * 2)) return ERR_TENSOR_MAP;
+  const int rows = N * T * U1, vtiles = (V + GN - 1) / GN;
+  for (int r0 = 0; r0 < rows; r0 += chunk_rows) {
+    const int rc = min(chunk_rows, rows - r0);
+    const size_t frames = (size_t)((r0 + rc - 1) / U1 - r0 / U1 + 1);
+    joint_dw_fill<<<grid_1d(frames * jp / 8), THREADS, 0, st>>>(enc, pred, hs, r0, rc, N,
+                                                                T, U1, J, jp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    CUtensorMap th;
+    if (!tensor_map(&th, hs, jp, rc, (uint64_t)jp * 2)) return ERR_TENSOR_MAP;
+    DwChunk p{};
+    p.bias = b;
+    p.labels = labels;
+    p.mpart = ms;
+    p.spart = ms + (size_t)vtiles * rc;
+    p.lb = picks;
+    p.le = picks + rc;
+    p.r0 = r0;
+    p.rows_c = rc;
+    p.T = T;
+    p.U1 = U1;
+    p.J = J;
+    p.V = V;
+    p.blank = blank;
+    p.k_iters = jp / GK;
+    joint_dw_tc<TC_LSE><<<dim3(vtiles, (rc + GM - 1) / GM), GTHREADS, Ring<TC_LSE>::SMEM,
+                          st>>>(th, tw, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    joint_lp_fold<<<grid_1d(rc), THREADS, 0, st>>>(p.mpart, p.spart, vtiles, rc, p.lb, p.le,
+                                                   labels, r0, T, U1, V, lse, lpb, lpe);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 // G with bf16 W_out (vw as for H) over the lattice in chunks of
 // groups_per_chunk frame groups ((n, tb): DX_FRAMES frames of one
-// utterance; ops/kernels/joint_lp.py:dx_plan). Per chunk: w(h) into hs;
-// the logits' (max, sum) partials into ms ([2][ceil(V / GN)][rows_c]) and
-// their fold into lse; the logits again, with the dlogits epilogue, into d;
-// dh = w(dlogits) W_out^T with its label and frame sums into enc_part
+// utterance; ops/kernels/joint_lp.py:dx_plan), with F's lse. Per chunk:
+// w(h) into hs; the logits with the dlogits epilogue into d; dh =
+// w(dlogits) W_out^T with its label and frame sums into enc_part
 // [N, T, nub, J] and pred_part [N, ntb, U1, J]. Then one fold into d_enc
-// and d_pred: 5 launches a chunk and one more. Every sum in a fixed order.
+// and d_pred: 3 launches a chunk and one more. Every sum in a fixed order.
 int dx_tc(const float* enc, const float* pred, const bf16* w, int vw, const float* b,
-          const int* labels, const float* glpb, const float* glpe, float* d_enc,
-          float* d_pred, float* lse, bf16* hs, bf16* d, float* ms, float* enc_part,
+          const int* labels, const float* glpb, const float* glpe, const float* lse,
+          float* d_enc, float* d_pred, bf16* hs, bf16* d, float* enc_part,
           float* pred_part, int N, int T, int U1, int J, int V, int blank, int jp, int vp,
           int groups_per_chunk, cudaStream_t st) {
   if (jp % GK || jp < J || vp % 8 || vp < V || vw % 8 || vw < V || groups_per_chunk <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare(joint_dw_tc<TC_LSE>, Ring<TC_LSE>::SMEM);
-  if (err == cudaSuccess) err = prepare(joint_dw_tc<TC_DLOGITS>, Ring<TC_DLOGITS>::SMEM);
+  cudaError_t err = prepare(joint_dw_tc<TC_DLOGITS>, Ring<TC_DLOGITS>::SMEM);
   if (err == cudaSuccess) err = prepare(joint_dw_tc<TC_DH>, Ring<TC_DH>::SMEM);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tw;
   if (!tensor_map(&tw, w, vw, J, (uint64_t)vw * 2)) return ERR_TENSOR_MAP;
   const int ntb = (T + DX_FRAMES - 1) / DX_FRAMES, nub = (U1 + DX_LABELS - 1) / DX_LABELS;
-  const int groups = N * ntb, vtiles = (V + GN - 1) / GN;
+  const int groups = N * ntb;
   for (int g0 = 0; g0 < groups; g0 += groups_per_chunk) {
     const int g1 = min(groups, g0 + groups_per_chunk);
     const int f0 = (g0 / ntb) * T + (g0 % ntb) * DX_FRAMES;
@@ -1341,8 +1368,6 @@ int dx_tc(const float* enc, const float* pred, const bf16* w, int vw, const floa
     p.pred = pred;
     p.enc_part = enc_part;
     p.pred_part = pred_part;
-    p.mpart = ms;
-    p.spart = ms + (size_t)vtiles * rc;
     p.r0 = r0;
     p.rows_c = rc;
     p.T = T;
@@ -1356,19 +1381,15 @@ int dx_tc(const float* enc, const float* pred, const bf16* w, int vw, const floa
     p.f0 = f0;
     p.ntb = ntb;
     p.nub = nub;
-    const dim3 logits_grid(vtiles, (rc + GM - 1) / GM);
-    joint_dw_tc<TC_LSE><<<logits_grid, GTHREADS, Ring<TC_LSE>::SMEM, st>>>(th, tw, p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    joint_lse_fold<<<grid_1d(rc), THREADS, 0, st>>>(p.mpart, p.spart, vtiles, rc, lse + r0);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    joint_dw_tc<TC_DLOGITS><<<logits_grid, GTHREADS, Ring<TC_DLOGITS>::SMEM, st>>>(th, tw, p);
+    joint_dw_tc<TC_DLOGITS><<<dim3((V + GN - 1) / GN, (rc + GM - 1) / GM), GTHREADS,
+                              Ring<TC_DLOGITS>::SMEM, st>>>(th, tw, p);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     p.k_iters = (vp + GK - 1) / GK;
     joint_dw_tc<TC_DH><<<dim3((J + GN - 1) / GN, (g1 - g0) * nub), GTHREADS,
                          Ring<TC_DH>::SMEM, st>>>(td, tw, p);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  Shape s = make_shape<bf16>(N, T, U1, J, V, blank);
+  Shape s = make_shape(N, T, U1, J, V, blank);
   s.nTB = ntb;
   s.nUB = nub;
   joint_dx_reduce<<<grid_1d((size_t)N * (T + U1) * J), THREADS, 0, st>>>(
@@ -1385,7 +1406,7 @@ extern "C" {
 // partial, out[2] H's row groups, out[3] H's dW partial, out[4] H's db
 // partial.
 int joint_lp_scratch(int N, int T, int U1, int J, int V, long long* out) {
-  const Shape s = make_shape<float>(N, T, U1, J, V, 0);
+  const Shape s = make_shape(N, T, U1, J, V, 0);
   const int g = n_groups(s);
   out[0] = (long long)N * T * s.nUB * J;
   out[1] = (long long)N * s.nTB * U1 * J;
@@ -1395,43 +1416,56 @@ int joint_lp_scratch(int N, int T, int U1, int J, int V, long long* out) {
   return 0;
 }
 
-int joint_lp_max_smem() { return MAX_SMEM; }
-
-int joint_lp_fwd(const void* enc, const void* pred, const void* w,
-                 const void* b, const void* labels, void* lpb, void* lpe,
-                 int N, int T, int U1, int J, int V, int blank, int w_is_bf16,
-                 void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  return w_is_bf16
-      ? fwd<bf16>(enc, pred, w, b, labels, lpb, lpe, N, T, U1, J, V, blank, st)
-      : fwd<float>(enc, pred, w, b, labels, lpb, lpe, N, T, U1, J, V, blank, st);
+// F with float32 W_out (bf16 W_out: joint_lp_fwd_tc). Outputs lpb
+// [N, T, U1], lpe [N, T, U1 - 1], lse [N, T, U1] float32.
+int joint_lp_fwd(const void* enc, const void* pred, const void* w, const void* b,
+                 const void* labels, void* lpb, void* lpe, void* lse, int N, int T,
+                 int U1, int J, int V, int blank, void* stream) {
+  return fwd_f32((const float*)enc, (const float*)pred, (const float*)w, (const float*)b,
+                 (const int*)labels, (float*)lpb, (float*)lpe, (float*)lse, N, T, U1, J,
+                 V, blank, (cudaStream_t)stream);
 }
 
-// G with float32 W_out (bf16 W_out: joint_lp_dx_tc)
-int joint_lp_dx(const void* enc, const void* pred, const void* w,
-                const void* b, const void* labels, const void* glpb,
-                const void* glpe, void* d_enc, void* d_pred, void* lse,
-                void* part_enc, void* part_pred, int N, int T, int U1, int J,
-                int V, int blank, void* stream) {
-  return dx_f32(enc, pred, w, b, labels, glpb, glpe, d_enc, d_pred, lse, part_enc,
-                part_pred, N, T, U1, J, V, blank, (cudaStream_t)stream);
-}
-
-// G with bf16 W_out on the tensor cores. w [J, vw] bf16 (vw = V rounded
+// F with bf16 W_out on the tensor cores. w [J, vw] bf16 (vw = V rounded
 // up to 8, zero past V); scratch from the wrapper's plan
-// (ops/kernels/joint_lp.py:dx_plan): hs [chunk_rows, jp] and d
-// [chunk_rows, vp] bf16, ms [2, ceil(V / 128), chunk_rows], enc_part
-// [N, T, nub, J] and pred_part [N, ntb, U1, J] float32. Outputs d_enc
-// [N, T, J], d_pred [N, U1, J], lse [N, T, U1] float32.
+// (ops/kernels/joint_lp.py:lp_plan): hs [chunk_rows, jp] bf16, ms
+// [2, ceil(V / 128), chunk_rows] and picks [2, chunk_rows] float32.
+// Outputs as joint_lp_fwd.
+int joint_lp_fwd_tc(const void* enc, const void* pred, const void* w, int vw,
+                    const void* b, const void* labels, void* lpb, void* lpe, void* lse,
+                    void* hs, void* ms, void* picks, int N, int T, int U1, int J, int V,
+                    int blank, int jp, int chunk_rows, void* stream) {
+  return lp_tc((const float*)enc, (const float*)pred, (const bf16*)w, vw, (const float*)b,
+               (const int*)labels, (float*)lpb, (float*)lpe, (float*)lse, (bf16*)hs,
+               (float*)ms, (float*)picks, N, T, U1, J, V, blank, jp, chunk_rows,
+               (cudaStream_t)stream);
+}
+
+// G with float32 W_out (bf16 W_out: joint_lp_dx_tc), with F's lse
+// [N, T, U1]
+int joint_lp_dx(const void* enc, const void* pred, const void* w, const void* b,
+                const void* labels, const void* glpb, const void* glpe, const void* lse,
+                void* d_enc, void* d_pred, void* part_enc, void* part_pred, int N, int T,
+                int U1, int J, int V, int blank, void* stream) {
+  return dx_f32((const float*)enc, (const float*)pred, (const float*)w, (const float*)b,
+                (const int*)labels, (const float*)glpb, (const float*)glpe,
+                (const float*)lse, (float*)d_enc, (float*)d_pred, (float*)part_enc,
+                (float*)part_pred, N, T, U1, J, V, blank, (cudaStream_t)stream);
+}
+
+// G with bf16 W_out on the tensor cores, with F's lse [N, T, U1]. w
+// [J, vw] bf16 (vw = V rounded up to 8, zero past V); scratch from the
+// wrapper's plan (ops/kernels/joint_lp.py:dx_plan): hs [chunk_rows, jp]
+// and d [chunk_rows, vp] bf16, enc_part [N, T, nub, J] and pred_part
+// [N, ntb, U1, J] float32. Outputs d_enc [N, T, J], d_pred [N, U1, J].
 int joint_lp_dx_tc(const void* enc, const void* pred, const void* w, int vw,
                    const void* b, const void* labels, const void* glpb,
-                   const void* glpe, void* d_enc, void* d_pred, void* lse, void* hs,
-                   void* d, void* ms, void* enc_part, void* pred_part, int N, int T,
-                   int U1, int J, int V, int blank, int jp, int vp, int groups_per_chunk,
-                   void* stream) {
+                   const void* glpe, const void* lse, void* d_enc, void* d_pred, void* hs,
+                   void* d, void* enc_part, void* pred_part, int N, int T, int U1, int J,
+                   int V, int blank, int jp, int vp, int groups_per_chunk, void* stream) {
   return dx_tc((const float*)enc, (const float*)pred, (const bf16*)w, vw, (const float*)b,
-               (const int*)labels, (const float*)glpb, (const float*)glpe, (float*)d_enc,
-               (float*)d_pred, (float*)lse, (bf16*)hs, (bf16*)d, (float*)ms,
+               (const int*)labels, (const float*)glpb, (const float*)glpe,
+               (const float*)lse, (float*)d_enc, (float*)d_pred, (bf16*)hs, (bf16*)d,
                (float*)enc_part, (float*)pred_part, N, T, U1, J, V, blank, jp, vp,
                groups_per_chunk, (cudaStream_t)stream);
 }
@@ -1442,8 +1476,10 @@ int joint_lp_dw(const void* enc, const void* pred, const void* w,
                 const void* glpe, const void* lse, void* dwo, void* dbo,
                 void* part_w, void* part_b, int groups, int N, int T, int U1,
                 int J, int V, int blank, void* stream) {
-  return dw_f32(enc, pred, w, b, labels, glpb, glpe, lse, dwo, dbo, part_w, part_b,
-                groups, N, T, U1, J, V, blank, (cudaStream_t)stream);
+  return dw_f32((const float*)enc, (const float*)pred, (const float*)w, (const float*)b,
+                (const int*)labels, (const float*)glpb, (const float*)glpe,
+                (const float*)lse, (float*)dwo, (float*)dbo, (float*)part_w,
+                (float*)part_b, groups, N, T, U1, J, V, blank, (cudaStream_t)stream);
 }
 
 // H with bf16 W_out on the tensor cores. w [J, vw] bf16 (vw = V rounded
@@ -1468,7 +1504,8 @@ const char* joint_lp_error_string(int code) {
     return "cuTensorMapEncodeTiled refused a tensor map (or the driver lacks it)";
   if (code == (int)cudaErrorInvalidValue)
     return "invalid value (J too large: shared memory above the per-block "
-           "limit; or the scratch plan of G or H out of shape)";
+           "limit; blank outside [0, V); or the scratch plan of F, G or H "
+           "(lp_plan, dx_plan, dw_plan) out of shape)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

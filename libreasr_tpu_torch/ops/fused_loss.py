@@ -7,13 +7,13 @@ The JAX package's ops/fused_loss.py as a torch.autograd.Function over
   (torch.matmul in the compute dtype, float32 accumulation), then the
   joint's log-probs of blank and of the next label, lp_blank [N, T, U1]
   and lp_emit [N, T, U], then the alphas. The V-free DP arrays are the
-  residuals.
+  residuals; on the kernels route also F's row lse [N, T, U1].
 - backward: betas and occupancies give the cotangents g_lpb, g_lpe; they
   are pulled back through the joint to d_enc_proj, d_pred_proj, dW_out
   and db_out, and through the projections by autograd.
 
 Two routes compute the joint's part. On CUDA tensors it always takes the
-hand-written kernels F (forward), G and H (backward) of
+hand-written kernels F (forward), G and H (backward, with F's lse) of
 ops/kernels/joint_lp.py. On CPU tensors it takes the chunked path of
 the JAX package: t_chunk frames of logits at a time, recomputed in the
 backward (the kernels' twin). The JAX package pads T to a multiple of
@@ -79,9 +79,10 @@ class _FusedLoss(torch.autograd.Function):
         if route == "kernels":
             encp = _mmc(enc32, w_enc, cdt).contiguous()
             pp = _pred_proj(pred32, w_pred, b_pred, cdt).contiguous()
-            lpb, lpe = kjoint.joint_lp_fwd(
+            lpb, lpe, lse = kjoint.joint_lp_fwd(
                 encp, pp, w_out.to(cdt or torch.float32).contiguous(),
                 b_out.float().contiguous(), lab, blank)
+            extra = (lse,)
         else:
             pp = _pred_proj(pred32, w_pred, b_pred, cdt)
             parts = [_chunk_lp(enc32[:, s:s + t_chunk], pp, w_enc, w_out,
@@ -89,18 +90,20 @@ class _FusedLoss(torch.autograd.Function):
                      for s in range(0, enc32.shape[1], t_chunk)]
             lpb = torch.cat([p[0] for p in parts], 1)
             lpe = torch.cat([p[1] for p in parts], 1)
+            extra = ()
         alpha, lpe_m = forward_alphas(lpb, lpe, yl)
         log_z = terminal_gather(alpha, lpb, fl, yl)
         ctx.save_for_backward(enc_out, pred_out, w_pred, b_pred, w_enc, w_out,
-                              b_out, lab, fl, yl, lpb, lpe_m, alpha, log_z)
+                              b_out, lab, fl, yl, lpb, lpe_m, alpha, log_z,
+                              *extra)
         ctx.cfg = (blank, t_chunk, cdt, route)
         return -log_z
 
     @staticmethod
     def backward(ctx, g):
-        (enc_out, pred_out, w_pred, b_pred, w_enc, w_out, b_out, lab, fl, yl,
-         lpb, lpe_m, alpha, log_z) = ctx.saved_tensors
         blank, t_chunk, cdt, route = ctx.cfg
+        (enc_out, pred_out, w_pred, b_pred, w_enc, w_out, b_out, lab, fl, yl,
+         lpb, lpe_m, alpha, log_z, *extra) = ctx.saved_tensors
         beta = backward_betas(lpb, lpe_m, fl, yl)
         occ_b, occ_e = occupancies(lpb, lpe_m, alpha, beta, fl, yl, log_z)
         g = g.float()
@@ -115,9 +118,10 @@ class _FusedLoss(torch.autograd.Function):
                 encp = _mmc(e, we, cdt)
                 wq = w_out.detach().to(cdt or torch.float32).contiguous()
                 bq = b_out.detach().float().contiguous()
-                d_encp, d_pp, lse = kjoint.joint_lp_dx(
+                (lse,) = extra
+                d_encp, d_pp = kjoint.joint_lp_dx(
                     encp.detach().contiguous(), pp.detach().contiguous(), wq,
-                    bq, lab, g_lpb, g_lpe, blank)
+                    bq, lab, g_lpb, g_lpe, lse, blank)
                 d_wout, d_bout = kjoint.joint_lp_dw(
                     encp.detach().contiguous(), pp.detach().contiguous(), wq,
                     bq, lab, g_lpb, g_lpe, lse, blank)

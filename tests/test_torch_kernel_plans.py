@@ -22,8 +22,13 @@ range.
 
 G (ops/kernels/joint_lp.py:dx_plan): chunks of whole frame groups, in
 order, within the cap; the twin taken over its tiles and partials
-(joint_lp_dx_chunked_reference) must equal the unchunked twin and JAX's
-Pallas backward in interpret mode.
+(joint_lp_dx_chunked_reference, with F's lse) must equal the unchunked
+twin and JAX's Pallas backward in interpret mode.
+
+F (ops/kernels/joint_lp.py:lp_plan): chunks of lattice rows, in order,
+within the cap; the twin taken over them (joint_lp_fwd_chunked_reference:
+the row lse folded from per-128-column (max, sum) partials) must equal
+the unchunked twin and JAX's Pallas forward in interpret mode.
 
 Tolerances as in tests/test_torch_joint_lp.py: float32 W_out, the same
 float32 sums in another order: 1e-5 (relative for the chunked twin
@@ -37,7 +42,7 @@ import numpy as np
 import pytest
 import torch
 
-from libreasr_tpu.ops.pallas.joint_lp import joint_lp_bwd_pallas
+from libreasr_tpu.ops.pallas.joint_lp import joint_lp_bwd_pallas, joint_lp_fwd_pallas
 from libreasr_tpu_torch.ops.kernels import joint_lp as kj
 from libreasr_tpu_torch.ops.kernels import lstm as klstm
 from libreasr_tpu_torch.ops.kernels import lstm_train as klt
@@ -113,7 +118,7 @@ def test_chunked_twin_matches_unchunked_and_jax(shape, cap, chunks, groups):
     n, t, u1, j, v = shape
     arrays = _joint_inputs(n, t, u1, j, v, seed=7)
     x = [torch.from_numpy(a) for a in arrays]
-    _, _, lse = kj.joint_lp_dx_reference(*x)
+    lse = kj.joint_lp_fwd_reference(*x[:5])[2]
     plan = kj.dw_plan(n, t, u1, j, v, cap=cap, sms=132)
     assert (len(plan.chunks), plan.groups) == (chunks, groups)
     got = kj.joint_lp_dw_chunked_reference(*x, lse, plan)
@@ -134,7 +139,7 @@ def test_chunked_twin_bf16_matches_jax():
     arrays = _joint_inputs(n, t, u1, j, v, seed=8)
     x = [torch.from_numpy(a) for a in arrays]
     x[2] = x[2].bfloat16()
-    _, _, lse = kj.joint_lp_dx_reference(*x)
+    lse = kj.joint_lp_fwd_reference(*x[:5])[2]
     plan = kj.dw_plan(n, t, u1, j, v, cap=40_000, sms=4)
     assert len(plan.chunks) > 1
     got = kj.joint_lp_dw_chunked_reference(*x, lse, plan)
@@ -293,7 +298,7 @@ def test_dx_plan_covers_frame_groups_once_under_cap(shape, cap, chunks):
         seen[r0:r0 + rc] += 1
         g_next, r_next = g0 + groups, r0 + rc
     assert g_next == n * plan.ntb and r_next == plan.rows and (seen == 1).all()
-    row_bytes = 2 * (plan.jp + plan.vp) + 8 * plan.vtiles
+    row_bytes = 2 * (plan.jp + plan.vp)
     assert plan.chunk_rows * row_bytes <= cap
     assert plan.partial_bytes == 4 * j * (plan.nub * n * t + plan.ntb * n * u1)
 
@@ -309,17 +314,18 @@ def test_dx_plan_raises_below_one_group():
     ((2, 20, 35, 24, 37), "bfloat16", 1e-3),    # V off 8
 ], ids=["golden", "blocks", "bf16"])
 def test_dx_chunked_twin_matches_unchunked_and_jax(shape, w_dtype, tol):
-    """Float32 W_out: the same float32 sums in another order (1e-5 of each
-    output's largest entry, lse 1e-5 absolute). bf16 W_out against JAX:
-    1e-3 of the largest entry, as for H (an order difference can flip
-    one bf16 rounding of dlogits)."""
+    """With F's lse. Float32 W_out: the same float32 sums in another order
+    (1e-5 of each output's largest entry). bf16 W_out against JAX: 1e-3
+    of the largest entry, as for H (an order difference can flip one
+    bf16 rounding of dlogits)."""
     n, t, u1, j, v = shape
     arrays = _joint_inputs(n, t, u1, j, v, seed=9)
     x = [torch.from_numpy(a) for a in arrays]
     x[2] = x[2].to(getattr(torch, w_dtype))
+    lse = kj.joint_lp_fwd_reference(*x[:5])[2]
     plan = kj.dx_plan(n, t, u1, j, v, cap=kj.DW_SCRATCH_CAP)
-    got = kj.joint_lp_dx_chunked_reference(*x, plan)
-    whole = kj.joint_lp_dx_reference(*x)
+    got = kj.joint_lp_dx_chunked_reference(*x, lse, plan)
+    whole = kj.joint_lp_dx_reference(*x, lse)
     for a, b in zip(got, whole):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
                                    atol=1e-5 * max(1.0, float(b.abs().max())))
@@ -329,6 +335,70 @@ def test_dx_chunked_twin_matches_unchunked_and_jax(shape, w_dtype, tol):
         b = np.asarray(b, np.float32)
         np.testing.assert_allclose(a.numpy(), b, rtol=0,
                                    atol=tol * float(np.abs(b).max()))
+
+
+@pytest.mark.parametrize("shape,cap,chunks", [
+    ((16, 49, 41, 1024, 2048), kj.DW_SCRATCH_CAP, 1),   # the main path: one chunk
+    ((16, 49, 41, 1024, 2048), 64 * 2**20, 2),
+    ((4, 37, 21, 256, 512), 2**20, 2),
+    ((2, 11, 101, 200, 300), 400_000, 6),             # V off 8: W_out padded
+    ((3, 13, 9, 24, 40), 20_000, 3),                  # golden-like, 351 rows
+    ((1, 1, 2, 8, 5), kj.DW_SCRATCH_CAP, 1),          # a single short chunk
+])
+def test_lp_plan_covers_rows_once_under_cap(shape, cap, chunks):
+    n, t, u1, j, v = shape
+    plan = kj.lp_plan(n, t, u1, j, v, cap=cap)
+    assert len(plan.chunks) == chunks and plan.rows == n * t * u1
+    assert plan.chunk_rows % kj.DW_TILE == 0
+    assert plan.jp % 64 == 0 and plan.jp >= j and plan.vp % 8 == 0 and plan.vp >= v
+    assert plan.vtiles == -(-v // kj.DW_TILE)
+    seen = np.zeros(plan.rows, np.int64)
+    expect = 0
+    for r0, rc in plan.chunks:
+        assert r0 == expect and 0 < rc <= plan.chunk_rows  # in order, no gap
+        seen[r0:r0 + rc] += 1
+        expect = r0 + rc
+    assert expect == plan.rows and (seen == 1).all()
+    assert plan.scratch_bytes <= cap
+    # what the wrapper allocates is what the plan counts: w(h) in bf16,
+    # the (max, sum) partials and the two picks in float32, W_out padded
+    allocated = (plan.chunk_rows * plan.jp * 2 + 2 * plan.vtiles * plan.chunk_rows * 4
+                 + 2 * plan.chunk_rows * 4 + (j * plan.vp * 2 if v % 8 else 0))
+    assert allocated == plan.scratch_bytes
+
+
+def test_lp_plan_raises_below_one_tile():
+    # a row at the main shape: 2 jp + 8 vtiles + 8 = 2,184 bytes
+    with pytest.raises(ValueError, match="holds no 128-row chunk"):
+        kj.lp_plan(16, 49, 41, 1024, 2048, cap=128 * 2184 - 1)
+    kj.lp_plan(16, 49, 41, 1024, 2048, cap=128 * 2184)
+
+
+@pytest.mark.parametrize("shape,w_dtype,cap,tol", [
+    ((3, 13, 9, 24, 40), "float32", 20_000, 1e-5),     # golden-like, 3 chunks
+    ((2, 11, 21, 40, 300), "float32", 50_000, 1e-5),   # V tiles 128, 128, 44
+    ((2, 20, 35, 24, 37), "bfloat16", 30_000, 2e-4),   # V off 8
+], ids=["golden", "vtiles", "bf16"])
+def test_fwd_chunked_twin_matches_unchunked_and_jax(shape, w_dtype, cap, tol):
+    """The tile fold's lse within 1e-6 of logsumexp (float32: the same
+    float32 sums in another order, lse ~ 4-6 here); lp_blank and
+    lp_emit within the lp tolerances of tests/test_torch_joint_lp.py of
+    the unchunked twin and of JAX's kernel, with a -1-padded label row."""
+    n, t, u1, j, v = shape
+    arrays = list(_joint_inputs(n, t, u1, j, v, seed=10)[:5])
+    arrays[4][-1, u1 // 2:] = -1
+    x = [torch.from_numpy(a) for a in arrays]
+    x[2] = x[2].to(getattr(torch, w_dtype))
+    plan = kj.lp_plan(n, t, u1, j, v, cap=cap)
+    assert len(plan.chunks) > 1
+    got = kj.joint_lp_fwd_chunked_reference(*x, plan)
+    whole = kj.joint_lp_fwd_reference(*x)
+    np.testing.assert_allclose(got[2].numpy(), whole[2].numpy(), rtol=0, atol=1e-6)
+    want = joint_lp_fwd_pallas(*(jnp.asarray(a) for a in arrays), 0,
+                               interpret=True, w_dtype=getattr(jnp, w_dtype))
+    for a, b, r in zip(got[:2], whole[:2], want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=0, atol=tol)
 
 
 # C (int8 R, r_itemsize 1) and D (bf16 R 2, float32 R 4) share fwd_plan
