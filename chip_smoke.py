@@ -84,7 +84,30 @@ Phases, one line each (any failure raises and exits non-zero):
      by device time under torch.profiler): F, G, H and D, E timed at the
      main path's shapes beside their twins and, for D and E, cuDNN's bf16
      LSTM in training (forward, backward) as the yardstick; for H also
-     torch.matmul of its two bf16 products alone, as context.
+     torch.matmul of its two bf16 products alone, as context;
+ 17. streaming_golden: the golden clips through the StreamingEngine on the
+     card (8 slots, 80 ms chunks), char, char int8 (quantized by the
+     port, saved and reloaded) and BPE: exact; every step one CUDA graph
+     replay, and no kernel launch on the step path (T = 1: scan cells);
+ 18. streaming_full_width: the model of 5 (bf16 compute, seeded) in
+     engines of N 64 and N 512 slots (int16 transfer, the server's
+     default): the first 8 steps as graph replays against the
+     uncaptured step function called on a copy of the state (tokens
+     equal; both timed), then 6 s ragged noise clips in 80 ms chunks
+     through step_dispatch / step_collect, pipelined, 5 passes: the
+     step's host ms (median of the passes' medians, p90), the device ms
+     of a replay (CUDA events), the real-time share (step ms / 80),
+     tokens per chunk and peak memory;
+ 19. serving: ASRServicer in this process (no gRPC socket) with the golden
+     bundle: unary Transcribe exact on a clip padded to 3 s, kernel B in
+     2 launches (C for the port-quantized bundle), and two concurrent
+     TranscribeStream calls exact; then the model of 5 behind a servicer
+     built from its config's stream block (64 slots): a unary 6 s clip
+     (B once per encoder layer), and 64 concurrent TranscribeStream
+     generators fed at real-time pace for 6 s each, with the partial
+     latency (arrival of a transcript minus the send of the latest
+     chunk) p50/p90 and the overrun (stream close minus last send), as
+     scripts/bench_serving.py defines them.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -1642,6 +1665,338 @@ def phase_train_cli(seed: int, card: str) -> dict:
     return launches
 
 
+STREAM_CHUNK = 1280  # 80 ms at 16 kHz
+STREAM_PASSES = 5
+STREAM_WIDTHS = (64, 512)
+SERVING_STREAMS = 64
+
+
+def _kernel_launches() -> dict:
+    from libreasr_tpu_torch.ops.kernels import joint_lp as kjoint
+    from libreasr_tpu_torch.ops.kernels import lstm as klstm
+    from libreasr_tpu_torch.ops.kernels import lstm_train as klt
+
+    return {**klstm.LAUNCHES, **kjoint.LAUNCHES, **klt.LAUNCHES}
+
+
+def _reset_kernel_launches() -> None:
+    from libreasr_tpu_torch.ops.kernels import joint_lp as kjoint
+    from libreasr_tpu_torch.ops.kernels import lstm as klstm
+    from libreasr_tpu_torch.ops.kernels import lstm_train as klt
+
+    for m in (klstm, kjoint, klt):
+        m.reset_launches()
+
+
+def _golden_audio(seconds: int = 1):
+    import numpy as np
+
+    from libreasr_tpu_torch.data.audio import read_wav
+
+    audio = np.zeros((8, seconds * 16000), np.float32)
+    for i in range(8):
+        audio[i, :16000] = read_wav(os.path.join(GOLDEN, f"s-{i:03d}.wav"))[0][0]
+    return audio
+
+
+def _golden_bundles(tmp: str):
+    """(name, bundle) on the card: char, char int8 (quantized by the
+    port, saved and reloaded), BPE. Each bundle extracts to a directory
+    of its own."""
+    from libreasr_tpu_torch.api import ASRBundle
+
+    def load(name, sub):
+        return ASRBundle.from_bundle(os.path.join(GOLDEN, name), device="cuda",
+                                     extract_to=os.path.join(tmp, sub))
+
+    q = load("model.tar.gz", "q").quantize()
+    saved = q.save(os.path.join(tmp, "int8.tar.gz"))
+    int8 = ASRBundle.from_bundle(saved, device="cuda",
+                                 extract_to=os.path.join(tmp, "int8"))
+    if int8.conf.get("quantized_cells") is not True:
+        raise AssertionError("the saved bundle lost quantized_cells")
+    return [("char", load("model.tar.gz", "char")), ("int8", int8),
+            ("bpe", load("model_bpe.tar.gz", "bpe"))]
+
+
+def phase_streaming_golden() -> None:
+    """The golden clips through the engine on the card, 8 slots: exact,
+    one graph replay a step, no kernel launch."""
+    import numpy as np
+
+    from libreasr_tpu_torch.models.streaming import StreamingEngine
+
+    audio = _golden_audio()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, bundle in _golden_bundles(tmp):
+            _reset_kernel_launches()
+            eng = StreamingEngine(bundle, n_streams=8)
+            slots = [eng.open_slot() for _ in range(8)]
+            for off in range(0, 16000, STREAM_CHUNK):
+                for i, s in enumerate(slots):
+                    eng.feed(s, audio[i, off : off + STREAM_CHUNK])
+            for s in slots:  # flush the frontend's carried tail
+                eng.feed(s, np.zeros(STREAM_CHUNK, np.float32))
+            texts = [eng.transcript(s) for s in slots]
+            launches = {k: v for k, v in _kernel_launches().items() if v}
+            log("streaming_golden", bundle=name, texts=texts, steps=eng.steps,
+                graph_replays=eng.replays, kernel_launches=launches)
+            if texts != GOLDEN_TEXTS:
+                raise AssertionError(f"streaming_golden {name}: {texts}")
+            if eng.replays != eng.steps or not eng.steps or launches:
+                raise AssertionError(f"streaming_golden {name}: {eng.steps} "
+                                     f"steps, {eng.replays} replays, "
+                                     f"launches {launches}")
+
+
+def _stream_clips(n: int, seed: int, sr: int = 16000, seconds: int = 6):
+    """n ragged clips of seeded noise, 3 to `seconds` s (the first full),
+    each a whole number of chunks."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    steps = seconds * sr // STREAM_CHUNK
+    lengths = rng.integers(steps // 2, steps + 1, n) * STREAM_CHUNK
+    lengths[0] = steps * STREAM_CHUNK
+    audio = (rng.standard_normal((n, steps * STREAM_CHUNK)) * 0.1).astype(np.float32)
+    return [audio[i, : lengths[i]] for i in range(n)]
+
+
+def _eager_vs_graph(eng, clips, steps: int = 8) -> dict:
+    """The first `steps` steps as graph replays (engine.step_batch), and
+    the uncaptured step function on a copy of the state with the same
+    inputs: tokens equal; host ms of each, around a synchronize."""
+    import numpy as np
+    import torch
+
+    n, c = eng.n, STREAM_CHUNK
+    ref = eng.state.clone()
+    ones = torch.ones(n, dtype=torch.bool, device=eng.device)
+    zeros = torch.zeros(n, dtype=torch.bool, device=eng.device)
+    graph_ms, eager_ms, tokens = [], [], 0
+    for k in range(steps):
+        chunks = np.stack([x[k * c : (k + 1) * c] for x in clips])[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, lens = eng.step_batch(chunks)
+        graph_ms.append((time.perf_counter() - t0) * 1e3)
+        wire = torch.from_numpy(eng._encode_chunks(chunks)).to(eng.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref, packed = eng.step_fn(ref, wire, ones, zeros)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        packed = packed.cpu().numpy()
+        if not (np.array_equal(lens, packed[:, -1])
+                and np.array_equal(toks, packed[:, :-1])):
+            raise AssertionError(f"graph replay and uncaptured step differ at "
+                                 f"step {k} (N {n})")
+        tokens += int(lens.sum())
+    return {"graph_step_ms": graph_ms, "eager_step_ms": eager_ms,
+            "graph_step_ms_median": statistics.median(graph_ms[1:]),
+            "eager_step_ms_median": statistics.median(eager_ms[1:]),
+            "tokens_equal_steps": steps, "tokens": tokens}
+
+
+def _pipelined_pass(eng, clips) -> tuple[list[float], int, int]:
+    """One pass of the clips through fresh slots, a chunk per slot a
+    step, dispatch k+1 before collect k. Returns (host ms a step, chunk
+    steps, tokens)."""
+    c = STREAM_CHUNK
+    slots = [eng.open_slot() for _ in clips]
+    steps = max(len(x) for x in clips) // c
+    pending, host_ms = None, []
+    for k in range(steps):
+        for s, x in zip(slots, clips):
+            if (k + 1) * c <= len(x):
+                eng.append_samples(s, x[k * c : (k + 1) * c])
+        t0 = time.perf_counter()
+        p = eng.step_dispatch()
+        if pending is not None:
+            eng.step_collect(pending)
+        pending = p
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    eng.step_collect(pending)
+    tokens = sum(len(eng.emitted[s]) for s in slots)
+    for s in slots:
+        eng.close_slot(s)
+    return host_ms, sum(len(x) // c for x in clips), tokens
+
+
+def phase_streaming_full_width(seed: int, card: str) -> None:
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.config import parse_and_apply_config
+    from libreasr_tpu_torch.models.streaming import StreamingConfig, StreamingEngine
+
+    conf = parse_and_apply_config(inference=True)
+    bundle = ASRBundle.from_config(conf, seed=seed, device="cuda")
+    scfg = StreamingConfig(sr=bundle.frontend.sr, transfer_dtype="int16",
+                           max_iters=conf["stream"]["max_iters"])
+    for n in STREAM_WIDTHS:
+        clips = _stream_clips(n, seed + n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # tensors earlier phases left allocated (the model's among them)
+        before_mib = torch.cuda.memory_allocated() / 2**20
+        _reset_kernel_launches()
+        t0 = time.perf_counter()
+        eng = StreamingEngine(bundle, n_streams=n, scfg=scfg)
+        build_s = time.perf_counter() - t0
+        first = _eager_vs_graph(eng, clips)
+        passes, chunk_steps, tokens = [], 0, 0
+        for _ in range(STREAM_PASSES):
+            ms, cs, tk = _pipelined_pass(eng, clips)
+            passes.append(ms)
+            chunk_steps, tokens = chunk_steps + cs, tokens + tk
+        torch.cuda.synchronize()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        launches = {k: v for k, v in _kernel_launches().items() if v}
+        replay_ms = cuda_ms(lambda: eng._graph.replay(), reps=20)
+        medians = [statistics.median(p) for p in passes]
+        every = sorted(x for p in passes for x in p)
+        step_ms = statistics.median(medians)
+        row = dict(
+            card=card, n_streams=n, transfer_dtype=scfg.transfer_dtype,
+            max_iters=scfg.max_iters, build_and_capture_s=build_s,
+            step_host_ms_median=step_ms, step_host_ms_pass_medians=medians,
+            step_host_ms_mean=statistics.fmean(every),
+            step_host_ms_p90=every[int(0.9 * (len(every) - 1))],
+            replay_device_ms=replay_ms, real_time_share=step_ms / scfg.chunk_ms,
+            tokens_per_chunk=tokens / max(chunk_steps, 1),
+            steps=eng.steps, graph_replays=eng.replays,
+            peak_memory_mib=peak_mib, memory_before_mib=before_mib,
+            kernel_launches=launches, **first)
+        log("streaming_full_width", **row)
+        if eng.replays != eng.steps or launches or not np.isfinite(step_ms):
+            raise AssertionError(f"streaming_full_width N {n}: {eng.steps} steps, "
+                                 f"{eng.replays} replays, launches {launches}")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def _stream_through(servicer, clips, sr: int = 16000, paced: bool = False):
+    """Each clip through servicer.TranscribeStream in a thread of its
+    own, in 80 ms chunks, at real-time pace from a shared start when
+    `paced`. Returns (texts, partial latencies s, overruns s, errors)."""
+    import threading
+
+    from libreasr_tpu_torch.serving import proto
+
+    n = len(clips)
+    texts, lat, over, errors = [None] * n, [[] for _ in range(n)], [None] * n, []
+    start = time.perf_counter() + 0.5
+
+    def client(i):
+        sent = {"last": 0.0, "done": 0.0}
+
+        def gen():
+            for k, off in enumerate(range(0, len(clips[i]), STREAM_CHUNK)):
+                if paced:
+                    dt = start + k * STREAM_CHUNK / sr - time.perf_counter()
+                    if dt > 0:
+                        time.sleep(dt)
+                sent["last"] = time.perf_counter()
+                yield proto.Audio(
+                    data=clips[i][off : off + STREAM_CHUNK].tobytes(), sr=sr)
+            sent["done"] = time.perf_counter()
+
+        parts = []
+        try:
+            for tr in servicer.TranscribeStream(gen()):
+                if tr.data:
+                    lat[i].append(time.perf_counter() - sent["last"])
+                    parts.append(tr.data)
+            over[i] = time.perf_counter() - sent["done"]
+            texts[i] = "".join(parts)
+        except Exception as e:  # reported below, fails the phase
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serving: a stream did not finish in 120 s")
+    return texts, [x for li in lat for x in li], over, errors
+
+
+def phase_serving(seed: int, card: str) -> None:
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.config import parse_and_apply_config
+    from libreasr_tpu_torch.serving import proto
+    from libreasr_tpu_torch.serving.server import ASRServicer
+
+    audio3 = _golden_audio(3)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, bundle in _golden_bundles(tmp):
+            servicer = ASRServicer(bundle)
+            try:
+                _reset_kernel_launches()
+                unary = servicer.Transcribe(proto.Audio(data=audio3[2].tobytes(),
+                                                        sr=16000)).data
+                launches = {k: v for k, v in _kernel_launches().items() if v}
+                clips = [audio3[2, :16000], audio3[3, :16000]]
+                texts, _, _, errors = _stream_through(servicer, clips)
+            finally:
+                servicer.stepper.shutdown()
+            kernel = "lstm_seq_int8" if name == "int8" else "lstm_seq_cseq"
+            want = {kernel: bundle.cfg.enc_num_layers}
+            log("serving_golden", bundle=name, unary_3s=unary, streams=texts,
+                kernel_launches_unary=launches, expected=want, errors=errors)
+            if unary != "hello world" or launches != want \
+                    or texts != ["hello world", "stop now"] or errors:
+                raise AssertionError(f"serving_golden {name} failed")
+
+    conf = parse_and_apply_config(inference=True)
+    bundle = ASRBundle.from_config(conf, seed=seed, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    before_mib = torch.cuda.memory_allocated() / 2**20
+    servicer = ASRServicer(bundle)
+    try:
+        eng = servicer.engine
+        clip = _stream_clips(1, seed)[0]
+        _reset_kernel_launches()
+        t0 = time.perf_counter()
+        unary = servicer.Transcribe(proto.Audio(data=clip.tobytes(), sr=16000)).data
+        unary_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in _kernel_launches().items() if v}
+        want = {"lstm_seq_cseq": bundle.cfg.enc_num_layers}
+        rng = np.random.default_rng(seed)
+        clips = [(rng.standard_normal(6 * 16000) * 0.1).astype(np.float32)
+                 for _ in range(SERVING_STREAMS)]
+        steps0 = eng.steps
+        texts, lat, over, errors = _stream_through(servicer, clips, paced=True)
+        stream_launches = {k: v for k, v in _kernel_launches().items() if v}
+        timings = servicer.timings.snapshot()
+    finally:
+        servicer.stepper.shutdown()
+    lat_ms = np.array(lat) * 1e3
+    over_ms = np.array([o for o in over if o is not None]) * 1e3
+    log("serving", card=card, n_streams=eng.n, transfer_dtype=eng.scfg.transfer_dtype,
+        unary_6s_ms=unary_ms, unary_kernel_launches=launches,
+        paced_streams=len(clips), seconds_each=6,
+        partial_latency_ms_p50=float(np.percentile(lat_ms, 50)) if len(lat_ms) else None,
+        partial_latency_ms_p90=float(np.percentile(lat_ms, 90)) if len(lat_ms) else None,
+        partials=len(lat_ms),
+        overrun_ms_p50=float(np.percentile(over_ms, 50)) if len(over_ms) else None,
+        overrun_ms_p90=float(np.percentile(over_ms, 90)) if len(over_ms) else None,
+        steps=eng.steps - steps0, graph_replays=eng.replays, stage_timings=timings,
+        peak_memory_mib=torch.cuda.max_memory_allocated() / 2**20,
+        memory_before_mib=before_mib, errors=errors[:3])
+    if launches != want or stream_launches != want or errors \
+            or len(over_ms) != len(clips) or not len(lat_ms) \
+            or any(t is None for t in texts):
+        raise AssertionError("serving at full width failed")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1684,6 +2039,10 @@ def main() -> int:
     phase_train_small_cuda_vs_cpu(args.seed)
     torch.cuda.synchronize()
     phase_train_cli(args.seed, card)
+    torch.cuda.synchronize()
+    phase_streaming_golden()
+    phase_streaming_full_width(args.seed, card)
+    phase_serving(args.seed, card)
     torch.cuda.synchronize()
     rows += joint_rows(args.seed, worst_joint, launches)
     rows += train_kernel_rows(args.seed, worst_train, launches)

@@ -4,10 +4,11 @@
     text, metrics = bundle.transcribe(pcm)              # [S] float32
     texts, metrics = bundle.transcribe_batch(audio, sample_lengths)
     bundle.quantize().save("model-int8.tar.gz")         # int8 towers
+    for tokens, new_text, reset in bundle.transcribe_stream(chunks): ...
 
-The port of the JAX package's api.py for the offline greedy path. It
-loads every bundle kind the JAX package writes for greedy serving:
-char and BPE tokenizers, float32 and int8-quantized towers.
+The port of the JAX package's api.py for greedy serving, offline and
+streaming. It loads every bundle kind the JAX package writes for greedy
+serving: char and BPE tokenizers, float32 and int8-quantized towers.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ class ASRBundle:
         self.device = device
         self.cfg: TransducerConfig = model.cfg
         self.frontend = FrontendConfig.from_config(conf)
+        # one-slot streaming engines of transcribe_stream, by config
+        self._stream_engines: dict = {}
 
     @classmethod
     def from_config(cls, conf: dict | None = None, *, lang_name: str = "",
@@ -82,6 +85,7 @@ class ASRBundle:
         load_jax_variables(model, variables)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.cfg = model.cfg
+        self._stream_engines.clear()  # they hold the float model
         return self
 
     def save(self, path: str, *, lang_name: str = "en",
@@ -141,3 +145,34 @@ class ASRBundle:
             audio, np.array([audio.shape[1]]), **kw
         )
         return texts[0], {k: v[0] for k, v in metrics.items()}
+
+    def transcribe_stream(self, chunks, *, use_lm: bool = False, **scfg_kw):
+        """Generator over a chunk iterable: yields (all_tokens, new_text,
+        reset_fn) per fed chunk. A thin wrapper over a one-slot
+        StreamingEngine, cached per config, so repeated calls reuse its
+        step (its CUDA graph on the card); for many concurrent streams
+        use StreamingEngine directly."""
+        from .models.streaming import StreamingConfig, StreamingEngine
+
+        key = (use_lm, tuple(sorted(scfg_kw.items())))
+        engine = self._stream_engines.get(key)
+        if engine is None:
+            scfg = StreamingConfig(sr=self.frontend.sr, **scfg_kw)
+            engine = StreamingEngine(self, n_streams=1, scfg=scfg,
+                                     use_lm=use_lm)
+            self._stream_engines[key] = engine
+        slot = engine.open_slot()
+
+        def reset_fn():
+            engine._pending_reset_arr[slot] = True
+            engine.emitted[slot] = []
+
+        try:
+            for chunk in chunks:
+                if chunk is None:
+                    continue
+                new_text = engine.feed(
+                    slot, np.asarray(chunk, np.float32).reshape(-1))
+                yield list(engine.emitted[slot]), new_text, reset_fn
+        finally:
+            engine.close_slot(slot)

@@ -12,6 +12,10 @@ _EOS = 2
 
 
 class CharLanguage:
+    blank = 0
+    sos = 1
+    eos = _EOS  # the streaming engine latches a slot on it
+
     def __init__(self, tokens: dict[str, int]):
         self.t2i = dict(tokens)
         self.i2t = {i: t for t, i in tokens.items()}

@@ -7,11 +7,13 @@ mask. Streams that emit blank stop for the frame; the predictor and the
 token buffer change only for streams that emitted.
 
 Early exit: the JAX while_loop stops a frame's rounds once no stream is
-active. Here that test is a host sync per round (`active.any()`). It is
-taken rather than running all `max_iters` rounds masked, which gives
-the same result, because most frames of real speech are blank for every
-stream: one joint round then replaces `max_iters` rounds of joint and
-predictor work.
+active. Here that test is a host sync per round (`active.any()`). The
+offline decode takes it, because most frames of real speech are blank
+for every stream: one joint round then replaces `max_iters` rounds of
+joint and predictor work. `decode_frame(early_exit=False)` runs all
+`max_iters` rounds masked instead, which gives the same tokens, lengths
+and state with no host sync: the streaming step, captured as one CUDA
+graph, takes that form.
 """
 
 from __future__ import annotations
@@ -67,13 +69,17 @@ def _masked_update(mask, new, old):
 
 
 def decode_frame(fns: DecoderFns, st: DecodeState, h_enc, frame_valid, *,
-                 blank: int = 0, max_iters: int = 3) -> DecodeState:
-    """Decode one encoder frame h_enc [N, H] for all streams."""
+                 blank: int = 0, max_iters: int = 3,
+                 early_exit: bool = True) -> DecodeState:
+    """Decode one encoder frame h_enc [N, H] for all streams. With
+    `early_exit`, the rounds stop once no stream is active (a host sync
+    a round); without it all `max_iters` rounds run, inactive streams
+    masked."""
     start_iters = st.sum_iters
     active = frame_valid
     max_tokens = st.y_buf.shape[1]
     for _ in range(max_iters):
-        if not bool(active.any()):
+        if early_exit and not bool(active.any()):
             break
         logits = fns.joint_step(st.h_pred, h_enc)
         pred = torch.argmax(torch.log_softmax(logits, dim=-1), dim=-1)

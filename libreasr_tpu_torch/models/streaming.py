@@ -1,0 +1,700 @@
+"""Batched streaming engine: N streams advance in lockstep, one step per
+80 ms chunk (the JAX package's models/streaming.py, greedy mode).
+
+The frontend is incremental and exact: a stream carries
+(n_fft/2 + d*hop) samples and (n_stack - downsample + d) mel frames, so
+each chunk computes exactly its new mel frames and emits one stacked
+encoder frame, the same one batch transcription computes over the whole
+signal (after the stream's first, warmup, frame). Per-stream reset
+(slot open, and the silence auto-reset) is a masked state swap inside
+the step: on reset the sample carry is the reflect padding of the
+incoming chunk's head, as batch framing pads.
+
+The step is one plain function of tensors (`StreamingEngine.step_fn`).
+A step encodes one stacked frame per sub-chunk (T = 1), so the encoder
+runs on the scan cells and no sequence kernel, as in the JAX package.
+On the card the engine captures the step once, at construction, as one
+CUDA graph over static buffers (the chunks in the wire dtype, `valid`,
+`reset`, the stream state updated in place and the packed output), and
+every step is one replay of it; a k-deep chained dispatch is k replays.
+On the CPU the same function runs eagerly. A capture that fails raises:
+there is no eager path on the card.
+
+Beam search, LM fusion and multi-GPU sharding are not ported; asking for
+them raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..ops.frontend import FrontendConfig, dft_mel_matrices
+from .decode import DecodeState, DecoderFns, decode_frame, init_decode_state
+from .transducer import learnable_states
+
+# backlog-recovery chain depths the serving stepper escalates through
+# (powers of two; the last is its cap)
+CHAIN_DEPTHS = (2, 4, 8)
+
+_BEAM_LM = ("streaming beam search and LM fusion are not ported yet "
+            "(ROADMAP.md queue 1 item 3)")
+_MESH = ("a StreamingEngine sharded over several devices is not ported "
+         "yet (ROADMAP.md queue 1 item 7)")
+
+
+@dataclass(frozen=True)
+class StreamingConfig:
+    sr: int = 16000
+    chunk_ms: int = 80           # wire chunk
+    n_buffer: int = 1            # chunks per device step
+    max_iters: int = 10          # decode rounds per frame
+    reset_thresh_ms: int = 4000  # silence auto-reset
+    max_tokens_per_step: int = 32
+    beam_width: int = 0          # 0/1 = greedy; beam is not ported
+    beam_buf_tokens: int = 64
+    lm_alpha: float = 0.1
+    # host->device PCM codec: "int16" halves the upload bytes (error
+    # 3e-5, below any 16-bit capture chain's noise); "float32" keeps
+    # stream == batch features exact
+    transfer_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.beam_width > 1:
+            raise NotImplementedError(f"libreasr_tpu_torch: {_BEAM_LM}")
+        if self.transfer_dtype not in ("float32", "int16"):
+            raise ValueError(f"transfer_dtype {self.transfer_dtype!r}: "
+                             "expected 'float32' or 'int16'")
+
+    @property
+    def chunk_samples(self) -> int:
+        return self.sr * self.chunk_ms // 1000
+
+
+def _stream_geometry(fe: FrontendConfig, chunk_samples: int):
+    """Carry sizes for the exact incremental frontend.
+
+    With hop h, window w (center c = w//2), C = chunk samples:
+    - frames per chunk F = C/h;
+    - frame delay d = ceil((w - c)/h) - 1 so every emitted frame's
+      window is fully available;
+    - sample carry = d*h + c;
+    - mel carry = n_stack - downsample + d (one stacked frame per chunk).
+    """
+    h, w = fe.hop, fe.n_fft
+    c = w // 2
+    if chunk_samples % h:
+        raise ValueError("the chunk must be a multiple of the hop")
+    frames = chunk_samples // h
+    if frames != fe.downsample:
+        raise ValueError(
+            "exact streaming needs one stacked frame per chunk (frames per "
+            f"chunk {frames} != downsample {fe.downsample})")
+    d = -(-(w - c) // h) - 1
+    return frames, d, d * h + c, fe.n_stack - fe.downsample + d
+
+
+def _tree_map(fn, *trees):
+    """fn over the tensors of nested tuples and dataclasses of the same
+    structure."""
+    t = trees[0]
+    if isinstance(t, torch.Tensor):
+        return fn(*trees)
+    if dataclasses.is_dataclass(t):
+        return dataclasses.replace(t, **{
+            f.name: _tree_map(fn, *(getattr(x, f.name) for x in trees))
+            for f in dataclasses.fields(t)})
+    return tuple(_tree_map(fn, *xs) for xs in zip(*trees))
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    out = []
+    _tree_map(lambda x: out.append(x) or x, tree)
+    return out
+
+
+@dataclass(frozen=True)
+class StreamState:
+    enc_state: Any            # per encoder layer, (h, c) each [N, H]
+    decode: DecodeState
+    sample_carry: torch.Tensor  # [N, d*hop + n_fft/2]
+    mel_carry: torch.Tensor     # [N, n_stack - downsample + d, n_mels]
+    started: torch.Tensor       # [N] bool: slot has been (re)initialized
+    primed: torch.Tensor        # [N] bool: first (warmup) frame consumed
+
+    def clone(self) -> "StreamState":
+        """A copy that shares no storage with this state."""
+        return _tree_map(torch.clone, self)
+
+
+class _Outputs:
+    """The packed outputs [k, N, K+1] int32 of k sub-steps, in host
+    memory (pinned on the card) once `done` has passed; `staging` keeps
+    the pinned inputs alive until then."""
+
+    __slots__ = ("host", "done", "staging")
+
+    def __init__(self, host, done, staging):
+        self.host, self.done, self.staging = host, done, staging
+
+    def numpy(self) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()
+
+
+class StreamingEngine:
+    """Owns the stream state on the device, the step (a CUDA graph on
+    the card) and the per-slot host buffers."""
+
+    def __init__(self, bundle, n_streams: int = 64,
+                 scfg: StreamingConfig | None = None, use_lm: bool = False,
+                 mesh=None):
+        if use_lm:
+            raise NotImplementedError(f"libreasr_tpu_torch: {_BEAM_LM}")
+        if mesh is not None:
+            raise NotImplementedError(f"libreasr_tpu_torch: {_MESH}")
+        self.bundle = bundle
+        self.n = n_streams
+        self.scfg = scfg or StreamingConfig(sr=bundle.frontend.sr)
+        self.cfg = bundle.cfg
+        self.frontend: FrontendConfig = bundle.frontend
+        if self.frontend.deltas:
+            # the delta filter is centered over time (future context);
+            # serving it incrementally would silently diverge from the
+            # batch/training features. Refuse instead of diverging.
+            raise NotImplementedError(
+                "StreamingEngine does not support frontend.deltas > 0: "
+                "delta features need future frames and would make "
+                "streaming features diverge from training. Set "
+                "`deltas: 0` for streaming models, or decode offline "
+                "via ASRBundle.transcribe."
+            )
+        self.device = resolve_device(bundle.device)
+        # the model whose weights the step reads (a CUDA graph holds
+        # their addresses): a bundle that swaps its model afterwards
+        # (quantize) is refused, never served the old weights
+        self.model = bundle.model
+        self.fns = DecoderFns(predict_step=self.model.predict,
+                              joint_step=self.model.joint_step)
+        (self._frames_per_chunk, _, self._sample_carry_len,
+         self._mel_carry_len) = _stream_geometry(self.frontend,
+                                                 self.scfg.chunk_samples)
+        fe = self.frontend
+        mats = dft_mel_matrices(fe.n_fft, fe.n_mels, fe.sr,
+                                int(fe.win_length * fe.sr))
+        self._c, self._s, self._fb = (torch.from_numpy(m).to(self.device)
+                                      for m in mats)
+        self._frame_idx = (torch.arange(self._frames_per_chunk)[:, None] * fe.hop
+                           + torch.arange(fe.n_fft)[None, :]).to(self.device)
+        # the step's static inputs (the graph holds their addresses)
+        self._wire = torch.int16 if self.scfg.transfer_dtype == "int16" \
+            else torch.float32
+        self._chunks = torch.zeros(
+            (self.n, self.scfg.n_buffer, self.scfg.chunk_samples),
+            dtype=self._wire, device=self.device)
+        self._flags = torch.zeros((2, self.n), dtype=torch.bool,
+                                  device=self.device)
+        self._valid, self._reset = self._flags[0], self._flags[1]
+        self.replays = 0  # CUDA graph replays (every step on the card)
+        self.steps = 0    # device steps run
+        with torch.no_grad():
+            self.state = self._init_state()
+            # BOS-primed decode state: the reset template (read only)
+            self._fresh_dec = self._init_decode()
+            self._packed = torch.zeros(
+                (self.n, self.scfg.max_tokens_per_step + 1), dtype=torch.int32,
+                device=self.device)
+        self._graph = self._capture() if self.device.type == "cuda" else None
+
+        # host-side slot bookkeeping. PCM lives in ONE [N, cap] ring
+        # matrix with per-slot head/tail offsets: dispatch copies every
+        # ready slot's chunk with one slice per slot, append is an
+        # in-place row write
+        self._buf_cap = 4 * self.scfg.chunk_samples * self.scfg.n_buffer
+        self._buf = np.zeros((self.n, self._buf_cap), np.float32)
+        self._head = [0] * self.n
+        self._tail = [0] * self.n
+        self.emitted = [[] for _ in range(self.n)]
+        # per-slot undelivered text: every step distributes every stepped
+        # slot's new text here, so text decoded while another slot drove
+        # the step is never lost
+        self.outbox = [[] for _ in range(self.n)]
+        self.silence_ms = np.zeros(self.n, np.int64)
+        self.active = np.zeros(self.n, bool)
+        self._pending_reset_arr = np.zeros(self.n, bool)
+        # bumped when a slot resets/reopens; pipelined collects of steps
+        # dispatched before the bump skip the slot (stale outputs)
+        self._reset_epoch = np.zeros(self.n, np.int64)
+        # latched once a stream emits EOS: post-terminal tokens are
+        # suppressed until the next reset (silence auto-reset or reopen)
+        self._eos_done = np.zeros(self.n, bool)
+        # sub-steps dispatched but not yet collected per slot: dispatch-
+        # time silence projections count them as silent (worst case)
+        self._inflight = np.zeros(self.n, np.int64)
+
+    # ---- the step --------------------------------------------------------
+
+    def _init_decode(self) -> DecodeState:
+        return init_decode_state(self.fns, self.n, bos=self.cfg.bos,
+                                 max_tokens=self.scfg.max_tokens_per_step,
+                                 device=self.device)
+
+    def _init_state(self) -> StreamState:
+        """Zeros of the right shapes: every slot starts un-started, so
+        its first step resets it from the learnable h0 and the template.
+        Leaves are cloned so that none shares storage with another (the
+        step copies into each in place)."""
+        n, fe = self.n, self.frontend
+        h0 = learnable_states(self.model, "encoder", n)
+        return StreamState(
+            enc_state=_tree_map(lambda x: x.new_zeros(x.shape), h0),
+            decode=_tree_map(torch.clone, self._init_decode()),
+            sample_carry=torch.zeros((n, self._sample_carry_len),
+                                     device=self.device),
+            mel_carry=torch.zeros((n, self._mel_carry_len, fe.n_mels),
+                                  device=self.device),
+            started=torch.zeros(n, dtype=torch.bool, device=self.device),
+            primed=torch.zeros(n, dtype=torch.bool, device=self.device),
+        )
+
+    def mel_chunk(self, sample_carry, chunk):
+        """[N, sc] + [N, C] -> (log-mel [N, F, M], new sample carry):
+        the windowed real DFT as float32 products (TF32 off), as
+        ops/frontend.py computes it."""
+        buf = torch.cat([sample_carry, chunk], dim=1)
+        frames = buf[:, self._frame_idx]                  # [N, F, n_fft]
+        re, im = frames @ self._c, frames @ self._s
+        mel = torch.log((re * re + im * im) @ self._fb + 1e-6)
+        return mel, buf[:, -self._sample_carry_len:]
+
+    def frontend_step(self, sample_carry, mel_carry, chunk):
+        """One chunk through the incremental frontend. Returns (stacked
+        frame [N, 1, n_mels * n_stack], sample carry, mel carry)."""
+        fe = self.frontend
+        mel, sample_carry = self.mel_chunk(sample_carry, chunk)
+        allmel = torch.cat([mel_carry, mel], dim=1)
+        win = allmel[:, : fe.n_stack, :]                  # [N, K, M]
+        stacked = win.transpose(1, 2).reshape(chunk.shape[0], 1, -1)
+        return stacked, sample_carry, allmel[:, fe.downsample :, :]
+
+    def step_fn(self, state: StreamState, chunks, valid, reset):
+        """One engine step as a plain function of tensors (no host sync,
+        no branch on a tensor's value; `state` is not modified).
+        chunks: [N, n_buffer, C] in the wire dtype; valid/reset: [N]
+        bool. Returns (new state, packed [N, K+1] int32: this step's
+        tokens and, in the last column, their count)."""
+        fe, cfg, scfg = self.frontend, self.cfg, self.scfg
+        if chunks.dtype == torch.int16:
+            # dequantize the wire codec before anything reads the samples
+            chunks = chunks.float() * (1.0 / 32768.0)
+        n = chunks.shape[0]
+
+        # --- per-stream reset (masked state swap) ----------------------
+        do_reset = reset | ~state.started
+
+        def sel(new, old):
+            return torch.where(do_reset.reshape((-1,) + (1,) * (new.dim() - 1)),
+                               new, old)
+
+        dec = _tree_map(sel, self._fresh_dec, state.decode)
+        enc_state = _tree_map(sel, learnable_states(self.model, "encoder", n),
+                              state.enc_state)
+        # on reset the sample carry is the reflect padding of the
+        # incoming chunk's head: the prefix batch framing (center=True,
+        # reflect) uses, so stream features equal batch features
+        reflect = chunks[:, 0, 1 : self._sample_carry_len + 1].flip(1)
+        sample_carry = sel(reflect, state.sample_carry)
+        mel_carry = sel(torch.zeros_like(state.mel_carry), state.mel_carry)
+        primed = state.primed & ~do_reset
+        # fresh token buffers each step: emissions are per step
+        dec = dataclasses.replace(dec, y_buf=torch.zeros_like(dec.y_buf),
+                                  y_len=torch.zeros_like(dec.y_len))
+
+        # --- incremental frontend + per-frame encode/decode ------------
+        # a stream's first frame after a reset is pipeline warmup (its
+        # stacked window reaches before the signal start): each stream
+        # skips exactly one frame through `primed`
+        for b in range(chunks.shape[1]):
+            stacked, sc_new, mc_new = self.frontend_step(
+                sample_carry, mel_carry, chunks[:, b])
+            # carries advance only for streams that received a chunk
+            sample_carry = torch.where(valid[:, None], sc_new, sample_carry)
+            mel_carry = torch.where(valid[:, None, None], mc_new, mel_carry)
+            real = primed & valid
+            enc_out, enc_new = self.model.encode(stacked, state=enc_state)
+            enc_state = _tree_map(
+                lambda a, b_: torch.where(real[:, None], a, b_),
+                enc_new, enc_state)
+            dec = decode_frame(self.fns, dec, enc_out[:, 0, :], real,
+                               blank=cfg.blank, max_iters=scfg.max_iters,
+                               early_exit=False)
+            primed = primed | valid
+
+        new_state = StreamState(
+            enc_state=enc_state, decode=dec, sample_carry=sample_carry,
+            mel_carry=mel_carry, started=state.started | valid | reset,
+            primed=primed,
+        )
+        packed = torch.cat([dec.y_buf.to(torch.int32),
+                            dec.y_len.to(torch.int32)[:, None]], dim=1)
+        return new_state, packed
+
+    def _step_in_place(self) -> None:
+        """The step on the static buffers: state and packed output
+        written in place (what the CUDA graph holds)."""
+        new, packed = self.step_fn(self.state, self._chunks, self._valid,
+                                   self._reset)
+        for dst, src in zip(_leaves(self.state), _leaves(new)):
+            dst.copy_(src)
+        self._packed.copy_(packed)
+
+    def _capture(self):
+        """Capture the step once as a CUDA graph. Two runs on a side
+        stream first (cuBLAS workspaces, lazy allocations): with every
+        slot un-started and nothing valid they change nothing a real
+        step reads (each slot resets at its first step)."""
+        with torch.no_grad():
+            self._chunks.zero_()
+            self._flags.zero_()
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self._step_in_place()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._step_in_place()
+        torch.cuda.synchronize(self.device)
+        return graph
+
+    # ---- host <-> device ---------------------------------------------------
+
+    def _encode_chunks(self, chunks) -> np.ndarray:
+        """Apply the host side of the transfer codec (StreamingConfig.
+        transfer_dtype): float32 PCM in, wire-dtype array out."""
+        chunks = np.asarray(chunks)
+        if self.scfg.transfer_dtype == "int16" and chunks.dtype != np.int16:
+            chunks = np.clip(chunks * 32768.0, -32768.0, 32767.0).astype(np.int16)
+        return np.ascontiguousarray(chunks, dtype=np.int16 if
+                                    self._wire == torch.int16 else np.float32)
+
+    def _run_chain(self, k: int, chunks, valid, reset) -> _Outputs:
+        """Run k steps in order, one graph replay each on the card.
+        chunks: [k, N, n_buffer, C]; valid/reset: [k, N] bool. Nothing
+        waits for the device: the returned outputs land on the host when
+        their event passes."""
+        if self.bundle.model is not self.model:
+            raise RuntimeError(
+                "libreasr_tpu_torch: the bundle's model changed (quantize?) "
+                "after this StreamingEngine was built; build a new engine")
+        cuda = self.device.type == "cuda"
+        ch = torch.from_numpy(self._encode_chunks(chunks))
+        fl = torch.from_numpy(np.stack([np.asarray(valid, bool),
+                                        np.asarray(reset, bool)], axis=1))
+        if cuda:
+            ch, fl = ch.pin_memory(), fl.pin_memory()
+        host = torch.empty((k, self.n, self._packed.shape[1]), dtype=torch.int32,
+                           pin_memory=cuda)
+        with torch.no_grad():
+            for j in range(k):
+                # sub-step j's inputs into the step's static buffers; on
+                # the card these are stream-ordered async copies
+                self._chunks.copy_(ch[j], non_blocking=True)
+                self._flags.copy_(fl[j], non_blocking=True)
+                if cuda:
+                    self._graph.replay()
+                    self.replays += 1
+                else:
+                    self._step_in_place()
+                self.steps += 1
+                host[j].copy_(self._packed, non_blocking=True)
+        done = None
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+        return _Outputs(host, done, (ch, fl))
+
+    def _step_device(self, chunks, valid=None, reset=None) -> _Outputs:
+        """Launch one step; returns its outputs ([1, N, K+1] once done).
+        No host sync. chunks: [N, n_buffer, chunk_samples]."""
+        n = self.n
+        valid = np.ones(n, bool) if valid is None else np.asarray(valid, bool)
+        reset = np.zeros(n, bool) if reset is None else np.asarray(reset, bool)
+        return self._run_chain(1, np.asarray(chunks)[None], valid[None],
+                               reset[None])
+
+    def step_batch(self, chunks: np.ndarray, valid=None, reset=None):
+        """Advance all streams. chunks: [N, n_buffer, chunk_samples].
+        Returns (tokens [N, K], token counts [N]): this step's emissions
+        per stream."""
+        packed = self._step_device(chunks, valid, reset).numpy()[0]
+        return packed[:, :-1], packed[:, -1]
+
+    # ---- serving-facing slot API -----------------------------------------
+
+    def open_slot(self) -> int:
+        for i in range(self.n):
+            if not self.active[i]:
+                self.active[i] = True
+                self._head[i] = self._tail[i] = 0
+                self.emitted[i] = []
+                self.outbox[i] = []
+                self.silence_ms[i] = 0
+                self._eos_done[i] = False
+                self._pending_reset_arr[i] = True
+                self._reset_epoch[i] += 1  # invalidate in-flight collects
+                self._inflight[i] = 0  # fresh stream: old steps are stale
+                return i
+        raise RuntimeError("no free stream slots")
+
+    def close_slot(self, slot: int):
+        self.flush_slot(slot)
+        self.active[slot] = False
+
+    def flush_slot(self, slot: int):
+        """Commits a beam's uncommitted tail in the JAX package; greedy
+        emissions are committed every step, so there is nothing to do."""
+
+    @property
+    def _pending_reset(self):
+        return self._pending_reset_arr
+
+    @property
+    def samples_per_step(self) -> int:
+        return self.scfg.chunk_samples * self.scfg.n_buffer
+
+    @property
+    def sample_buf(self):
+        """Read-only per-slot views of the buffered PCM (tests,
+        debugging). The storage is the [N, cap] ring matrix."""
+        return [self._buf[i, self._head[i] : self._tail[i]]
+                for i in range(self.n)]
+
+    def _fill(self):
+        return np.fromiter((t - h for t, h in zip(self._tail, self._head)),
+                           np.int64, self.n)
+
+    def append_samples(self, slot: int, pcm: np.ndarray):
+        t, n = self._tail[slot], len(pcm)
+        if t + n > self._buf.shape[1]:
+            h = int(self._head[slot])
+            if t - h + n <= self._buf.shape[1]:
+                # compact: slide the unread tail to the front (.copy():
+                # the ranges may overlap)
+                self._buf[slot, : t - h] = self._buf[slot, h:t].copy()
+            else:
+                # a slot outran the consumer: grow every row
+                cap = self._buf.shape[1]
+                while t - h + n > cap:
+                    cap *= 2
+                nb = np.zeros((self.n, cap), np.float32)
+                nb[:, : self._buf.shape[1]] = self._buf
+                self._buf = nb
+                self._buf[slot, : t - h] = self._buf[slot, h:t].copy()
+            self._tail[slot] = t = t - h
+            self._head[slot] = 0
+        self._buf[slot, t : t + n] = pcm
+        self._tail[slot] = t + n
+
+    def ready_slots(self):
+        need = self.samples_per_step
+        return list(np.nonzero(self.active & (self._fill() >= need))[0])
+
+    def step_dispatch(self):
+        """Phase 1 of a coalesced step: consume every full buffered chunk
+        and launch the step without reading its outputs. Returns a
+        pending record (or None if nothing is ready); the caller may
+        dispatch the next step before collecting this one."""
+        scfg = self.scfg
+        c, need = scfg.chunk_samples, self.samples_per_step
+        # a slot whose in-flight steps may cross its silence threshold
+        # waits for their collect: the auto-reset they would set has to
+        # apply before the slot steps again
+        step_ms = scfg.chunk_ms * scfg.n_buffer
+        gated = (self._inflight > 0) & (
+            self.silence_ms + self._inflight * step_ms >= scfg.reset_thresh_ms)
+        valid = self.active & (self._fill() >= need) & ~gated
+        if not valid.any():
+            return None
+        rows = np.nonzero(valid)[0]
+        chunks = np.zeros((self.n, scfg.n_buffer, c), np.float32)
+        cv = chunks.reshape(self.n, need)
+        buf, head = self._buf, self._head
+        for i in rows:
+            h = head[i]
+            cv[i] = buf[i, h : h + need]
+            head[i] = h + need
+        reset = self._pending_reset & valid
+        out = self._step_device(chunks, valid, reset)
+        self._eos_done[reset] = False
+        # a reset invalidates any step dispatched before it
+        self._reset_epoch[reset] += 1
+        self._pending_reset_arr[valid] = False
+        self._inflight[valid] += 1
+        return (out, valid, self._reset_epoch.copy())
+
+    def _silence_gated(self, i: int) -> bool:
+        """True when slot i's worst-case silence, counting every in-flight
+        sub-step as silent, has reached the auto-reset threshold."""
+        if self._inflight[i] == 0:
+            return False
+        step_ms = self.scfg.chunk_ms * self.scfg.n_buffer
+        worst = int(self.silence_ms[i]) + int(self._inflight[i]) * step_ms
+        return worst >= self.scfg.reset_thresh_ms
+
+    def backlog_depth(self) -> int:
+        """Max full chunk-steps buffered across active slots: the serving
+        stepper's chaining signal."""
+        need = self.samples_per_step
+        depths = np.where(self.active, self._fill() // need, 0)
+        return int(depths.max(initial=0))
+
+    def step_dispatch_chained(self, k: int):
+        """Consume up to k buffered chunk-steps per slot in one dispatch
+        (k replays of the step's graph). Slots with shorter backlogs ride
+        along (valid masked per sub-step); emissions match k sequential
+        steps exactly. Returns a pending record for step_collect, or None
+        when nothing is ready."""
+        scfg = self.scfg
+        c, need = scfg.chunk_samples, self.samples_per_step
+        avail = np.where(self.active, np.minimum(self._fill() // need, k),
+                         0).astype(np.int64)
+        # resets apply only at a chain's first sub-step, so each slot's
+        # depth is capped at the steps until its silence threshold could
+        # cross (in-flight sub-steps counted as silent): the crossing then
+        # falls on the chain's last sub-step at the earliest, and its
+        # reset applies at the next dispatch, the sequential cadence
+        step_ms = scfg.chunk_ms * scfg.n_buffer
+        sil = self.silence_ms + self._inflight * step_ms
+        m = -(-(scfg.reset_thresh_ms - sil) // step_ms)
+        avail = np.minimum(avail, np.maximum(m, 0))
+        if not avail.any():
+            return None
+        chunks = np.zeros((k, self.n, scfg.n_buffer, c), np.float32)
+        valid = np.arange(k)[:, None] < avail[None, :]       # [k, N]
+        cv = chunks.reshape(k, self.n, need)
+        buf, head = self._buf, self._head
+        for i in np.nonzero(avail)[0]:
+            a, h = int(avail[i]), head[i]
+            cv[:a, i] = buf[i, h : h + a * need].reshape(a, need)
+            head[i] = h + a * need
+        # a slot's backlog is contiguous, so its first sub-step is j=0:
+        # pending resets apply there only
+        v0 = valid[0]
+        reset = np.zeros((k, self.n), bool)
+        reset[0] = self._pending_reset & v0
+        out = self._run_chain(k, chunks, valid, reset)
+        r0 = reset[0]
+        self._eos_done[r0] = False
+        self._reset_epoch[r0] += 1
+        self._pending_reset_arr[v0] = False
+        self._inflight += avail
+        return (out, valid, self._reset_epoch.copy())
+
+    def step_collect(self, pending) -> None:
+        """Phase 2: wait for a dispatched step's outputs and distribute
+        each stepped slot's new text into its outbox. Takes single-step
+        ([N] valid) and chained ([k, N] valid) records; chained sub-steps
+        distribute in order."""
+        out, valid, epochs = pending
+        packed = out.numpy()
+        sub = valid.sum(axis=0) if valid.ndim == 2 else valid.astype(np.int64)
+        # a reopened slot's new occupant owns the zeroed in-flight count:
+        # an old occupant's collect must not decrement it
+        sub = np.where(epochs == self._reset_epoch, sub, 0)
+        self._inflight = np.maximum(self._inflight - sub, 0)
+        if valid.ndim == 2:
+            for j in range(valid.shape[0]):
+                if valid[j].any():
+                    self._distribute(packed[j], valid[j], epochs)
+            return
+        self._distribute(packed[0], valid, epochs)
+
+    def _distribute(self, packed, valid, epochs) -> None:
+        toks, lens = packed[:, :-1], packed[:, -1]
+        scfg = self.scfg
+        eos = getattr(self.bundle.lang, "eos", None)
+        live = valid & (epochs == self._reset_epoch)
+        # Python touches only slots that emitted (or hit EOS)
+        emitting = live & (lens > 0) & ~self._eos_done
+        eos_now = np.zeros(self.n, bool)  # latched this step: silence
+        for i in np.nonzero(emitting)[0]:  # counter untouched
+            ids = list(toks[i, : lens[i]])
+            if eos is not None and eos in ids:
+                # EOS ends the utterance: truncate and latch
+                ids = ids[: ids.index(eos)]
+                self._eos_done[i] = True
+                eos_now[i] = True
+                emitting[i] = False
+            if ids:
+                self.emitted[i].extend(ids)
+                self.outbox[i].append(self.bundle.lang.denumericalize(ids))
+        self.silence_ms[emitting] = 0
+        silent = live & ~emitting & ~eos_now
+        self.silence_ms[silent] += scfg.chunk_ms * scfg.n_buffer
+        crossed = silent & (self.silence_ms >= scfg.reset_thresh_ms)
+        self._pending_reset_arr[crossed] = True
+        self.silence_ms[crossed] = 0
+
+    def step_ready(self) -> bool:
+        """Run one step over every slot with a full buffered chunk and
+        distribute the new text. Returns whether a step ran."""
+        pending = self.step_dispatch()
+        if pending is None:
+            return False
+        self.step_collect(pending)
+        return True
+
+    def warmup(self, iters: int = 2, chain_depths: tuple = ()) -> None:
+        """Run the step before traffic arrives (all slots valid, zeros),
+        keeping the state: slot opens mark a pending reset, so each
+        slot's first real step re-initializes it. chain_depths: also run
+        a chained dispatch of each depth, nothing valid (the state is
+        untouched)."""
+        nb, c = self.scfg.n_buffer, self.scfg.chunk_samples
+        for _ in range(max(iters, 1)):
+            self.step_batch(np.zeros((self.n, nb, c), np.float32))
+        for k in chain_depths:
+            k = int(k)
+            self._run_chain(k, np.zeros((k, self.n, nb, c), np.float32),
+                            np.zeros((k, self.n), bool),
+                            np.zeros((k, self.n), bool)).numpy()
+
+    def drain(self, slot: int) -> str:
+        """Pop this slot's undelivered text."""
+        text = "".join(self.outbox[slot])
+        self.outbox[slot] = []
+        return text
+
+    def feed(self, slot: int, pcm: np.ndarray) -> str:
+        """Feed pcm into a slot; runs steps for every complete chunk
+        across all slots; returns newly decoded text for this slot
+        (including text from steps driven by other slots)."""
+        self.append_samples(slot, pcm)
+        while self._tail[slot] - self._head[slot] >= self.samples_per_step:
+            self.step_ready()
+        return self.drain(slot)
+
+    def finish_slot(self, slot: int) -> str:
+        """Stream end: zero-pad the sub-chunk sample remainder, run the
+        final step(s) and return everything undelivered."""
+        if not self.active[slot]:
+            return self.drain(slot)
+        need = self.samples_per_step
+        rem = self._tail[slot] - self._head[slot]
+        if rem > 0 and rem % need:
+            self.append_samples(slot, np.zeros(need - rem % need, np.float32))
+        while self._tail[slot] - self._head[slot] >= need:
+            self.step_ready()
+        self.flush_slot(slot)
+        return self.drain(slot)
+
+    def transcript(self, slot: int) -> str:
+        return self.bundle.lang.denumericalize(self.emitted[slot])

@@ -168,6 +168,9 @@ class FrontendConfig:
     n_mels: int = 128
     n_stack: int = 10
     downsample: int = 8
+    # delta features: not ported (from_config and features_batch refuse
+    # them, and so does the streaming engine, as in the JAX package)
+    deltas: int = 0
     # SpecAugment
     cut_max_front: int = 1
     cut_max_back: int = 1
@@ -269,6 +272,9 @@ def features_batch(audio: torch.Tensor, sample_lengths: torch.Tensor,
     log-mel frames with `draws`, or with integers drawn from `generator`.
     Returns (features [N, T', feature_sz], frame_lengths [N] int64,
     clipped to [1, T'])."""
+    if cfg.deltas:
+        raise NotImplementedError(
+            "libreasr_tpu_torch: delta features are not ported yet")
     if not audio.is_floating_point():
         audio = audio.float() * (1.0 / 32768.0)
     mel = log_mel_spectrogram(

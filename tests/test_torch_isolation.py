@@ -73,7 +73,11 @@ def test_importing_every_module_loads_no_jax():
         " 'libreasr_tpu_torch.data.builder', 'libreasr_tpu_torch.data.transforms',"
         " 'libreasr_tpu_torch.data.batching', 'libreasr_tpu_torch.training.metrics',"
         " 'libreasr_tpu_torch.training.evaluate', 'libreasr_tpu_torch.training.callbacks',"
-        " 'libreasr_tpu_torch.training.checkpoint'} <= set(mods), mods\n"
+        " 'libreasr_tpu_torch.training.checkpoint',"
+        " 'libreasr_tpu_torch.models.streaming', 'libreasr_tpu_torch.utils',"
+        " 'libreasr_tpu_torch.serving.proto', 'libreasr_tpu_torch.serving.server',"
+        " 'libreasr_tpu_torch.serving.bridge', 'libreasr_tpu_torch.serving.client'}"
+        " <= set(mods), mods\n"
         "print('OK', len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -98,6 +102,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
     assert libreasr_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+def test_streaming_and_serving_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The streaming engine runs on its bundle's device (a bundle made
+    for the card raises without one), and the server loads its bundle on
+    the card unless told otherwise."""
+    from libreasr_tpu_torch.models.streaming import StreamingEngine
+    from libreasr_tpu_torch.serving import server
+
+    bundle = ASRBundle.from_bundle(GOLDEN, extract_to=str(tmp_path), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bundle.device = torch.device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamingEngine(bundle, n_streams=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        server.serve(bundle_path=GOLDEN)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        server.main(["--bundle", GOLDEN])
 
 
 def test_wrapper_has_no_fallback_off_the_cpu():
