@@ -107,8 +107,36 @@ Phases, one line each (any failure raises and exits non-zero):
      generators fed at real-time pace for 6 s each, with the partial
      latency (arrival of a transcript minus the send of the latest
      chunk) p50/p90 and the overrun (stream close minus last send), as
-     scripts/bench_serving.py defines them.
-Then one JSON line with every kernel's numbers, and as the last line
+     scripts/bench_serving.py defines them;
+ 20. golden_beam: the golden beam and LM cases on the card, exact: char
+     beam (K 3), BPE beam + LM (K 3, alpha 0.2, beta 0.6) and BPE greedy
+     + LM offline at 1 s (no kernel launch) and padded to 3 s (B twice),
+     through engines (one graph replay a step; the beam flush of an
+     unpadded stream) and through servicers (unary and streams);
+ 21. full_width_beam: the model of 5 with config/base.yaml's LM (6
+     layers, 1024 wide, seeded) on the clips of 5: transcribe_beam (K 4,
+     3 rounds) without and with the LM, transcribe_batch with greedy LM
+     fusion, and int8 transcribe_beam, each counted (B 6 launches a
+     call, C 6 for int8) and timed (median of 7, the spread, RTF, peak
+     memory, tokens a frame);
+ 22. full_width_beam_emitting: that model with its joint sharpened
+     (_make_emitting; seeded, the joint is near uniform and no beam
+     emits): tokens a frame, transcribe_beam with and without the LM
+     timed, then beam search on the card's encoder output against the
+     same model and LM on the CPU (rows whose tokens match, at least
+     BEAM_ROWS_EQUAL; the largest score gap, at most BEAM_SCORE_GAP);
+ 23. streaming_full_width_beam: the sharpened model and LM in an engine
+     of 64 slots, K 4, 10 rounds a frame, alpha 0.2, int16 transfer:
+     graph replays against the uncaptured step (tokens equal, decode
+     state within 1e-6, commits and forced commits counted), then 5
+     pipelined passes: step host ms, a replay's device ms, real-time
+     share, peak memory, tokens committed and flushed, no kernel launch;
+ 24. serving_beam: the sharpened model behind ASRServicer(beam 4, LM,
+     alpha 0.2, beta 0.6): a unary 6 s clip (B 6 launches) and 64
+     streams paced at real time for 6 s each: partial latency p50/p90
+     against BASELINE.md's < 300 ms p50 bar, and overrun.
+Then one JSON line with every kernel's numbers (B and C also with their
+launches a transcribe_beam), and as the last line
 {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -118,6 +146,7 @@ port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -1762,18 +1791,21 @@ def _stream_clips(n: int, seed: int, sr: int = 16000, seconds: int = 6):
     return [audio[i, : lengths[i]] for i in range(n)]
 
 
-def _eager_vs_graph(eng, clips, steps: int = 8) -> dict:
+def _eager_vs_graph(eng, clips, steps: int = 8, state_tol=None) -> dict:
     """The first `steps` steps as graph replays (engine.step_batch), and
     the uncaptured step function on a copy of the state with the same
-    inputs: tokens equal; host ms of each, around a synchronize."""
+    inputs: tokens equal, and with `state_tol` the decode state's leaves
+    within it too; host ms of each, around a synchronize."""
     import numpy as np
     import torch
+
+    from libreasr_tpu_torch.models.streaming import _leaves
 
     n, c = eng.n, STREAM_CHUNK
     ref = eng.state.clone()
     ones = torch.ones(n, dtype=torch.bool, device=eng.device)
     zeros = torch.zeros(n, dtype=torch.bool, device=eng.device)
-    graph_ms, eager_ms, tokens = [], [], 0
+    graph_ms, eager_ms, tokens, state_diff = [], [], 0, 0.0
     for k in range(steps):
         chunks = np.stack([x[k * c : (k + 1) * c] for x in clips])[:, None]
         torch.cuda.synchronize()
@@ -1792,17 +1824,28 @@ def _eager_vs_graph(eng, clips, steps: int = 8) -> dict:
                 and np.array_equal(toks, packed[:, :-1])):
             raise AssertionError(f"graph replay and uncaptured step differ at "
                                  f"step {k} (N {n})")
+        if state_tol is not None:
+            state_diff = max([state_diff] + [
+                float((a.double() - b.double()).abs().max())
+                for a, b in zip(_leaves(eng.state.decode), _leaves(ref.decode))])
+            if state_diff > state_tol:
+                raise AssertionError(f"graph and uncaptured decode states differ "
+                                     f"by {state_diff} at step {k} (N {n})")
         tokens += int(lens.sum())
-    return {"graph_step_ms": graph_ms, "eager_step_ms": eager_ms,
-            "graph_step_ms_median": statistics.median(graph_ms[1:]),
-            "eager_step_ms_median": statistics.median(eager_ms[1:]),
-            "tokens_equal_steps": steps, "tokens": tokens}
+    out = {"graph_step_ms": graph_ms, "eager_step_ms": eager_ms,
+           "graph_step_ms_median": statistics.median(graph_ms[1:]),
+           "eager_step_ms_median": statistics.median(eager_ms[1:]),
+           "tokens_equal_steps": steps, "tokens": tokens}
+    if state_tol is not None:
+        out.update(decode_state_max_diff=state_diff, decode_state_tol=state_tol)
+    return out
 
 
-def _pipelined_pass(eng, clips) -> tuple[list[float], int, int]:
+def _pipelined_pass(eng, clips) -> tuple[list[float], int, int, int]:
     """One pass of the clips through fresh slots, a chunk per slot a
     step, dispatch k+1 before collect k. Returns (host ms a step, chunk
-    steps, tokens)."""
+    steps, tokens committed by the steps, tokens the closing flushes
+    added: beam mode only)."""
     c = STREAM_CHUNK
     slots = [eng.open_slot() for _ in clips]
     steps = max(len(x) for x in clips) // c
@@ -1821,7 +1864,8 @@ def _pipelined_pass(eng, clips) -> tuple[list[float], int, int]:
     tokens = sum(len(eng.emitted[s]) for s in slots)
     for s in slots:
         eng.close_slot(s)
-    return host_ms, sum(len(x) // c for x in clips), tokens
+    flushed = sum(len(eng.emitted[s]) for s in slots) - tokens
+    return host_ms, sum(len(x) // c for x in clips), tokens, flushed
 
 
 def phase_streaming_full_width(seed: int, card: str) -> None:
@@ -1849,7 +1893,7 @@ def phase_streaming_full_width(seed: int, card: str) -> None:
         first = _eager_vs_graph(eng, clips)
         passes, chunk_steps, tokens = [], 0, 0
         for _ in range(STREAM_PASSES):
-            ms, cs, tk = _pipelined_pass(eng, clips)
+            ms, cs, tk, _ = _pipelined_pass(eng, clips)
             passes.append(ms)
             chunk_steps, tokens = chunk_steps + cs, tokens + tk
         torch.cuda.synchronize()
@@ -1997,6 +2041,471 @@ def phase_serving(seed: int, card: str) -> None:
         raise AssertionError("serving at full width failed")
 
 
+# beam search and LM fusion: the golden test's weights (K 3 there), and
+# the full-width cells' K 4, 3 expansion rounds offline, 7 timed runs
+GOLDEN_BEAM = 3
+LM_ALPHA, LM_BETA = 0.2, 0.6
+BEAM_WIDTH, BEAM_EXPAND, BEAM_REPS = 4, 3, 7
+BEAM_STREAMS = 64
+# the seeded joint sharpened so that beams emit (_make_emitting), and
+# the card's beam search against the CPU's there
+EMIT_GAIN, EMIT_MASK = 256.0, 64.0
+BEAM_ROWS_EQUAL, BEAM_SCORE_GAP = 16, 1e-3
+
+
+def _counted(fn):
+    """fn() with every kernel launch count set to 0 just before and read
+    just after. Returns (result, {kernel: launches} of those launched)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_kernel_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _kernel_launches().items() if v}
+
+
+def _feed_through(eng, slot, pcm, pad: bool) -> str:
+    """pcm into one engine slot in 80 ms chunks (one zero chunk after it
+    when `pad`), then finish_slot (the final padded step and the beam
+    flush) and close. Returns every text the slot delivered."""
+    import numpy as np
+
+    text = "".join(eng.feed(slot, pcm[off : off + STREAM_CHUNK])
+                   for off in range(0, len(pcm), STREAM_CHUNK))
+    if pad:
+        text += eng.feed(slot, np.zeros(STREAM_CHUNK, np.float32))
+    text += eng.finish_slot(slot)
+    eng.close_slot(slot)
+    return text
+
+
+def phase_golden_beam() -> None:
+    """The five golden beam and LM cases on the card, offline, through
+    the engine (one graph replay a step) and through the servicer:
+    char beam (K 3), BPE beam + LM (K 3, alpha 0.2, beta 0.6) and BPE
+    greedy + LM. Offline at 1 s (no kernel launch) and padded to 3 s
+    (kernel B once per encoder layer); the beam flush of an unpadded
+    stream; raises unless every transcript is exact."""
+    import numpy as np
+
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.models.streaming import StreamingConfig, StreamingEngine
+    from libreasr_tpu_torch.serving import proto
+    from libreasr_tpu_torch.serving.server import ASRServicer
+
+    audio3 = _golden_audio(3)
+    lengths = np.full(8, 16000)
+    lm_kw = dict(use_lm=True, lm_alpha=LM_ALPHA, lm_beta=LM_BETA)
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        char = ASRBundle.from_bundle(os.path.join(GOLDEN, "model.tar.gz"),
+                                     device="cuda",
+                                     extract_to=os.path.join(tmp, "char"))
+        bpe = ASRBundle.from_bundle(os.path.join(GOLDEN, "model_bpe.tar.gz"),
+                                    device="cuda",
+                                    extract_to=os.path.join(tmp, "bpe"))
+    if char.lm is not None or bpe.lm is None:
+        raise AssertionError("golden_beam: the char bundle has no LM, the BPE one has")
+    offline = {
+        "beam": lambda a: char.transcribe_beam(a, lengths, beam_width=GOLDEN_BEAM)[0],
+        "beam_lm": lambda a: bpe.transcribe_beam(a, lengths,
+                                                 beam_width=GOLDEN_BEAM, **lm_kw)[0],
+        "greedy_lm": lambda a: bpe.transcribe_batch(a, lengths, use_lm=True)[0],
+    }
+    for name, fn in offline.items():
+        for label, clips, want in (("1s", audio3[:, :16000], {}),
+                                   ("3s", audio3, {"lstm_seq_cseq": 2})):
+            texts, launches = _counted(lambda: fn(clips))
+            log("golden_beam_offline", case=name, clips=label, texts=texts,
+                kernel_launches=launches, expected_launches=want)
+            if texts != GOLDEN_TEXTS or launches != want:
+                failures.append(f"offline {name} {label}")
+
+    # the engine cases of tests/test_golden_decode.py and test_serving.py:
+    # beam flush with no padding (clips 2 and 3), beam + LM on clip 2
+    # with a zero chunk after it (the one the JAX package pins: as in
+    # JAX, the streaming beam has no insertion bonus, and clip 3 decodes
+    # to nothing), greedy + LM on clips 2 and 3 padded
+    pcm = {i: audio3[i, :16000] for i in (2, 3)}
+    want2 = ["hello world", "stop now"]
+    engines = {
+        "beam": (StreamingEngine(char, n_streams=2, scfg=StreamingConfig(
+            beam_width=GOLDEN_BEAM)), False, want2),
+        "beam_lm": (StreamingEngine(bpe, n_streams=4, use_lm=True,
+                                    scfg=StreamingConfig(beam_width=GOLDEN_BEAM,
+                                                         lm_alpha=LM_ALPHA)),
+                    True, want2[:1]),
+        "greedy_lm": (StreamingEngine(bpe, n_streams=4, use_lm=True), True, want2),
+    }
+    for name, (eng, pad, want) in engines.items():
+        got, launches = _counted(lambda: [_feed_through(eng, eng.open_slot(),
+                                                        pcm[i], pad)
+                                          for i in (2, 3)[: len(want)]])
+        log("golden_beam_engine", case=name, texts=got, steps=eng.steps,
+            graph_replays=eng.replays, kernel_launches=launches)
+        if got != want or eng.replays != eng.steps or not eng.steps or launches:
+            failures.append(f"engine {name}")
+
+    # unary beam (+ LM) on the clip padded to 3 s, then streams: the char
+    # clips unpadded (the beam flush over the wire), the BPE one padded
+    zero = np.zeros(STREAM_CHUNK, np.float32)
+    servicers = {
+        "beam": (ASRServicer(char, engine=engines["beam"][0],
+                             beam_width=GOLDEN_BEAM), [pcm[2], pcm[3]]),
+        "beam_lm": (ASRServicer(bpe, engine=engines["beam_lm"][0],
+                                beam_width=GOLDEN_BEAM, **lm_kw),
+                    [np.concatenate([pcm[2], zero])]),
+    }
+    for name, (servicer, clips) in servicers.items():
+        try:
+            unary, launches = _counted(lambda: servicer.Transcribe(proto.Audio(
+                data=audio3[2].tobytes(), sr=16000)).data)
+            texts, _, _, errors = _stream_through(servicer, clips)
+        finally:
+            servicer.stepper.shutdown()
+        log("golden_beam_servicer", case=name, unary_3s=unary,
+            kernel_launches_unary=launches, streams=texts, errors=errors)
+        ok = [t is not None and t.endswith(w) for t, w in zip(texts, want2)]
+        if unary != "hello world" or launches != {"lstm_seq_cseq": 2} \
+                or not all(ok) or len(ok) != len(clips) or errors:
+            failures.append(f"servicer {name}")
+    if failures:
+        raise AssertionError(f"golden_beam: {failures}")
+
+
+def _lm_bundle(seed: int, device: str = "cuda", compute: str | None = None):
+    """config/base.yaml as written, seeded, with its `lm:` block's LM (6
+    layers, 1024 wide, V 2048, tied; seed + 1) handed to the bundle: the
+    config names no LM path, and from_config builds an LM only from one.
+    `compute` overrides the config's compute dtype (the same weights)."""
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.config import parse_and_apply_config
+    from libreasr_tpu_torch.models.lm import LM, LMConfig
+
+    conf = parse_and_apply_config(inference=True)
+    if compute is not None:
+        conf["dtypes"]["compute"] = compute
+    b = ASRBundle.from_config(conf, seed=seed, device=device)
+    lm = LM(LMConfig.from_config(conf), seed=seed + 1, device=device)
+    return ASRBundle(b.conf, b.model, b.lang, b.device, lm)
+
+
+def phase_full_width_beam(seed: int, card: str, bundle) -> dict:
+    """The full-width model with its LM on the 16 ragged 6 s clips:
+    transcribe_beam (K 4, 3 rounds) without and with the LM (alpha 0.2,
+    beta 0.6), transcribe_batch with greedy LM fusion, and transcribe_beam
+    on the port-quantized towers; each counted (B 6 launches, C 6 for
+    int8), then timed (median of 7 with the spread) with its RTF and
+    peak memory. Returns B's and C's launches a call."""
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.config import parse_and_apply_config
+
+    cfg = bundle.cfg
+    audio, lengths, _, _, _, flens = _full_width_clips(bundle, seed)
+    audio_s = float(lengths.sum()) / bundle.frontend.sr
+    flens_total = int(flens.sum())
+    beam_kw = dict(beam_width=BEAM_WIDTH, max_expand=BEAM_EXPAND)
+    lm_kw = dict(use_lm=True, lm_alpha=LM_ALPHA, lm_beta=LM_BETA)
+    qbundle = ASRBundle.from_config(parse_and_apply_config(inference=True),
+                                    seed=seed, device="cuda").quantize()
+    L = cfg.enc_num_layers
+    # each case: the user's call, timed, and the token-level call under
+    # it (token ids; a char vocabulary drops ids past its symbols)
+    runs = {
+        "beam": (lambda: bundle.transcribe_beam(audio, lengths, **beam_kw),
+                 lambda: bundle.beam_tokens(audio, lengths, **beam_kw),
+                 {"lstm_seq_cseq": L}),
+        "beam_lm": (lambda: bundle.transcribe_beam(audio, lengths, **beam_kw,
+                                                   **lm_kw),
+                    lambda: bundle.beam_tokens(audio, lengths, **beam_kw, **lm_kw),
+                    {"lstm_seq_cseq": L}),
+        "greedy_lm": (lambda: bundle.transcribe_batch(audio, lengths, use_lm=True),
+                      lambda: bundle.decode_tokens(audio, lengths, use_lm=True),
+                      {"lstm_seq_cseq": L}),
+        "beam_int8": (lambda: qbundle.transcribe_beam(audio, lengths, **beam_kw),
+                      lambda: qbundle.beam_tokens(audio, lengths, **beam_kw),
+                      {"lstm_seq_int8": L}),
+    }
+    out = {}
+    for name, (fn, tokens_fn, want) in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        (texts, second), launches = _counted(fn)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        finite = bool(np.isfinite(second if name != "greedy_lm"
+                                  else second["alignment_score"]).all())
+        if launches != want or len(texts) != len(lengths) or not finite:
+            raise AssertionError(f"full_width_beam {name}: launches {launches} "
+                                 f"(expected {want}), finite {finite}")
+        ms = wall_ms(fn, BEAM_REPS)
+        med = statistics.median(ms)
+        tokens = int(tokens_fn()[1].sum())
+        out[name] = launches
+        log("full_width_beam", card=card, case=name, n=len(lengths),
+            beam_width=BEAM_WIDTH if "beam" in name else None,
+            max_expand=BEAM_EXPAND,
+            # greedy fusion's alpha is transcribe_batch's fixed 0.1
+            lm_alpha={"beam_lm": LM_ALPHA, "greedy_lm": 0.1}.get(name),
+            lm_beta=LM_BETA if name == "beam_lm" else None,
+            ms_median=med, ms_runs=ms, ms_min=min(ms), ms_max=max(ms),
+            audio_seconds=audio_s, real_time_factor=med / 1e3 / audio_s,
+            peak_memory_mib=peak_mib, kernel_launches=launches,
+            tokens=tokens, tokens_per_frame=tokens / float(flens_total),
+            texts_sample=texts[:2])
+    del qbundle
+    return out
+
+
+def _make_emitting(bundle) -> None:
+    """Sharpen the seeded joint in place so that beams emit: its output
+    layer scaled by EMIT_GAIN, and the ids the bundle's vocabulary
+    cannot spell (specials, and a char vocabulary's ids past its
+    symbols) lowered by EMIT_MASK. Seeded, the joint is near uniform over V 2048: a
+    token costs about log 2048, the all-blank beam wins every frame, and
+    no commit, forced commit or flush would run. Sharpened, a beam emits
+    where a token leads the joint, as a trained model's does, and what
+    it emits spells text, so that a client sees partials."""
+    import torch
+
+    out = bundle.model.joint.out
+    blank = bundle.cfg.blank
+    mute = torch.tensor([i != blank and not bundle.lang.denumericalize([i])
+                         for i in range(bundle.cfg.vocab_sz)],
+                        device=out.bias.device)
+    with torch.no_grad():
+        out.kernel.mul_(EMIT_GAIN)
+        out.bias.mul_(EMIT_GAIN)
+        out.bias[mute] -= EMIT_MASK
+
+
+@contextlib.contextmanager
+def _count_commits(counts: dict):
+    """Count, in the uncaptured steps run inside, the streams whose beam
+    buffers forced a commit (counts["forced"]) and the tokens committed
+    (counts["committed"]): a wrapper of the engine's commit function
+    (the captured graph does not call Python)."""
+    from libreasr_tpu_torch.models import streaming
+
+    orig = streaming._beam_committed_prefix
+
+    def counted(beam, force_margin=0):
+        cap = beam.y_buf.shape[-1]
+        full = beam.y_len.max(dim=1).values >= cap - force_margin
+        toks, lens, rest = orig(beam, force_margin)
+        counts["forced"] += int(full.sum()) if force_margin > 0 else 0
+        counts["committed"] += int(lens.sum())
+        return toks, lens, rest
+
+    streaming._beam_committed_prefix = counted
+    try:
+        yield counts
+    finally:
+        streaming._beam_committed_prefix = orig
+
+
+def phase_full_width_beam_emitting(seed: int, card: str, bundle) -> None:
+    """The model and LM of full_width_beam with the joint sharpened
+    (_make_emitting): tokens a frame of beam, beam + LM and greedy + LM
+    on the 16 clips, transcribe_beam with and without the LM timed
+    (median of 7), then beam search on the card's encoder output, the
+    same model and LM sharpened alike in float32 on the card and on the
+    CPU: rows whose tokens match (at least BEAM_ROWS_EQUAL of 16) and
+    the largest score gap (at most BEAM_SCORE_GAP)."""
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch.models.beam import beam_decode
+
+    cfg = bundle.cfg
+    audio, lengths, _, _, _, flens = _full_width_clips(bundle, seed)
+    audio_s = float(lengths.sum()) / bundle.frontend.sr
+    frames = float(flens.sum())
+    beam_kw = dict(beam_width=BEAM_WIDTH, max_expand=BEAM_EXPAND)
+    lm_kw = dict(use_lm=True, lm_alpha=LM_ALPHA, lm_beta=LM_BETA)
+    row = dict(card=card, emit_gain=EMIT_GAIN, emit_mask=EMIT_MASK,
+               greedy_lm_tokens_per_frame=float(bundle.decode_tokens(
+                   audio, lengths, use_lm=True)[1].sum()) / frames)
+    for name, kw in (("beam", {}), ("beam_lm", lm_kw)):
+        (texts, scores), launches = _counted(
+            lambda: bundle.transcribe_beam(audio, lengths, **beam_kw, **kw))
+        want = {"lstm_seq_cseq": cfg.enc_num_layers}
+        if launches != want or not np.isfinite(scores).all():
+            raise AssertionError(f"full_width_beam_emitting {name}: launches "
+                                 f"{launches}, scores {scores}")
+        ms = wall_ms(lambda: bundle.transcribe_beam(audio, lengths, **beam_kw,
+                                                    **kw), BEAM_REPS)
+        tokens = int(bundle.beam_tokens(audio, lengths, **beam_kw, **kw)[1].sum())
+        row[name] = dict(ms_median=statistics.median(ms), ms_runs=ms,
+                         real_time_factor=statistics.median(ms) / 1e3 / audio_s,
+                         tokens_per_frame=tokens / frames, texts_sample=texts[:2])
+        if not tokens:
+            raise AssertionError(f"full_width_beam_emitting {name}: no token")
+    log("full_width_beam_emitting", **row)
+
+    # the card's decode against the CPU's on the card's encoder output,
+    # both in float32: in bf16 the sharpened logits (up to ~50) round by
+    # 0.25, so near-tied beams part between the two and the comparison
+    # would hold only what they share
+    f32 = {d: _lm_bundle(seed, device=d, compute="float32")
+           for d in ("cuda", "cpu")}
+    for b in f32.values():
+        _make_emitting(b)
+    with torch.inference_mode():
+        enc_out, flens = bundle._encode_audio(audio, lengths)
+        enc_out = enc_out.float()
+        for name, use_lm in (("beam", False), ("beam_lm", True)):
+            kw = dict(vocab_sz=cfg.vocab_sz, blank=cfg.blank, bos=cfg.bos,
+                      **beam_kw, max_tokens=256,
+                      lm_alpha=LM_ALPHA, lm_beta=LM_BETA)
+            ct, cl, cs = beam_decode(f32["cuda"].decoder_fns(use_lm=use_lm),
+                                     enc_out, flens, **kw)
+            t0 = time.perf_counter()
+            ht, hl, hs = beam_decode(f32["cpu"].decoder_fns(use_lm=use_lm),
+                                     enc_out.cpu(), flens.cpu(), **kw)
+            cpu_s = time.perf_counter() - t0
+            ct, cl, cs = ct.cpu(), cl.cpu(), cs.cpu()
+            match = sum(bool(cl[i] == hl[i] and torch.equal(ct[i, : cl[i]],
+                                                            ht[i, : hl[i]]))
+                        for i in range(len(cl)))
+            gap = float((cs - hs).abs().max())
+            log("full_width_beam_cuda_vs_cpu", case=name, compute="float32",
+                rows=len(cl), rows_tokens_equal=match,
+                rows_equal_min=BEAM_ROWS_EQUAL, max_score_gap=gap,
+                score_gap_max=BEAM_SCORE_GAP, tokens_cuda=int(cl.sum()),
+                tokens_cpu=int(hl.sum()),
+                score_range=[float(cs.min()), float(cs.max())],
+                cpu_seconds=cpu_s)
+            if not (torch.isfinite(cs).all() and torch.isfinite(hs).all()) \
+                    or match < BEAM_ROWS_EQUAL or gap > BEAM_SCORE_GAP \
+                    or not int(cl.sum()):
+                raise AssertionError(f"full_width_beam_emitting {name}: card "
+                                     f"against CPU, {match} rows equal, gap {gap}")
+    del f32
+
+
+def phase_streaming_full_width_beam(seed: int, card: str, bundle) -> None:
+    """The sharpened model and LM (_make_emitting) in an engine of 64
+    slots, K 4, 10 rounds a frame, alpha 0.2, int16 transfer: as many
+    steps as the shortest clip has chunks as graph replays against the
+    uncaptured step on a copy of the state (tokens equal, the decode
+    state within 1e-6; commits and forced commits counted), then 5
+    pipelined passes of ragged 3-6 s noise clips: the step's host ms, a
+    replay's device ms, the real-time share, peak memory, tokens
+    committed and flushed at close; no kernel launch (T = 1)."""
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch.models.streaming import StreamingConfig, StreamingEngine
+
+    scfg = StreamingConfig(sr=bundle.frontend.sr, transfer_dtype="int16",
+                           max_iters=bundle.conf["stream"]["max_iters"],
+                           beam_width=BEAM_WIDTH, lm_alpha=LM_ALPHA)
+    n = BEAM_STREAMS
+    clips = _stream_clips(n, seed + 7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_mib = torch.cuda.memory_allocated() / 2**20
+    _reset_kernel_launches()
+    t0 = time.perf_counter()
+    eng = StreamingEngine(bundle, n_streams=n, scfg=scfg, use_lm=True)
+    build_s = time.perf_counter() - t0
+    with _count_commits({"forced": 0, "committed": 0}) as eager:
+        first = _eager_vs_graph(eng, clips, min(len(x) for x in clips)
+                                // STREAM_CHUNK, state_tol=1e-6)
+    passes, chunk_steps, tokens, flushed = [], 0, 0, 0
+    for _ in range(STREAM_PASSES):
+        ms, cs, tk, fl = _pipelined_pass(eng, clips)
+        passes.append(ms)
+        chunk_steps, tokens, flushed = chunk_steps + cs, tokens + tk, flushed + fl
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    launches = {k: v for k, v in _kernel_launches().items() if v}
+    replay_ms = cuda_ms(lambda: eng._graph.replay(), reps=20)
+    medians = [statistics.median(p) for p in passes]
+    every = sorted(x for p in passes for x in p)
+    step_ms = statistics.median(medians)
+    log("streaming_full_width_beam", card=card, n_streams=n,
+        beam_width=scfg.beam_width, lm_alpha=scfg.lm_alpha, use_lm=True,
+        transfer_dtype=scfg.transfer_dtype, max_iters=scfg.max_iters,
+        emit_gain=EMIT_GAIN, emit_mask=EMIT_MASK,
+        build_and_capture_s=build_s, step_host_ms_median=step_ms,
+        step_host_ms_pass_medians=medians, step_host_ms_mean=statistics.fmean(every),
+        step_host_ms_p90=every[int(0.9 * (len(every) - 1))],
+        replay_device_ms=replay_ms, real_time_share=step_ms / scfg.chunk_ms,
+        tokens_per_chunk=tokens / max(chunk_steps, 1),
+        flushed_tokens=flushed, eager_committed_tokens=eager["committed"],
+        eager_forced_commits=eager["forced"], steps=eng.steps,
+        graph_replays=eng.replays, peak_memory_mib=peak_mib,
+        memory_before_mib=before_mib, kernel_launches=launches, **first)
+    if eng.replays != eng.steps or launches or not np.isfinite(step_ms) \
+            or not tokens or not flushed or not eager["forced"]:
+        raise AssertionError(f"streaming_full_width_beam: {eng.steps} steps, "
+                             f"{eng.replays} replays, launches {launches}, "
+                             f"{tokens} committed, {flushed} flushed, "
+                             f"{eager['forced']} forced commits")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_serving_beam(seed: int, card: str, bundle) -> None:
+    """The sharpened model and LM (_make_emitting) behind ASRServicer(beam 4, LM,
+    alpha 0.2, beta 0.6), its engine from the config's stream block (64
+    slots): one unary 6 s clip (transcribe_beam: kernel B once per
+    encoder layer), then 64 streams paced at real time for 6 s each:
+    partial latency p50/p90 and overrun against BASELINE.md's < 300 ms
+    p50 bar."""
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch.serving import proto
+    from libreasr_tpu_torch.serving.server import ASRServicer
+
+    torch.cuda.reset_peak_memory_stats()
+    before_mib = torch.cuda.memory_allocated() / 2**20
+    servicer = ASRServicer(bundle, beam_width=BEAM_WIDTH, use_lm=True,
+                           lm_alpha=LM_ALPHA, lm_beta=LM_BETA)
+    try:
+        eng = servicer.engine
+        clip = _stream_clips(1, seed)[0]
+        t0 = time.perf_counter()
+        unary, launches = _counted(lambda: servicer.Transcribe(
+            proto.Audio(data=clip.tobytes(), sr=16000)).data)
+        unary_ms = (time.perf_counter() - t0) * 1e3
+        rng = np.random.default_rng(seed + 1)
+        clips = [(rng.standard_normal(6 * 16000) * 0.1).astype(np.float32)
+                 for _ in range(BEAM_STREAMS)]
+        steps0 = eng.steps
+        (texts, lat, over, errors), stream_launches = _counted(
+            lambda: _stream_through(servicer, clips, paced=True))
+        timings = servicer.timings.snapshot()
+    finally:
+        servicer.stepper.shutdown()
+    want = {"lstm_seq_cseq": bundle.cfg.enc_num_layers}
+    lat_ms = np.array(lat) * 1e3
+    over_ms = np.array([o for o in over if o is not None]) * 1e3
+    p50 = float(np.percentile(lat_ms, 50)) if len(lat_ms) else None
+    log("serving_beam", card=card, n_streams=eng.n, beam_width=eng.scfg.beam_width,
+        use_lm=eng.use_lm, lm_alpha=eng.scfg.lm_alpha, lm_beta=servicer.lm_beta,
+        transfer_dtype=eng.scfg.transfer_dtype, unary_6s_ms=unary_ms,
+        unary_kernel_launches=launches, paced_streams=len(clips), seconds_each=6,
+        partial_latency_ms_p50=p50,
+        partial_latency_ms_p90=float(np.percentile(lat_ms, 90)) if len(lat_ms) else None,
+        partials=len(lat_ms), p50_under_300ms=None if p50 is None else p50 < 300,
+        overrun_ms_p50=float(np.percentile(over_ms, 50)) if len(over_ms) else None,
+        overrun_ms_p90=float(np.percentile(over_ms, 90)) if len(over_ms) else None,
+        tokens=int(sum(len(t) for t in texts if t)), steps=eng.steps - steps0,
+        graph_replays=eng.replays, stage_timings=timings,
+        peak_memory_mib=torch.cuda.max_memory_allocated() / 2**20,
+        memory_before_mib=before_mib, errors=errors[:3])
+    if launches != want or stream_launches or errors or p50 is None \
+            or len(over_ms) != len(clips) or any(t is None for t in texts) \
+            or eng.replays != eng.steps:
+        raise AssertionError("serving_beam at full width failed")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2043,6 +2552,18 @@ def main() -> int:
     phase_streaming_golden()
     phase_streaming_full_width(args.seed, card)
     phase_serving(args.seed, card)
+    torch.cuda.synchronize()
+    phase_golden_beam()
+    lm_bundle = _lm_bundle(args.seed)
+    beam_launches = phase_full_width_beam(args.seed, card, lm_bundle)
+    for row in rows:  # B and C per transcribe_beam, float and int8
+        key = "beam_int8" if row["name"] == "lstm_seq_int8" else "beam"
+        row["launches_transcribe_beam"] = beam_launches[key].get(row["name"], 0)
+    _make_emitting(lm_bundle)
+    phase_full_width_beam_emitting(args.seed, card, lm_bundle)
+    phase_streaming_full_width_beam(args.seed, card, lm_bundle)
+    phase_serving_beam(args.seed, card, lm_bundle)
+    del lm_bundle
     torch.cuda.synchronize()
     rows += joint_rows(args.seed, worst_joint, launches)
     rows += train_kernel_rows(args.seed, worst_train, launches)

@@ -78,10 +78,12 @@ def msgpack_restore(data: bytes) -> dict:
 
 
 def save_bundle(out_path: str, lang_name: str, variables: dict, conf: dict,
-                tokenizer_file: str | None = None) -> str:
+                tokenizer_file: str | None = None,
+                lm_variables: dict | None = None) -> str:
     """Write a release tar.gz as the JAX package's save_bundle does:
     {lang}/model.msgpack (the variables dict of numpy arrays), the
-    resolved {lang}/config.json and, when given, the tokenizer model as
+    resolved {lang}/config.json and, when given, the LM's variables as
+    {lang}/lm.msgpack and the tokenizer model as
     {lang}/tokenizer.labpe-model."""
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -89,6 +91,9 @@ def save_bundle(out_path: str, lang_name: str, variables: dict, conf: dict,
         os.makedirs(d)
         with open(os.path.join(d, "model.msgpack"), "wb") as f:
             f.write(msgpack_serialize(variables))
+        if lm_variables is not None:
+            with open(os.path.join(d, "lm.msgpack"), "wb") as f:
+                f.write(msgpack_serialize(lm_variables))
         if tokenizer_file and os.path.exists(tokenizer_file):
             shutil.copy(tokenizer_file, os.path.join(d, "tokenizer.labpe-model"))
         with open(os.path.join(d, "config.json"), "w") as f:
@@ -111,23 +116,30 @@ def read_bundle_conf(path: str, lang_name: str) -> dict:
 def load_bundle(path: str, lang_name: str, extract_to: str = "./tmp"):
     """Extract a bundle. Returns (variables, tokenizer_path_or_None,
     lm_bytes_or_None, conf); variables is the nested
-    {"params": ..., "batch_stats": ...} dict of numpy arrays."""
+    {"params": ..., "batch_stats": ...} dict of numpy arrays.
+
+    Which members exist is read from the archive's member list, never
+    from what lies in `extract_to`: a bundle without a tokenizer or an
+    LM, extracted where another bundle was extracted before, must not
+    pick up that bundle's files."""
     os.makedirs(extract_to, exist_ok=True)
-    with tarfile.open(path, "r:gz") as tar:
-        tar.extractall(extract_to, filter="data")
     d = os.path.join(extract_to, lang_name)
-    with open(os.path.join(d, "model.msgpack"), "rb") as f:
-        variables = msgpack_restore(f.read())
-    tok = os.path.join(d, "tokenizer.labpe-model")
-    tok = tok if os.path.exists(tok) else None
-    lm_bytes = None
-    lm_path = os.path.join(d, "lm.msgpack")
-    if os.path.exists(lm_path):
-        with open(lm_path, "rb") as f:
-            lm_bytes = f.read()
-    conf = {}
-    conf_path = os.path.join(d, "config.json")
-    if os.path.exists(conf_path):
-        with open(conf_path) as f:
-            conf = json.load(f)
+    with tarfile.open(path, "r:gz") as tar:
+        members = set(tar.getnames())
+
+        def read(name):
+            member = f"{lang_name}/{name}"
+            return tar.extractfile(member).read() if member in members else None
+
+        model_bytes = read("model.msgpack")
+        if model_bytes is None:
+            raise FileNotFoundError(f"{path}: no {lang_name}/model.msgpack")
+        variables = msgpack_restore(model_bytes)
+        lm_bytes = read("lm.msgpack")
+        conf_bytes = read("config.json")
+        tar.extractall(extract_to, filter="data")
+    tok = None
+    if f"{lang_name}/tokenizer.labpe-model" in members:
+        tok = os.path.join(d, "tokenizer.labpe-model")
+    conf = json.loads(conf_bytes) if conf_bytes is not None else {}
     return variables, tok, lm_bytes, conf

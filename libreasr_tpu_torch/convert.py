@@ -80,3 +80,22 @@ def export_variables(model: torch.nn.Module) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = t.detach().cpu().numpy().copy()
     return {c: tree for c, tree in out.items() if tree}
+
+
+def load_jax_lm_variables(lm: torch.nn.Module, variables: dict) -> None:
+    """Copy a JAX LM's variables into the port's models.lm.LM: the flax
+    tree {"params": {"embed": {"embedding"}, "lstm{i}": {"kernel",
+    "recurrent_kernel", "bias"}, "out": {"kernel", "bias"}}} of numpy
+    arrays, as checkpoint.msgpack_restore reads a bundle's lm.msgpack
+    ("out" only when the LM is untied). The names are the port's, so
+    this is load_jax_variables with the same checks: every tensor
+    filled, every leaf used, shapes equal."""
+    if set(variables) - {"params"}:
+        raise ValueError(f"an LM has params only, got {sorted(variables)}")
+    load_jax_variables(lm, variables)
+
+
+def export_lm_variables(lm: torch.nn.Module) -> dict:
+    """The inverse of load_jax_lm_variables: {"params": ...} of numpy
+    arrays, the tree the JAX package serializes into lm.msgpack."""
+    return export_variables(lm)

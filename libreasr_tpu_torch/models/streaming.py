@@ -1,5 +1,6 @@
 """Batched streaming engine: N streams advance in lockstep, one step per
-80 ms chunk (the JAX package's models/streaming.py, greedy mode).
+80 ms chunk (the JAX package's models/streaming.py), greedy or beam
+search, either with LM fusion.
 
 The frontend is incremental and exact: a stream carries
 (n_fft/2 + d*hop) samples and (n_stack - downsample + d) mel frames, so
@@ -20,8 +21,15 @@ every step is one replay of it; a k-deep chained dispatch is k replays.
 On the CPU the same function runs eagerly. A capture that fails raises:
 there is no eager path on the card.
 
-Beam search, LM fusion and multi-GPU sharding are not ported; asking for
-them raises NotImplementedError.
+Greedy mode decodes up to `max_iters` rounds a frame (decode_frame, LM
+fusion inside the same step when `use_lm`) and emits every token at
+once. Beam mode (`beam_width` > 1) runs `max_iters` masked expansion
+rounds a frame (beam_frame, LM state per beam) and keeps each beam's
+uncommitted tokens across steps, in a [N, K, beam_buf_tokens] buffer: a
+step emits the prefix every live beam agrees on, so partials never
+retract, and `flush_slot` commits the best beam's tail when a stream
+ends. Multi-GPU sharding is not ported; asking for it raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,15 +43,15 @@ import torch
 
 from .. import resolve_device
 from ..ops.frontend import FrontendConfig, dft_mel_matrices
-from .decode import DecodeState, DecoderFns, decode_frame, init_decode_state
+from .beam import (BeamState, beam_frame, collapse_to_best, init_beam_state,
+                   repeat_rows)
+from .decode import DecodeState, decode_frame, init_decode_state
 from .transducer import learnable_states
 
 # backlog-recovery chain depths the serving stepper escalates through
 # (powers of two; the last is its cap)
 CHAIN_DEPTHS = (2, 4, 8)
 
-_BEAM_LM = ("streaming beam search and LM fusion are not ported yet "
-            "(ROADMAP.md queue 1 item 3)")
 _MESH = ("a StreamingEngine sharded over several devices is not ported "
          "yet (ROADMAP.md queue 1 item 7)")
 
@@ -56,8 +64,10 @@ class StreamingConfig:
     max_iters: int = 10          # decode rounds per frame
     reset_thresh_ms: int = 4000  # silence auto-reset
     max_tokens_per_step: int = 32
-    beam_width: int = 0          # 0/1 = greedy; beam is not ported
-    beam_buf_tokens: int = 64
+    # beam search: tokens are committed once every live beam agrees on
+    # them (prefix agreement), so partials never retract
+    beam_width: int = 0          # 0/1 = greedy
+    beam_buf_tokens: int = 64    # per-beam uncommitted-token window
     lm_alpha: float = 0.1
     # host->device PCM codec: "int16" halves the upload bytes (error
     # 3e-5, below any 16-bit capture chain's noise); "float32" keeps
@@ -65,8 +75,6 @@ class StreamingConfig:
     transfer_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.beam_width > 1:
-            raise NotImplementedError(f"libreasr_tpu_torch: {_BEAM_LM}")
         if self.transfer_dtype not in ("float32", "int16"):
             raise ValueError(f"transfer_dtype {self.transfer_dtype!r}: "
                              "expected 'float32' or 'int16'")
@@ -118,6 +126,62 @@ def _leaves(tree) -> list[torch.Tensor]:
     return out
 
 
+def _select(mask, new, old):
+    """Per-stream select over a state tree; mask [N]. A leaf of N*K rows
+    (a beam state's predictor and LM carries) takes each stream's value
+    for its K rows (repeat_rows: jnp.repeat(mask, k), not a tiling)."""
+    n = mask.shape[0]
+
+    def sel(a, b):
+        m = mask if a.shape[0] == n else repeat_rows(mask, a.shape[0] // n)
+        return torch.where(m.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    return _tree_map(sel, new, old)
+
+
+def _beam_committed_prefix(beam: BeamState, force_margin: int = 0):
+    """The longest token prefix every live beam agrees on, per stream.
+
+    Returns (tokens [N, cap] from the best beam, zero past the length,
+    lengths [N], the beam state with that prefix dropped from every
+    buffer).
+
+    force_margin > 0 adds a saturation fallback: a stream whose largest
+    uncommitted buffer is within `force_margin` tokens of capacity
+    commits its best beam's whole buffer and collapses its pool to that
+    beam, so that no token is dropped on a stream whose beams never
+    agree."""
+    n, k, cap = beam.y_buf.shape
+    dev = beam.y_buf.device
+    live = beam.scores > -1e29                                # [N, K]
+    best = torch.argmax(beam.scores, dim=1)                   # [N]
+    ref = beam.y_buf.gather(1, best[:, None, None].expand(n, 1, cap))
+    ref_len = beam.y_len.gather(1, best[:, None])             # [N, 1]
+    pos = torch.arange(cap, device=dev)
+    # beam k agrees at position j if it is dead, or holds ref's token there
+    agree = (((beam.y_buf == ref) & (pos < beam.y_len[:, :, None]))
+             | ~live[:, :, None])
+    agree_all = agree.all(dim=1) & (pos[None, :] < ref_len)  # [N, cap]
+    commit_len = torch.cumprod(agree_all.long(), dim=1).sum(dim=1)
+
+    # shift every beam's buffer left by commit_len
+    idx = (pos[None, None, :] + commit_len[:, None, None]).clamp(0, cap - 1)
+    shifted = beam.y_buf.gather(2, idx.expand(n, k, cap))
+    rest = beam.y_len - commit_len[:, None]
+    shifted = torch.where(pos < rest[:, :, None], shifted, 0)
+    new_beam = dataclasses.replace(beam, y_buf=shifted, y_len=rest.clamp(min=0))
+    committed = torch.where(pos[None, :] < commit_len[:, None], ref[:, 0, :], 0)
+
+    if force_margin > 0:
+        force = beam.y_len.max(dim=1).values >= cap - force_margin   # [N]
+        committed = torch.where(
+            force[:, None],
+            torch.where(pos[None, :] < ref_len, ref[:, 0, :], 0), committed)
+        commit_len = torch.where(force, ref_len[:, 0], commit_len)
+        new_beam = _select(force, collapse_to_best(beam), new_beam)
+    return committed, commit_len, new_beam
+
+
 @dataclass(frozen=True)
 class StreamState:
     enc_state: Any            # per encoder layer, (h, c) each [N, H]
@@ -155,13 +219,16 @@ class StreamingEngine:
     def __init__(self, bundle, n_streams: int = 64,
                  scfg: StreamingConfig | None = None, use_lm: bool = False,
                  mesh=None):
-        if use_lm:
-            raise NotImplementedError(f"libreasr_tpu_torch: {_BEAM_LM}")
+        """use_lm: fuse the bundle's LM (greedy: standardized, alpha 0.1;
+        beam: log-linear, scfg.lm_alpha); as in JAX, a bundle without an
+        LM decodes without."""
         if mesh is not None:
             raise NotImplementedError(f"libreasr_tpu_torch: {_MESH}")
         self.bundle = bundle
         self.n = n_streams
         self.scfg = scfg or StreamingConfig(sr=bundle.frontend.sr)
+        self.beam = self.scfg.beam_width > 1
+        self.use_lm = use_lm
         self.cfg = bundle.cfg
         self.frontend: FrontendConfig = bundle.frontend
         if self.frontend.deltas:
@@ -180,8 +247,7 @@ class StreamingEngine:
         # their addresses): a bundle that swaps its model afterwards
         # (quantize) is refused, never served the old weights
         self.model = bundle.model
-        self.fns = DecoderFns(predict_step=self.model.predict,
-                              joint_step=self.model.joint_step)
+        self.fns = bundle.decoder_fns(use_lm=use_lm)
         (self._frames_per_chunk, _, self._sample_carry_len,
          self._mel_carry_len) = _stream_geometry(self.frontend,
                                                  self.scfg.chunk_samples)
@@ -207,9 +273,10 @@ class StreamingEngine:
             self.state = self._init_state()
             # BOS-primed decode state: the reset template (read only)
             self._fresh_dec = self._init_decode()
-            self._packed = torch.zeros(
-                (self.n, self.scfg.max_tokens_per_step + 1), dtype=torch.int32,
-                device=self.device)
+            width = (self.scfg.beam_buf_tokens if self.beam
+                     else self.scfg.max_tokens_per_step)
+            self._packed = torch.zeros((self.n, width + 1), dtype=torch.int32,
+                                       device=self.device)
         self._graph = self._capture() if self.device.type == "cuda" else None
 
         # host-side slot bookkeeping. PCM lives in ONE [N, cap] ring
@@ -228,6 +295,7 @@ class StreamingEngine:
         self.silence_ms = np.zeros(self.n, np.int64)
         self.active = np.zeros(self.n, bool)
         self._pending_reset_arr = np.zeros(self.n, bool)
+        self._flushed = np.zeros(self.n, bool)  # beam tail already committed
         # bumped when a slot resets/reopens; pipelined collects of steps
         # dispatched before the bump skip the slot (stale outputs)
         self._reset_epoch = np.zeros(self.n, np.int64)
@@ -240,9 +308,16 @@ class StreamingEngine:
 
     # ---- the step --------------------------------------------------------
 
-    def _init_decode(self) -> DecodeState:
-        return init_decode_state(self.fns, self.n, bos=self.cfg.bos,
-                                 max_tokens=self.scfg.max_tokens_per_step,
+    def _init_decode(self) -> DecodeState | BeamState:
+        cfg, scfg = self.cfg, self.scfg
+        if self.beam:
+            return init_beam_state(self.fns, self.n, scfg.beam_width,
+                                   cfg.vocab_sz, bos=cfg.bos,
+                                   max_tokens=scfg.beam_buf_tokens,
+                                   device=self.device)
+        return init_decode_state(self.fns, self.n, vocab_sz=cfg.vocab_sz,
+                                 bos=cfg.bos,
+                                 max_tokens=scfg.max_tokens_per_step,
                                  device=self.device)
 
     def _init_state(self) -> StreamState:
@@ -287,8 +362,9 @@ class StreamingEngine:
         """One engine step as a plain function of tensors (no host sync,
         no branch on a tensor's value; `state` is not modified).
         chunks: [N, n_buffer, C] in the wire dtype; valid/reset: [N]
-        bool. Returns (new state, packed [N, K+1] int32: this step's
-        tokens and, in the last column, their count)."""
+        bool. Returns (new state, packed [N, W+1] int32: this step's
+        committed tokens and, in the last column, their count; W is
+        max_tokens_per_step, or beam_buf_tokens in beam mode)."""
         fe, cfg, scfg = self.frontend, self.cfg, self.scfg
         if chunks.dtype == torch.int16:
             # dequantize the wire codec before anything reads the samples
@@ -297,24 +373,22 @@ class StreamingEngine:
 
         # --- per-stream reset (masked state swap) ----------------------
         do_reset = reset | ~state.started
-
-        def sel(new, old):
-            return torch.where(do_reset.reshape((-1,) + (1,) * (new.dim() - 1)),
-                               new, old)
-
-        dec = _tree_map(sel, self._fresh_dec, state.decode)
-        enc_state = _tree_map(sel, learnable_states(self.model, "encoder", n),
-                              state.enc_state)
+        dec = _select(do_reset, self._fresh_dec, state.decode)
+        enc_state = _select(do_reset, learnable_states(self.model, "encoder", n),
+                            state.enc_state)
         # on reset the sample carry is the reflect padding of the
         # incoming chunk's head: the prefix batch framing (center=True,
         # reflect) uses, so stream features equal batch features
         reflect = chunks[:, 0, 1 : self._sample_carry_len + 1].flip(1)
-        sample_carry = sel(reflect, state.sample_carry)
-        mel_carry = sel(torch.zeros_like(state.mel_carry), state.mel_carry)
+        sample_carry = _select(do_reset, reflect, state.sample_carry)
+        mel_carry = _select(do_reset, torch.zeros_like(state.mel_carry),
+                            state.mel_carry)
         primed = state.primed & ~do_reset
-        # fresh token buffers each step: emissions are per step
-        dec = dataclasses.replace(dec, y_buf=torch.zeros_like(dec.y_buf),
-                                  y_len=torch.zeros_like(dec.y_len))
+        if not self.beam:
+            # fresh token buffers each step: greedy emissions are per
+            # step (beam buffers hold the uncommitted tokens across steps)
+            dec = dataclasses.replace(dec, y_buf=torch.zeros_like(dec.y_buf),
+                                      y_len=torch.zeros_like(dec.y_len))
 
         # --- incremental frontend + per-frame encode/decode ------------
         # a stream's first frame after a reset is pipeline warmup (its
@@ -331,18 +405,29 @@ class StreamingEngine:
             enc_state = _tree_map(
                 lambda a, b_: torch.where(real[:, None], a, b_),
                 enc_new, enc_state)
-            dec = decode_frame(self.fns, dec, enc_out[:, 0, :], real,
-                               blank=cfg.blank, max_iters=scfg.max_iters,
-                               early_exit=False)
+            if self.beam:
+                dec = beam_frame(self.fns, dec, enc_out[:, 0, :], real,
+                                 blank=cfg.blank, max_expand=scfg.max_iters,
+                                 lm_alpha=scfg.lm_alpha, early_exit=False)
+            else:
+                dec = decode_frame(self.fns, dec, enc_out[:, 0, :], real,
+                                   blank=cfg.blank, max_iters=scfg.max_iters,
+                                   early_exit=False)
             primed = primed | valid
 
+        if self.beam:
+            # margin: the most tokens a step can append between commits
+            toks, lens, dec = _beam_committed_prefix(
+                dec, force_margin=scfg.n_buffer * scfg.max_iters)
+        else:
+            toks, lens = dec.y_buf, dec.y_len
         new_state = StreamState(
             enc_state=enc_state, decode=dec, sample_carry=sample_carry,
             mel_carry=mel_carry, started=state.started | valid | reset,
             primed=primed,
         )
-        packed = torch.cat([dec.y_buf.to(torch.int32),
-                            dec.y_len.to(torch.int32)[:, None]], dim=1)
+        packed = torch.cat([toks.to(torch.int32),
+                            lens.to(torch.int32)[:, None]], dim=1)
         return new_state, packed
 
     def _step_in_place(self) -> None:
@@ -448,6 +533,7 @@ class StreamingEngine:
                 self.outbox[i] = []
                 self.silence_ms[i] = 0
                 self._eos_done[i] = False
+                self._flushed[i] = False
                 self._pending_reset_arr[i] = True
                 self._reset_epoch[i] += 1  # invalidate in-flight collects
                 self._inflight[i] = 0  # fresh stream: old steps are stale
@@ -459,8 +545,38 @@ class StreamingEngine:
         self.active[slot] = False
 
     def flush_slot(self, slot: int):
-        """Commits a beam's uncommitted tail in the JAX package; greedy
-        emissions are committed every step, so there is nothing to do."""
+        """Beam mode: commit the best beam's uncommitted tail when the
+        stream ends, cut at EOS, into `emitted` and the outbox (so that
+        the wire sees it too), and mark the slot for reset. Greedy
+        emissions are committed every step: nothing to do.
+
+        The tail is read from the state on the host, which waits for
+        every replay enqueued so far. A replay in which this slot is not
+        valid leaves its beam state as it was, so those are harmless;
+        but the slot's own dispatched steps must have been collected
+        first, or their committed tokens would land after the tail:
+        with any in flight this raises."""
+        if not self.beam or self._eos_done[slot] or self._flushed[slot]:
+            return
+        if self._inflight[slot]:
+            raise RuntimeError(
+                f"flush_slot({slot}): {int(self._inflight[slot])} dispatched "
+                "step(s) of this slot are not collected yet")
+        self._flushed[slot] = True
+        beam = self.state.decode
+        best = int(torch.argmax(beam.scores[slot]))
+        n_rest = int(beam.y_len[slot, best])
+        if n_rest > 0:
+            ids = beam.y_buf[slot, best, :n_rest].tolist()
+            eos = getattr(self.bundle.lang, "eos", None)
+            if eos is not None and eos in ids:
+                ids = ids[: ids.index(eos)]
+                self._eos_done[slot] = True
+            if ids:
+                self.emitted[slot].extend(ids)
+                self.outbox[slot].append(self.bundle.lang.denumericalize(ids))
+            # the next step of this slot starts from a fresh beam state
+            self._pending_reset_arr[slot] = True
 
     @property
     def _pending_reset(self):

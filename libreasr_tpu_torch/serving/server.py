@@ -1,16 +1,18 @@
-"""gRPC model server (the JAX package's serving/server.py, greedy).
+"""gRPC model server (the JAX package's serving/server.py).
 
 One process per language (ports en:50051 de:50052 fr:50053). Every
 streaming connection is a slot of one batched StreamingEngine, so all
 live streams share one device step (one CUDA graph replay on the card);
-the unary `Transcribe` runs `transcribe_batch` (kernel B, or C for an
-int8 bundle, on clips of 16 or more stacked frames).
+the unary `Transcribe` runs `transcribe_batch`, or `transcribe_beam`
+with `--beam` > 1 (kernel B, or C for an int8 bundle, on clips of 16 or
+more stacked frames). `--use-lm` fuses the bundle's LM into both
+(`--lm-alpha`, and `--lm-beta`, the insertion bonus of beam search).
 
-    python -m libreasr_tpu_torch.serving.server --bundle model.tar.gz
+    python -m libreasr_tpu_torch.serving.server --bundle model.tar.gz \
+        [--beam 4 --use-lm --lm-alpha 0.2 --lm-beta 0.6]
 
 The server runs on the card unless `--device cpu` is given; without a
-card it raises. Beam search and LM fusion are not ported: asking for
-them raises NotImplementedError.
+card it raises.
 """
 
 from __future__ import annotations
@@ -278,28 +280,37 @@ class ASRServicer:
     """Implements ASR.ASR: unary Transcribe and TranscribeStream."""
 
     def __init__(self, bundle, engine=None, max_streams: int = 64,
-                 beam_width: int = 0, use_lm: bool = False):
-        if beam_width > 1 or use_lm:
-            raise NotImplementedError(
-                "libreasr_tpu_torch: beam search and LM fusion are not ported "
-                "yet (ROADMAP.md queue 1 item 3)")
+                 beam_width: int = 0, use_lm: bool = False,
+                 lm_alpha: float | None = None,
+                 lm_beta: float | None = None):
+        """beam_width > 1: the unary Transcribe runs beam search. An
+        engine built here beams with beam_width, or else with the
+        bundle's `stream.beam_width`, and fuses the LM when use_lm and
+        the bundle has one. The fusion weights come from the arguments,
+        else the bundle's `stream` block, else 0.1 / 0.0."""
         self.bundle = bundle
+        self.beam_width = beam_width
+        self.use_lm = use_lm
+        sc = bundle.conf.get("stream", {}) or {}
+        self.lm_alpha = sc.get("lm_alpha", 0.1) if lm_alpha is None else lm_alpha
+        self.lm_beta = sc.get("lm_beta", 0.0) if lm_beta is None else lm_beta
         if engine is None:
             from ..models.streaming import StreamingConfig, StreamingEngine
 
-            sc = bundle.conf.get("stream", {}) or {}
             scfg = StreamingConfig(
                 sr=bundle.frontend.sr,
                 n_buffer=sc.get("n_buffer", 1),
                 max_iters=sc.get("max_iters", 10),
                 reset_thresh_ms=sc.get("reset_thresh", 4000),
-                beam_width=sc.get("beam_width", 0),
+                beam_width=beam_width or sc.get("beam_width", 0),
+                lm_alpha=self.lm_alpha,
                 # int16 PCM upload by default: half the host->device
                 # bytes, lossless for 16-bit capture chains
                 transfer_dtype=sc.get("transfer_dtype", "int16"),
             )
             engine = StreamingEngine(
-                bundle, n_streams=sc.get("max_streams", max_streams), scfg=scfg)
+                bundle, n_streams=sc.get("max_streams", max_streams), scfg=scfg,
+                use_lm=use_lm and bundle.lm is not None)
         self.engine = engine
         self.timings = StageTimings()
         self.stepper = BatchStepper(engine, self.timings)
@@ -320,7 +331,14 @@ class ASRServicer:
         pcm = self._pcm(request)
         self.timings.record("preprocess", time.perf_counter() - t0)
         t1 = time.perf_counter()
-        text, _ = self.bundle.transcribe(pcm)
+        if self.beam_width > 1:
+            text, _ = self.bundle.transcribe_beam(
+                pcm, beam_width=self.beam_width, use_lm=self.use_lm,
+                lm_alpha=self.lm_alpha, lm_beta=self.lm_beta)
+        else:
+            # greedy unary decodes without the LM, as in JAX (use_lm
+            # reaches the unary call through beam search only)
+            text, _ = self.bundle.transcribe(pcm)
         self.timings.record("transcribe", time.perf_counter() - t1)
         return proto.Transcript(data=text)
 
@@ -330,7 +348,8 @@ class ASRServicer:
         """80 ms wire chunks in -> transcript fragments out. A pump thread
         drains the request iterator into the shared BatchStepper; this
         generator yields text as the stepper delivers it, including the
-        end-of-stream flush (the final padded step)."""
+        end-of-stream flush (the final padded step, and in beam mode the
+        best beam's uncommitted tail)."""
         try:
             handle = self.stepper.open()
         except RuntimeError:
@@ -363,13 +382,14 @@ class ASRServicer:
 
 
 def make_server(bundle, port: int, workers: int = 128, engine=None,
-                beam_width: int = 0, use_lm: bool = False):
+                beam_width: int = 0, use_lm: bool = False,
+                lm_alpha: float | None = None, lm_beta: float | None = None):
     """A grpc server with hand-written method handlers (no generated
     stubs). Returns (server, servicer); the caller starts it."""
     import grpc
 
     servicer = ASRServicer(bundle, engine=engine, beam_width=beam_width,
-                           use_lm=use_lm)
+                           use_lm=use_lm, lm_alpha=lm_alpha, lm_beta=lm_beta)
     handlers = {
         "Transcribe": grpc.unary_unary_rpc_method_handler(
             servicer.Transcribe,
@@ -391,7 +411,9 @@ def make_server(bundle, port: int, workers: int = 128, engine=None,
 
 
 def serve(lang: str = "en", port: int | None = None, config: str | None = None,
-          bundle_path: str | None = None, device=None):
+          bundle_path: str | None = None, beam: int = 0, use_lm: bool = False,
+          lm_alpha: float | None = None, lm_beta: float | None = None,
+          device=None):
     """Load a bundle (or a seeded random model of `config`) on `device`
     (None: cuda, raising without it), warm the stream step and serve."""
     from ..api import ASRBundle
@@ -404,10 +426,13 @@ def serve(lang: str = "en", port: int | None = None, config: str | None = None,
         conf = parse_and_apply_config(inference=True, lang=lang, path=config)
         bundle = ASRBundle.from_config(conf, lang_name=lang, device=device)
     port = port or LANG_PORTS.get(lang, 50051)
-    server, servicer = make_server(bundle, port)
+    server, servicer = make_server(bundle, port, beam_width=beam,
+                                   use_lm=use_lm, lm_alpha=lm_alpha,
+                                   lm_beta=lm_beta)
     servicer.engine.warmup(chain_depths=CHAIN_DEPTHS)
     server.start()
-    print(f"[api-server] lang={lang} listening on :{port}")
+    print(f"[api-server] lang={lang} listening on :{port}"
+          + (f" (beam={beam})" if beam > 1 else ""))
     server.wait_for_termination()
 
 
@@ -417,10 +442,21 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=None)
     p.add_argument("--config", default=None)
     p.add_argument("--bundle", default=None, help="release tar.gz to serve")
+    p.add_argument("--beam", type=int, default=0,
+                   help="beam width of the unary Transcribe and of the "
+                        "streaming engine (0: the bundle's stream.beam_width)")
+    p.add_argument("--use-lm", action="store_true",
+                   help="fuse the bundle's LM")
+    p.add_argument("--lm-alpha", type=float, default=None,
+                   help="LM fusion weight (default: the bundle's stream "
+                        "block, else 0.1)")
+    p.add_argument("--lm-beta", type=float, default=None,
+                   help="token insertion bonus of beam+LM decoding")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     a = p.parse_args(argv)
-    serve(a.lang, a.port, a.config, a.bundle, device=a.device)
+    serve(a.lang, a.port, a.config, a.bundle, a.beam, a.use_lm,
+          lm_alpha=a.lm_alpha, lm_beta=a.lm_beta, device=a.device)
 
 
 if __name__ == "__main__":

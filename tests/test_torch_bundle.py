@@ -127,4 +127,32 @@ def test_save_bundle_layout_reads_in_jax(tmp_path):
         np.testing.assert_array_equal(have[k], v, err_msg=k)
     with open(tok, "rb") as a, open(ref_tok, "rb") as b:
         assert a.read() == b.read()
-    assert ref_lm is None  # the port has no LM to write
+    assert ref_lm is None  # no lm_variables were given
+
+
+def test_char_bundle_extracted_over_bpe_bundle_loads_clean(tmp_path):
+    """load_bundle decides which members exist from the archive, not from
+    the directory: the char golden bundle extracted where the BPE one was
+    extracted before loads with no LM and the char tokenizer, and
+    transcribes the 8 golden clips exactly (it used to pick up the BPE
+    bundle's tokenizer and V-64 LM left in the directory)."""
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.data.audio import read_wav
+    from libreasr_tpu_torch.data.language import CharLanguage
+
+    d = str(tmp_path / "shared")
+    bpe = ASRBundle.from_bundle(os.path.join(FIXTURES, "model_bpe.tar.gz"),
+                                extract_to=d, device="cpu")
+    assert bpe.lm is not None and not isinstance(bpe.lang, CharLanguage)
+    assert os.path.exists(os.path.join(d, "en", "lm.msgpack"))
+    char_path = os.path.join(FIXTURES, "model.tar.gz")
+    _, tok, lm, _ = torch_ckpt.load_bundle(char_path, "en", extract_to=d)
+    assert tok is None and lm is None
+    char = ASRBundle.from_bundle(char_path, extract_to=d, device="cpu")
+    assert char.lm is None and isinstance(char.lang, CharLanguage)
+    audio = np.zeros((8, 16000), np.float32)
+    for i in range(8):
+        audio[i] = read_wav(os.path.join(FIXTURES, f"s-{i:03d}.wav"))[0][0]
+    texts, _ = char.transcribe_batch(audio, np.full(8, 16000), use_lm=True)
+    assert texts == ["yes", "no", "hello world", "stop now", "go left",
+                     "turn right", "one two", "three four"]

@@ -1,7 +1,9 @@
 """The port's serving stack (libreasr_tpu_torch.serving) on the CPU:
 the wire codec byte for byte against the JAX package's, the gRPC server
 on the golden bundle (unary and streaming exact, concurrent streams,
-slots exhausted), the WebSocket bridge end to end, and the two pieces
+slots exhausted; beam search with the end-of-stream flush, and beam
+search with LM fusion on the BPE bundle, unary and streaming), the
+`main` flags, the WebSocket bridge end to end, and the two pieces
 the servicer runs on every message: `resample` against the JAX
 package's native resampler and the char vocabulary's specials."""
 
@@ -23,7 +25,7 @@ from libreasr_tpu_torch.api import ASRBundle
 from libreasr_tpu_torch.data import audio as taudio
 from libreasr_tpu_torch.data.audio import read_wav
 from libreasr_tpu_torch.data.language import get_language
-from libreasr_tpu_torch.models.streaming import StreamingEngine
+from libreasr_tpu_torch.models.streaming import StreamingConfig, StreamingEngine
 from libreasr_tpu_torch.serving import proto
 from libreasr_tpu_torch.serving.server import ASRServicer, make_server
 
@@ -174,10 +176,143 @@ def test_resource_exhausted_when_slots_are_full(golden):
 
 
 def test_servicer_refuses_beam_and_lm(golden):
+    """The servicer no longer refuses beam search or LM fusion (the name
+    is kept from when it did, so that the test's history stays one): it
+    builds a beam engine of beam_width, or else of the bundle's
+    stream.beam_width, fuses the LM only when the bundle has one, and
+    takes the fusion weights from its arguments, else from the stream
+    block, else 0.1 / 0.0 (JAX's precedence)."""
     bundle, _ = golden
-    for kw in ({"beam_width": 4}, {"use_lm": True}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            ASRServicer(bundle, engine=object(), **kw)
+    stream = bundle.conf.get("stream")
+    made = []
+    try:
+        s = ASRServicer(bundle, beam_width=4, use_lm=True)
+        made.append(s)
+        assert s.engine.beam and s.engine.scfg.beam_width == 4
+        assert s.engine.fns.lm_step is None  # the char bundle has no LM
+        assert (s.lm_alpha, s.lm_beta, s.engine.scfg.lm_alpha) == (0.1, 0.0, 0.1)
+        bundle.conf["stream"] = {"beam_width": 2, "lm_alpha": 0.3,
+                                 "lm_beta": 0.4, "max_streams": 2}
+        s = ASRServicer(bundle)
+        made.append(s)
+        assert s.engine.n == 2 and s.engine.scfg.beam_width == 2
+        assert (s.lm_alpha, s.lm_beta) == (0.3, 0.4) and s.beam_width == 0
+        s = ASRServicer(bundle, beam_width=3, lm_alpha=0.5)
+        made.append(s)
+        assert s.engine.scfg.beam_width == 3 and s.engine.scfg.lm_alpha == 0.5
+        assert (s.lm_alpha, s.lm_beta) == (0.5, 0.4)
+    finally:
+        if stream is None:
+            bundle.conf.pop("stream", None)
+        else:
+            bundle.conf["stream"] = stream
+        for s in made:
+            s.stepper.shutdown()
+
+
+def test_grpc_wire_beam_flush_exact(golden):
+    """tests/test_golden_decode.py::test_grpc_wire_beam_flush_exact: a
+    K-3 engine over the wire with no client padding; the end-of-stream
+    flush runs the final padded step and commits the beam's uncommitted
+    tail before the call closes; a second stream reuses the slot."""
+    bundle, audio = golden
+    port = _free_port()
+    engine = StreamingEngine(bundle, n_streams=2,
+                             scfg=StreamingConfig(sr=16000, beam_width=3))
+    server, servicer = make_server(bundle, port, engine=engine)
+    server.start()
+    try:
+        channel, stream = _stream_call(port)
+        assert "".join(t.data for t in stream(_chunks(audio[2]))) == "hello world"
+        assert "".join(t.data for t in stream(_chunks(audio[3]))) == "stop now"
+        channel.close()
+    finally:
+        server.stop(0)
+        servicer.stepper.shutdown()
+
+
+@pytest.fixture(scope="module")
+def beam_lm_server(tmp_path_factory, golden):
+    """tests/test_serving.py:318 through the port: the BPE golden bundle
+    (it ships an LM) behind a server whose engine beams (K 3) with LM
+    fusion (alpha 0.2), unary beam+LM flags (K 3, alpha 0.2, beta 0.6)."""
+    bundle = ASRBundle.from_bundle(
+        os.path.join(FIXTURES, "model_bpe.tar.gz"),
+        extract_to=str(tmp_path_factory.mktemp("beam_lm")), device="cpu")
+    assert bundle.lm is not None
+    engine = StreamingEngine(bundle, n_streams=4, use_lm=True, scfg=StreamingConfig(
+        sr=bundle.frontend.sr, beam_width=3, lm_alpha=0.2))
+    port = _free_port()
+    server, servicer = make_server(bundle, port, engine=engine, beam_width=3,
+                                   use_lm=True, lm_alpha=0.2, lm_beta=0.6)
+    server.start()
+    yield port
+    server.stop(0)
+    servicer.stepper.shutdown()
+
+
+def test_unary_beam_lm_over_wire(beam_lm_server, golden):
+    _, audio = golden
+    channel = grpc.insecure_channel(f"localhost:{beam_lm_server}")
+    unary = channel.unary_unary(
+        proto.METHOD_TRANSCRIBE,
+        request_serializer=proto.Audio.SerializeToString,
+        response_deserializer=proto.Transcript.FromString,
+    )
+    out = unary(proto.Audio(data=audio[2].tobytes(), sr=16000))
+    channel.close()
+    assert out.data == "hello world"
+
+
+def test_stream_beam_lm_over_wire(beam_lm_server, golden):
+    """Prefix-agreement commits and the end-of-stream beam flush deliver
+    the exact golden transcript over gRPC."""
+    _, audio = golden
+    channel, stream = _stream_call(beam_lm_server)
+
+    def gen():
+        yield from _chunks(audio[2])
+        yield proto.Audio(data=np.zeros(CHUNK, np.float32).tobytes(), sr=16000)
+
+    text = "".join(t.data for t in stream(gen()))
+    channel.close()
+    assert text.endswith("hello world")
+
+
+def test_main_takes_beam_and_lm_flags(monkeypatch):
+    """`main --beam 4 --use-lm --lm-alpha --lm-beta` reaches the
+    servicer: unary beam+LM with those weights, a K-4 engine fusing the
+    bundle's LM (warmed up before the server starts)."""
+    from libreasr_tpu_torch.serving import server as srv
+
+    made = {}
+    real = srv.make_server
+
+    class Idle:
+        def start(self):
+            made["started"] = True
+
+        def wait_for_termination(self):
+            pass
+
+    def fake_make_server(*args, **kw):
+        server, servicer = real(*args, **kw)
+        made["servicer"] = servicer
+        return Idle(), servicer
+
+    monkeypatch.setattr(srv, "make_server", fake_make_server)
+    srv.main(["--bundle", os.path.join(FIXTURES, "model_bpe.tar.gz"),
+              "--port", str(_free_port()), "--beam", "4", "--use-lm",
+              "--lm-alpha", "0.2", "--lm-beta", "0.6", "--device", "cpu"])
+    s = made["servicer"]
+    try:
+        assert made["started"] and (s.beam_width, s.use_lm) == (4, True)
+        assert (s.lm_alpha, s.lm_beta) == (0.2, 0.6)
+        eng = s.engine
+        assert eng.scfg.beam_width == 4 and eng.fns.lm_step is s.bundle.lm
+        assert eng.scfg.lm_alpha == 0.2 and eng.steps > 0
+    finally:
+        s.stepper.shutdown()
 
 
 def test_servicer_resamples_as_jax(golden):

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers.tiny_decoder import assert_state_equal
 from libreasr_tpu_torch.api import ASRBundle
 from libreasr_tpu_torch.config import apply_overrides, open_config
 from libreasr_tpu_torch.convert import load_jax_variables
@@ -50,6 +51,7 @@ TEXTS = [
     "go left", "turn right", "one two", "three four",
 ]
 STATE_TOL = 1e-5
+SCORE_TOL = 1e-4  # beam scores, as tests/test_beam.py:105
 MEL_TOL = 1e-4
 CHUNK = 1280
 
@@ -300,19 +302,23 @@ def test_reset_restores_fresh_state(tiny):
 
 
 def test_deltas_and_beam_lm_mesh_refused(tiny):
+    """Deltas and a mesh are refused; beam search and LM fusion no longer
+    are (the name is kept from when they were, so that the test's
+    history stays one): a beam engine is built, and a bundle without an
+    LM decodes without, as in JAX."""
     _, tb = tiny
     with_deltas = copy.copy(tb)
     with_deltas.frontend = dataclasses.replace(tb.frontend, deltas=1)
     with pytest.raises(NotImplementedError, match="deltas"):
         StreamingEngine(with_deltas, n_streams=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        StreamingConfig(beam_width=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        StreamingEngine(tb, n_streams=1, use_lm=True)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         StreamingEngine(tb, n_streams=8, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        next(tb.transcribe_stream([np.zeros(CHUNK, np.float32)], use_lm=True))
+    eng = StreamingEngine(tb, n_streams=1, scfg=StreamingConfig(beam_width=4),
+                          use_lm=True)
+    assert eng.beam and eng.fns.lm_step is None
+    assert eng._packed.shape == (1, eng.scfg.beam_buf_tokens + 1)
+    assert next(tb.transcribe_stream([np.zeros(CHUNK, np.float32)],
+                                     use_lm=True))[1] == ""
 
 
 def test_chained_dispatch_matches_sequential(tiny):
@@ -553,6 +559,160 @@ def test_eos_latch_matches_jax(name, tmp_path):
     assert te._eos_done[:2].all() and te._pending_reset_arr[2]
 
 
+@pytest.fixture(scope="module")
+def tiny_emitting(tiny):
+    """The tiny model with its blank logit lowered by 6 on both sides:
+    with the blank as likely as the random weights make it, every
+    hypothesis that emits pays for it and the beam keeps the all-blank
+    one (no token in 8 steps); lowered, beams emit and disagree, and the
+    8-token buffer below saturates (the forced commit)."""
+    import jax
+    import jax.numpy as jnp
+    from flax import serialization
+
+    from libreasr_tpu.api import ASRBundle as JaxBundle
+
+    jb, tb = tiny
+    variables = serialization.to_state_dict(
+        jax.tree_util.tree_map(lambda x: np.array(x), jb.variables))
+    variables["params"]["joint"]["out"]["bias"][0] -= 6.0
+    jb2 = JaxBundle(jb.conf, jb.model, jax.tree_util.tree_map(
+        jnp.asarray, serialization.from_state_dict(jb.variables, variables)),
+        jb.lang)
+    model = Transducer(tb.cfg)
+    load_jax_variables(model, variables)
+    return jb2, ASRBundle(copy.deepcopy(tb.conf), model, tb.lang, torch.device("cpu"))
+
+
+def test_streaming_beam_commits_match_batch_beam(tiny_emitting):
+    """tests/test_streaming.py:101 through the port: the committed tokens
+    of a beam engine plus the flush at close equal beam_decode over the
+    same features (K 3, 3 rounds a frame)."""
+    from libreasr_tpu_torch.models.beam import beam_decode
+
+    _, tb = tiny_emitting
+    audio = _noise(18, 6 * CHUNK)
+    eng = StreamingEngine(tb, n_streams=1, scfg=StreamingConfig(
+        beam_width=3, max_iters=3, beam_buf_tokens=64))
+    s = eng.open_slot()
+    eng.feed(s, audio)
+    eng.close_slot(s)  # flushes the uncommitted tail
+    with torch.inference_mode():
+        feats, flens = features_batch(torch.from_numpy(audio)[None],
+                                      torch.tensor([len(audio)]), tb.frontend)
+        enc_out, _ = tb.model.encode(feats, lengths=flens)
+        toks, lens, _ = beam_decode(tb.decoder_fns(), enc_out, flens,
+                                    vocab_sz=tb.cfg.vocab_sz, beam_width=3,
+                                    max_expand=3, max_tokens=64)
+    assert eng.emitted[s] == toks[0, : int(lens[0])].tolist()
+    assert eng.emitted[s]
+
+
+BEAM_FIELDS = ("pred_state", "h_pred", "last_token", "scores", "y_buf", "y_len",
+               "lm_state", "lm_logp")
+GREEDY_LM_FIELDS = ("pred_state", "h_pred", "last_token", "lm_state",
+                    "lm_logits", "lm_primed")
+
+
+@pytest.mark.parametrize("model", ["bpe_beam_lm", "tiny_beam", "bpe_greedy_lm"])
+def test_beam_and_lm_engines_match_jax_step_by_step(model, tiny_emitting,
+                                                    golden_audio, tmp_path,
+                                                    monkeypatch):
+    """Packed tokens and counts equal at every step, and the decode state
+    (every BeamState leaf, or the greedy state with the LM's) within
+    STATE_TOL (measured 3.8e-6 at most, in the LM's carry), the beam
+    scores within SCORE_TOL (sums of up to 140 rounds' log-probs,
+    measured 5.7e-6), with ragged valid masks and mid-stream resets; then
+    every slot's beam tail flushed on both sides, emitted and outbox
+    equal:
+    - the BPE golden bundle with its LM, K 3, alpha 0.2 (the wire
+      fixture of tests/test_serving.py:318; its beams keep an all-blank
+      hypothesis alive, so little commits before the flush);
+    - the tiny random model (blank lowered), K 3, 3 rounds and an 8-token
+      buffer, so that the forced commit fires (counted);
+    - the BPE golden bundle greedy with LM fusion."""
+    from libreasr_tpu.api import ASRBundle as JaxBundle
+    from libreasr_tpu.models.streaming import StreamingConfig as JaxConfig
+    from libreasr_tpu.models.streaming import StreamingEngine as JaxEngine
+    from libreasr_tpu_torch.models import streaming as tstreaming
+
+    if model == "tiny_beam":
+        jb, tb = tiny_emitting
+        kw, use_lm, n, steps = dict(beam_width=3, max_iters=3,
+                                    beam_buf_tokens=8), False, 3, 8
+        audio = _noise(19, (n, steps * CHUNK))
+    else:
+        path = os.path.join(FIXTURES, "model_bpe.tar.gz")
+        jb = JaxBundle.from_bundle(path, extract_to=str(tmp_path / "j"))
+        tb = _port_bundle("model_bpe.tar.gz", tmp_path / "t")
+        kw = dict(beam_width=3, lm_alpha=0.2) if model == "bpe_beam_lm" else {}
+        use_lm, n, steps = True, 4, 14
+        audio = np.zeros((n, steps * CHUNK), np.float32)
+        audio[:, :16000] = golden_audio[2 : 2 + n]
+    forced = []
+    commit = tstreaming._beam_committed_prefix
+
+    def counting(beam, force_margin=0):
+        cap = beam.y_buf.shape[-1]
+        forced.append(int((beam.y_len.max(1).values >= cap - force_margin).sum()))
+        return commit(beam, force_margin)
+
+    monkeypatch.setattr(tstreaming, "_beam_committed_prefix", counting)
+    je = JaxEngine(jb, n_streams=n, scfg=JaxConfig(**kw), use_lm=use_lm)
+    te = StreamingEngine(tb, n_streams=n, scfg=StreamingConfig(**kw),
+                         use_lm=use_lm)
+    fields = BEAM_FIELDS if te.beam else GREEDY_LM_FIELDS
+    rng = np.random.default_rng(3)
+    # no resets in the beam+LM case: they cut the golden speech short and
+    # leave the all-blank hypothesis best, with nothing left to compare
+    resets = model != "bpe_beam_lm"
+    emitted = 0
+    for k in range(steps):
+        chunks = audio[:, None, k * CHUNK : (k + 1) * CHUNK]
+        valid = rng.random(n) > 0.15
+        reset = (rng.random(n) > 0.85) & (k > 2) & resets
+        jt, jl = je.step_batch(chunks, valid, reset)
+        tt, tl = te.step_batch(chunks, valid, reset)
+        np.testing.assert_array_equal(tl, jl, err_msg=f"step {k}")
+        np.testing.assert_array_equal(tt, jt, err_msg=f"step {k}")
+        assert_state_equal(je.state.decode, te.state.decode,
+                           [f for f in fields if f != "scores"], STATE_TOL)
+        if te.beam:
+            assert_state_equal(je.state.decode, te.state.decode, ["scores"],
+                               SCORE_TOL)
+        emitted += int(tl.sum())
+    for i in range(n):
+        je.flush_slot(i)
+        te.flush_slot(i)
+    assert te.emitted == je.emitted and te.outbox == je.outbox
+    assert emitted + sum(len(e) for e in te.emitted) > 0
+    assert (sum(forced) > 0) == (model == "tiny_beam")
+
+
+def test_beam_flush_exact_and_needs_collected_steps(golden_audio, tmp_path):
+    """The char golden bundle in a K-3 engine, no client padding: the
+    final padded step and the flush of the best beam's tail give the
+    exact transcript, twice on one slot (reuse after the flush). A flush
+    with a dispatched step of the slot not yet collected raises."""
+    bundle = _port_bundle("model.tar.gz", tmp_path)
+    eng = StreamingEngine(bundle, n_streams=2,
+                          scfg=StreamingConfig(beam_width=3))
+    for i, want in ((2, "hello world"), (3, "stop now")):
+        s = eng.open_slot()
+        text = "".join(eng.feed(s, golden_audio[i, off : off + CHUNK])
+                       for off in range(0, 16000, CHUNK))
+        text += eng.finish_slot(s)
+        eng.close_slot(s)
+        assert text == want and eng.transcript(s) == want
+    s = eng.open_slot()
+    eng.append_samples(s, golden_audio[2, : 2 * CHUNK])
+    pending = eng.step_dispatch()
+    with pytest.raises(RuntimeError, match="not collected"):
+        eng.flush_slot(s)
+    eng.step_collect(pending)
+    eng.flush_slot(s)
+
+
 # ---- on the card -----------------------------------------------------------
 
 
@@ -598,3 +758,37 @@ def test_graph_replay_matches_uncaptured_step_on_cuda(tmp_path):
         return list(e.emitted[s]), e.replays
 
     assert run(True) == run(False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["beam_lm", "greedy_lm"])
+def test_beam_and_lm_graph_replay_matches_uncaptured_step_on_cuda(mode, tmp_path):
+    """The BPE golden bundle with its LM, K 3 (alpha 0.2) or greedy: 12
+    steps with ragged valid masks and resets, every step one replay
+    whose tokens equal the uncaptured step function's on a copy of the
+    state (and the decode state within 1e-6, as the greedy case)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bundle = ASRBundle.from_bundle(os.path.join(FIXTURES, "model_bpe.tar.gz"),
+                                   extract_to=str(tmp_path), device="cuda")
+    n = 4
+    kw = dict(beam_width=3, lm_alpha=0.2) if mode == "beam_lm" else {}
+    eng = StreamingEngine(bundle, n_streams=n, scfg=StreamingConfig(**kw),
+                          use_lm=True)
+    rng = np.random.default_rng(1)
+    ref = eng.state.clone()
+    for k in range(12):
+        chunks = _noise(200 + k, (n, 1, CHUNK))
+        valid = rng.random(n) > 0.2
+        reset = rng.random(n) > 0.9
+        toks, lens = eng.step_batch(chunks, valid, reset)
+        with torch.no_grad():
+            ref, packed = eng.step_fn(
+                ref, torch.from_numpy(chunks).cuda(),
+                torch.from_numpy(valid).cuda(), torch.from_numpy(reset).cuda())
+        packed = packed.cpu().numpy()
+        np.testing.assert_array_equal(lens, packed[:, -1])
+        np.testing.assert_array_equal(toks, packed[:, :-1])
+        for a, b in zip(_leaves(eng.state.decode), _leaves(ref.decode)):
+            assert float((a.double() - b.double()).abs().max()) <= 1e-6
+    assert eng.replays == eng.steps == 12
