@@ -80,6 +80,22 @@ Phases, one line each (any failure raises and exits non-zero):
      process) at full width on a corpus of noise WAVs written here: 2
      steps with an eval and a bundle export, then a resume to step 3;
      the bundle reloads on cuda and transcribes;
+ 15a. train_tone_stream: the port's tone recipe
+     (libreasr_tpu_torch.scripts.train_tone_stream) in this process at
+     full width: base.yaml as the recipe sets it (layer norms, carries
+     at 0.25, no augmentation, V 2048), a BPE tokenizer of 64 trained by
+     the port, the ladder from the sampled histogram (3 buckets, bs 16),
+     100 steps of the streamed corpus with dev evals at 50 and 100, the
+     best-WER export, then the held-out test split greedy and with beam
+     search (K 4): step ms, the host's wait for each batch, dev and test
+     WER/CER (test by length), eval ms, launches, peak memory; every loss
+     finite, the median loss of the last 50 steps below that of the first
+     20, D, E, F, G, H launched in training and B in the evals, the
+     bundle reloads on cuda with the trained tokenizer, and both test
+     evals score every row the test split emits;
+ 15b. evaluate_wer: make_tone_corpus writes 16 test WAVs and their CSV,
+     and `libreasr_tpu_torch.scripts.evaluate_wer --beam 4` scores them
+     with that bundle (WER and WER[...] lines); --use-lm raises;
  16. joint_timing and train_kernel_timing (F's, G's and H's launches each
      by device time under torch.profiler): F, G, H and D, E timed at the
      main path's shapes beside their twins and, for D and E, cuDNN's bf16
@@ -135,7 +151,9 @@ Phases, one line each (any failure raises and exits non-zero):
      alpha 0.2, beta 0.6): a unary 6 s clip (B 6 launches) and 64
      streams paced at real time for 6 s each: partial latency p50/p90
      against BASELINE.md's < 300 ms p50 bar, and overrun.
-Then one JSON line with every kernel's numbers (B and C also with their
+Then the script's own wall seconds (every phase, the build included;
+and those of 15a-15b),
+one JSON line with every kernel's numbers (B and C also with their
 launches a transcribe_beam), and as the last line
 {"ok": true, "device": {...}}.
 
@@ -148,6 +166,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -502,7 +521,7 @@ def _time_path(bundle, audio, lengths, audio_d, lengths_d, feats, flens,
         enc_out, _ = bundle.model.encode(feats, lengths=flens)
         dec_state = []
         dec_runs = wall_ms(lambda: dec_state.append(greedy_decode(
-            bundle.decoder_fns(), enc_out, flens, blank=cfg.blank, bos=cfg.bos,
+            bundle.decoder_fns(use_lm=False), enc_out, flens, blank=cfg.blank, bos=cfg.bos,
         )[3]), reps)
     iters = dec_state[-1].sum_iters
     audio_s = float(lengths.sum()) / bundle.frontend.sr
@@ -1694,6 +1713,199 @@ def phase_train_cli(seed: int, card: str) -> dict:
     return launches
 
 
+# the tone recipe in chip_smoke: steps, dev evals, beam width of the
+# second test eval (scripts/run_tone_recipe.py runs it longer); 100
+# steps keep the whole script within about two minutes of its time
+# before these phases
+TONE_STEPS = 100
+TONE_EVAL_EVERY = 50
+TONE_EVAL_BATCHES = 4
+TONE_VOCAB = 64
+TONE_BEAM = 4
+
+
+def phase_train_tone_stream(card: str, out: str, *,
+                            steps: int = TONE_STEPS,
+                            eval_every: int = TONE_EVAL_EVERY,
+                            eval_batches: int = TONE_EVAL_BATCHES,
+                            phase: str = "train_tone_stream") -> str:
+    """The port's tone recipe (libreasr_tpu_torch.scripts.train_tone_stream)
+    in this process at full width: config/base.yaml with the recipe's
+    settings and its seed (42), a BPE tokenizer of TONE_VOCAB trained by
+    the port, the ladder from the sampled histogram; `steps` steps with a
+    dev eval every `eval_every` (timed with the best-WER checkpoint's
+    save), the best-WER export and the recipe's final test eval, then the
+    held-out test split greedy and with beam search (K TONE_BEAM) on the
+    reloaded bundle, timed alike, and where the two decodes part. Each
+    step is timed with a sync on its loss, and the host's wait for the
+    next batch between steps (evals excluded). Returns the bundle."""
+    import io
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from libreasr_tpu_torch import train
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.data.bpe import BPELanguage
+    from libreasr_tpu_torch.data.synth import ToneStreamDataset
+    from libreasr_tpu_torch.scripts import train_tone_stream as recipe
+    from libreasr_tpu_torch.training import learner as lmod
+    from libreasr_tpu_torch.training.evaluate import evaluate_bundle
+
+    steps_ms, waits_ms, losses, evals = [], [], [], []
+    last_end = [None]
+    real_step, real_eval = lmod.Learner.step, train._run_eval
+
+    def timed_step(self, batch):
+        t0 = time.perf_counter()
+        if last_end[0] is not None:
+            waits_ms.append((t0 - last_end[0]) * 1e3)
+        metrics = real_step(self, batch)
+        losses.append(float(metrics["loss"]))  # syncs the step
+        last_end[0] = time.perf_counter()
+        steps_ms.append((last_end[0] - t0) * 1e3)
+        return metrics
+
+    def timed_eval(learner, lang, valid_ds, logger, step, *a):
+        t0 = time.perf_counter()
+        res = real_eval(learner, lang, valid_ds, logger, step, *a)
+        evals.append({"step": step, "wer": res.wer, "cer": res.cer, "n": res.n,
+                      "ms_with_save": (time.perf_counter() - t0) * 1e3})
+        last_end[0] = None  # the next wait is not the loader's
+        return res
+
+    argv = ["--out", out, "--steps", str(steps), "--eval-every", str(eval_every),
+            "--eval-batches", str(eval_batches), "--vocab-sz", str(TONE_VOCAB),
+            "--retries", "1", "--device", "cuda",
+            "--config", os.path.join(HERE, "config", "base.yaml")]
+    buf = io.StringIO()
+    _reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    lmod.Learner.step, train._run_eval = timed_step, timed_eval
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            recipe.main(argv)
+    except BaseException:
+        print(buf.getvalue()[-8000:], file=sys.stderr)
+        raise
+    finally:
+        lmod.Learner.step, train._run_eval = real_step, real_eval
+    run_s = time.perf_counter() - t0
+    train_launches = _kernel_launches()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    text = buf.getvalue()
+    ladder = [ln.strip() for ln in text.splitlines() if ln.startswith("  max ")]
+
+    conf = yaml.safe_load(open(os.path.join(out, "tone_stream.yaml")))
+    tok_file = os.path.join(out, "tokenizer.bpe-model")
+    bundle_path = os.path.join(out, "model.tar.gz")
+    test_rows = sum(len(b.audio) for b in ToneStreamDataset.from_config(
+        conf, BPELanguage(tok_file), "test"))
+    recipe_test = [ln for ln in text.splitlines() if ln.startswith("[tone-stream] TEST")]
+    bundle = ASRBundle.from_bundle(bundle_path, device="cuda",
+                                   extract_to=os.path.join(out, "x"))
+    tests, preds = {}, {}
+    for name, beam in (("greedy", 0), ("beam", TONE_BEAM)):
+        _reset_kernel_launches()
+        t1 = time.perf_counter()
+        res = evaluate_bundle(bundle, iter(ToneStreamDataset.from_config(
+            conf, bundle.lang, "test")), beam_width=beam, keep_samples=test_rows)
+        torch.cuda.synchronize()
+        tests[name] = {"wer": res.wer, "cer": res.cer, "n": res.n,
+                       "by_length": res.by_length, "samples": res.samples[:3],
+                       "ms": (time.perf_counter() - t1) * 1e3,
+                       "b_launches": _kernel_launches()["lstm_seq_cseq"]}
+        preds[name] = res.samples
+    # where beam search and greedy part: the beam's text a prefix of
+    # greedy's (a truncation), shorter, or longer
+    differ = [(g, b) for g, b in zip(preds["greedy"], preds["beam"])
+              if g["pred"] != b["pred"]]
+    beam_vs_greedy = {
+        "differ": len(differ),
+        "beam_prefix_of_greedy": sum(g["pred"].startswith(b["pred"])
+                                     for g, b in differ),
+        "beam_shorter": sum(len(b["pred"]) < len(g["pred"]) for g, b in differ),
+        "beam_longer": sum(len(b["pred"]) > len(g["pred"]) for g, b in differ),
+        "examples": [{"target": g["target"], "greedy": g["pred"],
+                      "beam": b["pred"]} for g, b in differ[:8]],
+    }
+    fills = [w for w in waits_ms if w > 500.0]  # an epoch's first window
+    first = statistics.median(losses[:20])
+    last = statistics.median(losses[-50:])
+    log(phase, card=card, steps=len(losses), run_s=run_s, ladder=ladder,
+        step_ms_median=statistics.median(steps_ms[1:]),
+        step_ms_p90=float(np.percentile(steps_ms[1:], 90)), step_ms_first=steps_ms[0],
+        batch_wait_ms_median=statistics.median(waits_ms),
+        batch_wait_ms_p90=float(np.percentile(waits_ms, 90)),
+        batch_wait_ms_max=max(waits_ms),
+        host_wait_share=sum(waits_ms) / (sum(waits_ms) + sum(steps_ms[1:])),
+        window_fills=len(fills), window_fill_ms_sum=sum(fills),
+        recipe_test=recipe_test, beam_vs_greedy=beam_vs_greedy,
+        loss_first20_median=first, loss_last50_median=last,
+        loss_every_50=losses[::50], dev_evals=evals, test=tests,
+        test_rows=test_rows, eval_utts=conf["synth_tone"]["eval_utts"],
+        train_kernel_launches=train_launches, peak_memory_mib=peak_mib,
+        vocab=len(bundle.lang), model_vocab=bundle.cfg.vocab_sz)
+    want = ("lstm_train_fwd", "lstm_train_bwd", "joint_lp_fwd", "joint_lp_dx",
+            "joint_lp_dw", "lstm_seq_cseq")
+    checks = {
+        "every step, every loss finite": len(losses) == steps
+        and all(map(math.isfinite, losses)),
+        "loss falls (median of the last 50 < of the first 20)": last < first,
+        "D, E, F, G, H and B launched": all(train_launches[k] > 0 for k in want),
+        "dev evals ran": len(evals) >= 1,
+        # every test row the batcher emits (a bucket's leftover of one is
+        # dropped, as in JAX), B launched in both evals
+        "test evals score every emitted row": all(
+            t["b_launches"] > 0 and t["n"] == test_rows for t in tests.values())
+        and conf["synth_tone"]["eval_utts"] - len(conf["buckets"]) <= test_rows,
+        "the recipe's own test eval is the greedy one": len(recipe_test) == 1
+        and f"wer={tests['greedy']['wer']:.3f} " in recipe_test[0],
+        "the bundle reloads with the trained tokenizer":
+        isinstance(bundle.lang, BPELanguage) and bundle.device.type == "cuda"
+        and bundle.lang.vocab == BPELanguage(tok_file).vocab,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"{phase}: {failed}")
+    return bundle_path
+
+
+def phase_evaluate_wer(seed: int, bundle_path: str) -> None:
+    """make_tone_corpus writes a test split of 16 WAVs and its CSV;
+    evaluate_wer scores it with the tone bundle and beam search (K 4):
+    the WER and WER[...] lines are printed; --use-lm raises."""
+    import io
+
+    from libreasr_tpu_torch.scripts import evaluate_wer, make_tone_corpus
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            make_tone_corpus.main(["--out", tmp, "--train", "0", "--valid", "0",
+                                   "--test", "16", "--seed", str(seed)])
+        split = os.path.join(tmp, "test-clean")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = evaluate_wer.main(["--dataset", split, "--bundle", bundle_path,
+                                     "--beam", str(TONE_BEAM)])
+        secs = time.perf_counter() - t0
+        try:
+            evaluate_wer.main(["--dataset", split, "--use-lm"])
+            refused = False
+        except NotImplementedError:
+            refused = True
+    lines = buf.getvalue().splitlines()
+    log("evaluate_wer", seconds=secs, n=res.n, wer=res.wer, cer=res.cer,
+        lines=[ln for ln in lines if "WER" in ln], use_lm_refused=refused)
+    if not (refused and res.n == 16
+            and any(ln.startswith("[eval] n=16 WER=") for ln in lines)
+            and any(ln.startswith("  WER[") for ln in lines)):
+        raise AssertionError("evaluate_wer:\n" + "\n".join(lines))
+
+
 STREAM_CHUNK = 1280  # 80 ms at 16 kHz
 STREAM_PASSES = 5
 STREAM_WIDTHS = (64, 512)
@@ -2510,6 +2722,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "libreasr_tpu_torch")):
         print("chip_smoke: libreasr_tpu_torch is not beside this script",
               file=sys.stderr)
@@ -2549,6 +2762,12 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_train_cli(args.seed, card)
     torch.cuda.synchronize()
+    t_tone = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tone:
+        bundle_path = phase_train_tone_stream(card, tone)
+        phase_evaluate_wer(args.seed, bundle_path)
+    tone_s = time.perf_counter() - t_tone
+    torch.cuda.synchronize()
     phase_streaming_golden()
     phase_streaming_full_width(args.seed, card)
     phase_serving(args.seed, card)
@@ -2568,6 +2787,8 @@ def main() -> int:
     rows += joint_rows(args.seed, worst_joint, launches)
     rows += train_kernel_rows(args.seed, worst_train, launches)
     torch.cuda.synchronize()
+    # every phase, the build included, and the two tone phases' share
+    log("wall", seconds=time.perf_counter() - t_start, tone_phases_seconds=tone_s)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -122,12 +122,12 @@ class ASRBundle:
         return save_bundle(path, lang_name, export_variables(self.model),
                            self.conf, tokenizer_file=tok, lm_variables=lm_vars)
 
-    def decoder_fns(self, use_lm: bool = False,
+    def decoder_fns(self, use_lm: bool = True,
                     quantized: bool = False) -> DecoderFns:
-        """Decode endpoints. use_lm binds the LM, when the bundle has one
-        (as in JAX, a bundle without an LM decodes without); quantized
-        runs the joint as int8 products, its weights quantized now
-        (Joint.int8_step)."""
+        """Decode endpoints. use_lm (the default, as in JAX) binds the LM
+        when the bundle has one (a bundle without an LM decodes without);
+        quantized runs the joint as int8 products, its weights quantized
+        now (Joint.int8_step)."""
         joint = self.model.joint.int8_step() if quantized else self.model.joint_step
         if not (use_lm and self.lm is not None):
             return DecoderFns(predict_step=self.model.predict, joint_step=joint)

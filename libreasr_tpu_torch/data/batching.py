@@ -32,6 +32,37 @@ class Bucket:
         return (self.max_samples, self.max_tokens, self.bs)
 
 
+def buckets_from_histogram(xlen_ms, ylen, sr: int = 16000, n_buckets: int = 4,
+                           frame_budget: int = 72_000, bs_max: int = 32,
+                           data_axis: int = 1) -> list[Bucket]:
+    """A bucket ladder from a corpus's length histogram (the turn-key
+    recipes' ladder). xlen_ms / ylen: each utterance's audio length (ms)
+    and token count. Buckets split at audio-length quantiles; a bucket's
+    max_tokens is the 98th percentile of its members' label lengths + 2,
+    and its bs fills `frame_budget` 10 ms mel frames, capped at bs_max
+    and at the bucket's population, rounded down to a multiple of
+    `data_axis`. A bucket that cannot hold two rows is skipped (its
+    members go to the next larger one)."""
+    xlen_ms = np.asarray(xlen_ms, np.float64)
+    ylen = np.asarray(ylen, np.int64)
+    qs = np.linspace(0, 1, n_buckets + 1)[1:]
+    out = []
+    lo = -np.inf
+    for edge in np.unique(np.quantile(xlen_ms, qs)):
+        in_b = (xlen_ms > lo) & (xlen_ms <= edge)
+        lo = edge
+        if not in_b.any():
+            continue
+        mel_frames = int(np.ceil(edge / 10.0))  # 10 ms hop
+        y_max = int(np.quantile(ylen[in_b], 0.98)) + 2
+        bs = max(min(frame_budget // max(mel_frames, 1), bs_max), data_axis)
+        bs = (min(bs, int(in_b.sum())) // data_axis) * data_axis
+        if bs < 2:  # a batch of one is dropped (batch norm)
+            continue
+        out.append(Bucket(mel_frames * int(sr * 0.01), y_max, bs))
+    return sorted(out, key=lambda b: b.max_samples)
+
+
 def buckets_from_config(conf: dict) -> list[Bucket]:
     """Config buckets give x_max in mel frames (or max_samples); without
     buckets, one of almaxs seconds, y_max + 2 tokens and bs rows."""
@@ -171,12 +202,15 @@ class ASRDataset:
 
     @classmethod
     def from_config(cls, conf: dict, lang, mode: str = "train"):
+        if (conf.get("synth_tone") or {}).get("enabled"):
+            # the streamed tone corpus (data/synth.py): generated on the
+            # fly, no files; the same iterable of Batches
+            from .synth import ToneStreamDataset
+
+            return ToneStreamDataset.from_config(conf, lang, mode)
         from .builder import ASRDatasetBuilder
         from .transforms import Pipeline, parse_stages
 
-        if (conf.get("synth_tone") or {}).get("enabled"):
-            raise NotImplementedError(
-                "libreasr_tpu_torch: the synthetic tone corpus is not ported")
         seed = conf.get("seed", 42)
         builder = ASRDatasetBuilder.from_config(conf, mode)
         tf = conf.get("transforms", {}) or {}

@@ -107,6 +107,25 @@ class ASRDatasetBuilder:
     def get(self, idx: int) -> dict:
         return dict(self.rows[idx])
 
+    def dump_labels(self, path: str) -> str:
+        """Every label, lower-cased and stripped, one a line (the
+        tokenizer's training corpus)."""
+        with open(path, "w") as f:
+            for r in self.rows:
+                f.write(str(r["label"]).lower().strip() + "\n")
+        return path
+
+    def train_tokenizer(self, model_file: str, vocab_sz: int = 2048) -> str:
+        """Dump the labels and train a BPE model on them."""
+        from .bpe import train_bpe
+
+        os.makedirs(os.path.dirname(model_file) or ".", exist_ok=True)
+        tmp = model_file + ".labels.txt"
+        self.dump_labels(tmp)
+        train_bpe(tmp, model_file, vocab_sz)
+        os.remove(tmp)
+        return model_file
+
     def stats(self) -> dict:
         if not self.rows:
             return {"utts": 0}

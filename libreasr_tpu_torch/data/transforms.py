@@ -161,11 +161,6 @@ def PadCutLabel(y_max: int = 60, **kw):
 
 
 def Numericalize(lang=None, **kw):
-    if not hasattr(lang, "numericalize"):
-        raise NotImplementedError(
-            "libreasr_tpu_torch: this tokenizer cannot encode text yet (BPE "
-            "encoding is not ported); train with the char vocabulary")
-
     def fn(item, rng):
         item["ids"] = lang.numericalize(item["label"])
         return item

@@ -7,9 +7,10 @@ checkpoint, and exports a release bundle.
         [--lang en] [--steps N] [--ckpt tmp/ckpt] [--bundle-out model.tar.gz] \\
         [--device cuda]
 
-Runs on the card unless `--device cpu` is given. The JAX CLI's CTC
-models, pipeline and tensor parallelism, multi-host training and
-chained steps are not ported: their flags raise.
+Runs on the card unless `--device cpu` is given. With `train_tokenizer`
+set, it first trains the config's BPE tokenizer on the training labels.
+The JAX CLI's CTC models, pipeline and tensor parallelism, multi-host
+training and chained steps are not ported: their flags raise.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ def main(argv=None):
     from .config import parse_and_apply_config
     from .convert import export_variables
     from .data.batching import ASRDataset
+    from .data.builder import ASRDatasetBuilder
     from .data.language import get_language
     from .training.callbacks import TrainLogger
     from .training.checkpoint import (STATE_FILE, restore_train_state,
@@ -73,8 +75,8 @@ def main(argv=None):
             "libreasr_tpu_torch.train: only the Transducer is ported")
     tok_file = (conf.get("tokenizer", {}) or {}).get("model_file")
     if conf.get("train_tokenizer") and tok_file:
-        raise NotImplementedError(
-            "libreasr_tpu_torch.train: BPE tokenizer training is not ported")
+        builder = ASRDatasetBuilder.from_config(conf, "train")
+        builder.train_tokenizer(tok_file, conf.get("wanted_vocab_sz", 2048))
     use_bpe = bool(tok_file and os.path.exists(tok_file))
     lang, vocab_sz = get_language(model_file=tok_file if use_bpe else None)
     conf["model"]["vocab_sz"] = max(conf["model"]["vocab_sz"], vocab_sz)

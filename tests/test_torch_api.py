@@ -105,3 +105,37 @@ def test_from_config_padding_invariance():
     assert texts[1] == bundle.transcribe(b)[0]
     assert texts[0] == bundle.transcribe(a)[0]
     assert ((metrics["alignment_score"] >= 0) & (metrics["alignment_score"] <= 1)).all()
+
+
+@pytest.mark.parametrize("kw", [{}, {"use_lm": False}], ids=["default", "no_lm"])
+def test_bpe_decoder_fns_default_matches_jax(golden, kw, tmp_path):
+    """decoder_fns() binds the bundle's LM by default, as JAX's does: on
+    the golden BPE bundle (which has an LM) a greedy decode through the
+    default endpoints fuses the LM on both sides, tokens exact; with
+    use_lm=False neither side fuses."""
+    import jax.numpy as jnp
+
+    from libreasr_tpu.models.decode import greedy_decode as jax_greedy
+    from libreasr_tpu.ops.frontend import features_batch as jax_features
+    from libreasr_tpu_torch.models.decode import greedy_decode
+
+    _, _, audio = golden
+    path = os.path.join(FIXTURES, "model_bpe.tar.gz")
+    tb = ASRBundle.from_bundle(path, extract_to=str(tmp_path / "t"), device="cpu")
+    jb = JaxBundle.from_bundle(path, extract_to=str(tmp_path / "j"))
+    assert tb.lm is not None and jb.lm is not None
+    lengths = np.full(8, 16000)
+    fns = tb.decoder_fns(**kw)
+    assert (fns.lm_step is not None) == (kw.get("use_lm", True))
+    enc, flens = tb._encode_audio(audio, lengths)
+    toks, tok_lens, _, _ = greedy_decode(
+        fns, enc, flens, vocab_sz=tb.cfg.vocab_sz, blank=tb.cfg.blank,
+        bos=tb.cfg.bos, max_iters=3, max_tokens=64)
+    feats, jflens = jax_features(jnp.asarray(audio), jnp.asarray(lengths),
+                                 jb.frontend)
+    jenc, _ = jb.encode(feats, jflens)
+    jtoks, jlens, _, _ = jax_greedy(
+        jb.decoder_fns(**kw), jenc, jflens, vocab_sz=jb.cfg.vocab_sz,
+        blank=jb.cfg.blank, bos=jb.cfg.bos, max_iters=3, max_tokens=64)
+    np.testing.assert_array_equal(tok_lens.numpy(), np.asarray(jlens))
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(jtoks))

@@ -136,7 +136,7 @@ def test_int8_joint_decode_exact_and_matches_jax(golden):
                                       torch.from_numpy(lengths), tb.frontend)
         enc, _ = tb.model.encode(feats, lengths=flens)
         toks, lens, _, _ = greedy_decode(
-            tb.decoder_fns(quantized=True), enc, flens, blank=tb.cfg.blank,
+            tb.decoder_fns(use_lm=False, quantized=True), enc, flens, blank=tb.cfg.blank,
             bos=tb.cfg.bos, max_tokens=64)
     texts = [tb.lang.denumericalize(list(toks[i, : lens[i]].numpy()))
              for i in range(8)]

@@ -1,7 +1,8 @@
 """The port stands alone and never falls back silently:
 - no module of libreasr_tpu_torch, nor chip_smoke.py, imports jax, flax,
   the JAX package, pandas or tensorboardX (the machine with the card
-  has none of the last two);
+  has none of the last two), and its C++ and CUDA sources include none
+  of the JAX package's;
 - entry points default to cuda and raise without it;
 - the kernel wrappers take their plain twins only for CPU tensors, and a
   failed kernel build raises;
@@ -63,7 +64,7 @@ def test_importing_every_module_loads_no_jax():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'libreasr_tpu', 'pandas', 'tensorboardX'))\n"
-        "assert len(mods) >= 29, mods\n"
+        "assert len(mods) >= 48, mods\n"
         "assert {'libreasr_tpu_torch.ops.quant', 'libreasr_tpu_torch.data.bpe',"
         " 'libreasr_tpu_torch.ops.rnnt_loss', 'libreasr_tpu_torch.ops.fused_loss',"
         " 'libreasr_tpu_torch.ops.kernels.joint_lp',"
@@ -77,7 +78,11 @@ def test_importing_every_module_loads_no_jax():
         " 'libreasr_tpu_torch.models.streaming', 'libreasr_tpu_torch.utils',"
         " 'libreasr_tpu_torch.models.lm', 'libreasr_tpu_torch.models.beam',"
         " 'libreasr_tpu_torch.serving.proto', 'libreasr_tpu_torch.serving.server',"
-        " 'libreasr_tpu_torch.serving.bridge', 'libreasr_tpu_torch.serving.client'}"
+        " 'libreasr_tpu_torch.serving.bridge', 'libreasr_tpu_torch.serving.client',"
+        " 'libreasr_tpu_torch.data.synth', 'libreasr_tpu_torch.scripts',"
+        " 'libreasr_tpu_torch.scripts.train_tone_stream',"
+        " 'libreasr_tpu_torch.scripts.make_tone_corpus',"
+        " 'libreasr_tpu_torch.scripts.evaluate_wer'}"
         " <= set(mods), mods\n"
         "print('OK', len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -151,6 +156,47 @@ def test_library_name_hashes_headers(monkeypatch, tmp_path):
     with_header = build.library_path("k")
     (csrc / "common.cuh").write_text("// header, edited\n")
     assert len({before, with_header, build.library_path("k")}) == 3
+
+
+def test_native_sources_stand_alone():
+    """The port's C++ and CUDA sources include only system headers and
+    each other: the BPE trainer is the port's own copy, not the JAX
+    package's native library."""
+    csrc = os.path.join(PKG, "csrc")
+    names = sorted(os.listdir(csrc))
+    assert "bpe_train.cpp" in names
+    for name in names:
+        with open(os.path.join(csrc, name)) as f:
+            src = f.read()
+        for inc in re.findall(r'^\s*#include\s+"([^"]+)"', src, re.M):
+            assert inc in names, (name, inc)
+        assert "libreasr_tpu/" not in src.replace("libreasr_tpu_torch/", ""), name
+
+
+def test_host_library_name_hashes_source(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "h.cpp").write_text("// host\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    before = build.host_library_path("h")
+    assert build.host_library_path("h") == before
+    (csrc / "h.cpp").write_text("// host, edited\n")
+    edited = build.host_library_path("h")
+    assert edited != before
+    # a library that another compiler built is not current: the name
+    # covers the compiler's path and the version and target it reports
+    names = [edited]
+    for where, version in (("a", "12.2.0"), ("a", "13.3.0"), ("b", "13.3.0")):
+        cxx = tmp_path / where / "g++"
+        cxx.parent.mkdir(exist_ok=True)
+        cxx.write_text(f"#!/bin/sh\necho {version}\necho x86_64-linux-gnu\n")
+        cxx.chmod(0o755)
+        build.compiler_identity.cache_clear()
+        monkeypatch.setattr(build, "HOST_CXX", str(cxx))
+        names.append(build.host_library_path("h"))
+        assert build.host_library_path("h") == names[-1]
+    build.compiler_identity.cache_clear()
+    assert len(set(names)) == 4
 
 
 @pytest.mark.parametrize("name", ["lstm_seq", "lstm_seq_int8", "joint_lp",

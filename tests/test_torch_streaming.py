@@ -258,7 +258,7 @@ def test_streaming_equals_batch_decode(tiny):
                                       torch.tensor([len(audio)]), tb.frontend)
         enc_out, _ = tb.model.encode(feats, lengths=flens)
         toks, lens, _, _ = greedy_decode(
-            tb.decoder_fns(), enc_out, flens, blank=tb.cfg.blank,
+            tb.decoder_fns(use_lm=False), enc_out, flens, blank=tb.cfg.blank,
             bos=tb.cfg.bos, max_iters=eng.scfg.max_iters,
             max_tokens=eng.scfg.max_iters * n_chunks + 8)
     assert got == toks[0, : int(lens[0])].tolist()
@@ -601,7 +601,7 @@ def test_streaming_beam_commits_match_batch_beam(tiny_emitting):
         feats, flens = features_batch(torch.from_numpy(audio)[None],
                                       torch.tensor([len(audio)]), tb.frontend)
         enc_out, _ = tb.model.encode(feats, lengths=flens)
-        toks, lens, _ = beam_decode(tb.decoder_fns(), enc_out, flens,
+        toks, lens, _ = beam_decode(tb.decoder_fns(use_lm=False), enc_out, flens,
                                     vocab_sz=tb.cfg.vocab_sz, beam_width=3,
                                     max_expand=3, max_tokens=64)
     assert eng.emitted[s] == toks[0, : int(lens[0])].tolist()

@@ -159,3 +159,34 @@ def test_best_wer_bar_survives_resume(tmp_path, capsys):
     assert logger.log_eval(14000, _R()) is False
     _R.wer = 0.051
     assert logger.log_eval(14500, _R()) is True
+
+
+def test_cli_trains_the_bpe_tokenizer_as_jax(conf_path, tmp_path, capsys):
+    """train_tokenizer: the CLI dumps the training labels and trains the
+    config's BPE model first (the same bytes as the JAX package's builder
+    writes), then trains on its ids."""
+    from libreasr_tpu.data.builder import ASRDatasetBuilder as JaxBuilder
+    from libreasr_tpu_torch.data.bpe import BPELanguage
+    from libreasr_tpu_torch.data.builder import ASRDatasetBuilder
+
+    with open(conf_path) as f:
+        conf = yaml.safe_load(f)
+    tok = str(tmp_path / "tok" / "bpe.model")
+    conf.update(train_tokenizer=True, wanted_vocab_sz=48,
+                tokenizer={"model_file": tok})
+    path = tmp_path / "conf.yaml"
+    path.write_text(yaml.safe_dump(conf))
+    cli.main(["--config", str(path), "--steps", "1", "--device", "cpu",
+              "--ckpt", str(tmp_path / "ckpt"), "--logdir", str(tmp_path / "runs"),
+              "--eval-batches", "1"])
+    assert "[train] done: step=1" in capsys.readouterr().out
+    ref = str(tmp_path / "jax.model")
+    JaxBuilder.from_config(conf, "train").train_tokenizer(ref, 48)
+    with open(tok, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+    assert not os.path.exists(tok + ".labels.txt")
+    rows = ASRDatasetBuilder.from_config(conf, "train")
+    dumped = rows.dump_labels(str(tmp_path / "labels.txt"))
+    with open(dumped) as f:
+        assert f.read().splitlines() == [r["label"].lower() for r in rows.rows]
+    assert len(BPELanguage(tok)) <= 48
