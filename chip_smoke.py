@@ -79,7 +79,25 @@ Phases, one line each (any failure raises and exits non-zero):
  15. train_cli: `python -m libreasr_tpu_torch.train` (its main, in this
      process) at full width on a corpus of noise WAVs written here: 2
      steps with an eval and a bundle export, then a resume to step 3;
-     the bundle reloads on cuda and transcribes;
+     the bundle reloads on cuda and transcribes; then 2 steps with
+     --chain-steps 2 (one chain) against 2 single steps: the same
+     parameters bit for bit;
+ 15c. options_full_width: the options the JAX config accepts, at full
+     width on the clips of 5: delta features (feature_sz 2560; the card's
+     features against the CPU's within FRONTEND_TOL; transcribe_batch, B
+     6 launches, median of 7), an LN encoder (scan cells: no A/B launch)
+     and the same bundle int8 (no C launch), an add-joint bundle in
+     float32 (transcribe_batch and transcribe_beam K 4, B 6 launches
+     each; sharpened as in 22, greedy and beam on the card's encoder
+     output equal the CPU's on every row), a StreamingEngine of N 64 on
+     an LN + add bundle (4 graph replays against the uncaptured step,
+     replay ms) and Joint.int8_step on add raising;
+ 15d. options_train_full_width: on the train batches of 12, 3 steps each
+     of ranger_adabelief, lamb and apollo (D, E 6 launches, F, G, H 1 a
+     step), 3 steps with deltas, an LN encoder and the add joint (the
+     lattice loss on the scan cells, no kernel), 2 AdaHessian steps on
+     the scan route (step ms, peak memory), and one AdaHessian step on
+     the D/E route raising its ValueError;
  15a. train_tone_stream: the port's tone recipe
      (libreasr_tpu_torch.scripts.train_tone_stream) in this process at
      full width: base.yaml as the recipe sets it (layer norms, carries
@@ -1653,6 +1671,54 @@ def _write_noise_corpus(root: str, seed: int) -> None:
             f.write("\n".join(lines) + "\n")
 
 
+def _chain_steps_check(conf_path: str, tmp: str) -> dict:
+    """The CLI's --chain-steps 2 against two single steps, each from a
+    fresh start: the same parameters bit for bit, as two single-step runs
+    repeat each other bit for bit on an H100. Every clip of the noise
+    corpus falls in one bucket, so the chain takes the first two batches
+    in the single steps' order: on the card this holds the CLI's chain
+    wiring on CUDA and the card's repeatability. The buffering across
+    bucket shapes and the remainder are tests/test_torch_train_cli.py's."""
+    import contextlib
+    import io
+
+    import torch
+
+    from libreasr_tpu_torch import train
+    from libreasr_tpu_torch.training.learner import Learner
+
+    calls = []
+    real = Learner.step_chained
+
+    def counting(self, batches):
+        calls.append(len(batches))
+        return real(self, batches)
+
+    states, secs = {}, {}
+    Learner.step_chained = counting
+    try:
+        for name, extra in (("chained", ["--chain-steps", "2"]), ("single", [])):
+            d = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                train.main(["--config", conf_path, "--ckpt", d, "--logdir", d + "_runs",
+                            "--eval-batches", "1", "--eval-every", "1000",
+                            "--steps", "2", *extra])
+            secs[name] = time.perf_counter() - t0
+            states[name] = torch.load(os.path.join(d, "train_state.pt"),
+                                      map_location="cpu", weights_only=True)["model"]
+    finally:
+        Learner.step_chained = real
+    a, b = states["chained"], states["single"]
+    out = dict(chained_calls=calls, seconds=secs,
+               bit_equal=all(torch.equal(x, b[k]) for k, x in a.items()),
+               max_abs=max(float((x.double() - b[k].double()).abs().max())
+                           for k, x in a.items() if x.is_floating_point()))
+    if calls != [2] or not out["bit_equal"]:
+        raise AssertionError(f"--chain-steps 2 against single steps: {out}")
+    return out
+
+
 def phase_train_cli(seed: int, card: str) -> dict:
     """The training CLI at full width: base.yaml's model as written, the
     noise corpus, accumulation 1 so that every step updates. Returns the
@@ -1697,12 +1763,13 @@ def phase_train_cli(seed: int, card: str) -> dict:
         rng = np.random.default_rng(seed)
         audio = (rng.standard_normal((2, 48000)) * 0.1).astype(np.float32)
         texts, metrics = bundle.transcribe_batch(audio, np.array([48000, 30000]))
+        chain = _chain_steps_check(path, tmp)
     first, second = outs
     lines = [ln for o in outs for ln in o.splitlines()
              if ln.startswith(("[eval]", "[train] resumed", "[train] done"))]
     log("train_cli", card=card, seconds=secs, lines=lines,
         train_kernel_launches=launches, bundle_texts=texts,
-        bundle_hidden=bundle.cfg.hidden_sz)
+        bundle_hidden=bundle.cfg.hidden_sz, chain_steps=chain)
     ok = ("[eval]" in first and "wer=" in first and "done: step=2" in first
           and "resumed" in second and "done: step=3" in second
           and "done: step=2" not in second and all(launches.values())
@@ -1711,6 +1778,238 @@ def phase_train_cli(seed: int, card: str) -> dict:
     if not ok:
         raise AssertionError("training CLI: " + "\n".join(outs))
     return launches
+
+
+# --- the Transducer options the JAX config and CLI accept -------------------
+
+# the card's delta features against the CPU's: the frontend's own bound
+# (tests/test_torch_frontend.py: the DFT products' summation order, a few
+# 1e-6 in the log-mel; a delta of window 3 is a half difference of two)
+FRONTEND_TOL = 1e-4
+OPTION_REPS = 3           # transcribe timings of the option bundles (deltas: 7)
+OPTION_TRAIN_STEPS = 3
+OPTION_OPTIMIZERS = ("ranger_adabelief", "lamb", "apollo")
+ADAHESSIAN_STEPS = 2
+OPTION_STREAMS = 64
+
+
+def _options_conf(*, deltas: int = 0, layer_norm: bool = False,
+                  joint: str = "concat", compute: str | None = None,
+                  inference: bool = True) -> dict:
+    """config/base.yaml at full width with the options set: delta
+    features (feature_sz follows), LayerNorm-LSTM encoder cells, the
+    joint method, the compute type."""
+    from libreasr_tpu_torch.config import parse_and_apply_config
+
+    conf = parse_and_apply_config(inference=inference)
+    if deltas:
+        conf["deltas"] = deltas
+        conf["model"]["feature_sz"] = (conf["melkwargs"]["n_mels"] * (1 + deltas)
+                                       * 10)
+    conf["model"]["encoder"]["layer_norm"] = layer_norm
+    conf["model"]["joint"]["method"] = joint
+    if compute:
+        conf["dtypes"]["compute"] = compute
+    return conf
+
+
+def phase_options_full_width(seed: int, card: str) -> None:
+    """The serving options at full width on the 16 ragged 6 s clips:
+    delta features (the card's features against the CPU's; B 6 launches a
+    transcribe_batch), an LN encoder (the scan cells: no A/B launch) and
+    the same bundle int8 (no C launch), an add-joint bundle (B 6 launches;
+    greedy and beam K 4 on the card against the CPU in float32, every row
+    equal), a StreamingEngine of N 64 on an LN + add bundle (a replay
+    against the uncaptured step), and Joint.int8_step on add raising."""
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.models.beam import beam_decode
+    from libreasr_tpu_torch.models.decode import greedy_decode
+    from libreasr_tpu_torch.models.streaming import StreamingConfig, StreamingEngine
+    from libreasr_tpu_torch.ops.frontend import features_batch
+
+    layers = 6
+    row = {"card": card}
+
+    # delta features: 2560-dim frames, the encoder on kernel B
+    conf = _options_conf(deltas=1)
+    bundle = ASRBundle.from_config(conf, seed=seed, device="cuda")
+    audio, lengths, audio_d, lengths_d, feats, flens = _full_width_clips(bundle, seed)
+    cpu_feats, cpu_flens = features_batch(torch.from_numpy(audio),
+                                          torch.from_numpy(lengths), bundle.frontend)
+    feat_err = float((feats.cpu() - cpu_feats).abs().max())
+    (texts, metrics), launches = _counted(
+        lambda: bundle.transcribe_batch(audio, lengths))
+    ms = wall_ms(lambda: bundle.transcribe_batch(audio, lengths), 7)
+    row["deltas"] = dict(feature_sz=int(feats.shape[-1]), features_max_abs=feat_err,
+                         tol=FRONTEND_TOL, launches=launches,
+                         transcribe_batch_ms_median=statistics.median(ms),
+                         transcribe_batch_ms_runs=ms)
+    if feat_err > FRONTEND_TOL or not torch.equal(flens.cpu(), cpu_flens) \
+            or feats.shape[-1] != 2560 or launches != {"lstm_seq_cseq": layers} \
+            or not np.isfinite(np.asarray(metrics["alignment_score"])).all():
+        raise AssertionError(f"options deltas: {row['deltas']}")
+    del bundle, feats
+
+    # LayerNorm-LSTM encoder: the scan cells, float and int8
+    bundle = ASRBundle.from_config(_options_conf(layer_norm=True), seed=seed,
+                                   device="cuda")
+    for name in ("layer_norm", "layer_norm_int8"):
+        if name == "layer_norm_int8":
+            bundle.quantize()
+        (texts, metrics), launches = _counted(
+            lambda: bundle.transcribe_batch(audio, lengths))
+        ms = wall_ms(lambda: bundle.transcribe_batch(audio, lengths), OPTION_REPS)
+        row[name] = dict(launches=launches, transcribe_batch_ms_median=statistics.median(ms),
+                         transcribe_batch_ms_runs=ms)
+        if launches or len(texts) != 16 \
+                or not np.isfinite(np.asarray(metrics["alignment_score"])).all():
+            raise AssertionError(f"options {name}: {row[name]}")
+    del bundle
+
+    # the add joint, float32 so that the card and the CPU decode alike,
+    # sharpened so that it emits (_make_emitting)
+    add = {d: ASRBundle.from_config(_options_conf(joint="add", compute="float32"),
+                                    seed=seed, device=d) for d in ("cuda", "cpu")}
+    for b in add.values():
+        _make_emitting(b)
+    bundle, cfg = add["cuda"], add["cuda"].cfg
+    (texts, _), greedy_launches = _counted(lambda: bundle.transcribe_batch(audio, lengths))
+    (btexts, scores), beam_launches = _counted(
+        lambda: bundle.transcribe_beam(audio, lengths, beam_width=BEAM_WIDTH))
+    g_ms = wall_ms(lambda: bundle.transcribe_batch(audio, lengths), OPTION_REPS)
+    b_ms = wall_ms(lambda: bundle.transcribe_beam(audio, lengths,
+                                                  beam_width=BEAM_WIDTH), OPTION_REPS)
+    with torch.inference_mode():
+        enc_out, flens = bundle._encode_audio(audio, lengths)
+        kw = dict(vocab_sz=cfg.vocab_sz, blank=cfg.blank, bos=cfg.bos)
+        greedy = [greedy_decode(b.decoder_fns(use_lm=False), e, f, **kw)[:2]
+                  for b, e, f in ((add["cuda"], enc_out, flens),
+                                  (add["cpu"], enc_out.cpu(), flens.cpu()))]
+        beams = [beam_decode(b.decoder_fns(use_lm=False), e, f, beam_width=BEAM_WIDTH,
+                             max_expand=BEAM_EXPAND, **kw)
+                 for b, e, f in ((add["cuda"], enc_out, flens),
+                                 (add["cpu"], enc_out.cpu(), flens.cpu()))]
+    (gt, gl), (ht, hl) = ((t.cpu(), n.cpu()) for t, n in greedy)
+    (ct, cl, cs), (bt, bl, bs) = ((t.cpu(), n.cpu(), s.cpu()) for t, n, s in beams)
+    greedy_rows = sum(bool(gl[i] == hl[i] and torch.equal(gt[i, : gl[i]], ht[i, : hl[i]]))
+                      for i in range(len(gl)))
+    beam_rows = sum(bool(cl[i] == bl[i] and torch.equal(ct[i, : cl[i]], bt[i, : bl[i]]))
+                    for i in range(len(cl)))
+    gap = float((cs - bs).abs().max())
+    row["add_joint"] = dict(
+        compute="float32", greedy_launches=greedy_launches, beam_launches=beam_launches,
+        transcribe_batch_ms_median=statistics.median(g_ms), transcribe_batch_ms_runs=g_ms,
+        transcribe_beam_ms_median=statistics.median(b_ms), transcribe_beam_ms_runs=b_ms,
+        greedy_tokens=int(gl.sum()), beam_tokens=int(cl.sum()),
+        greedy_rows_equal=greedy_rows, beam_rows_equal=beam_rows,
+        beam_max_score_gap=gap, score_gap_max=BEAM_SCORE_GAP,
+        texts_sample=texts[:2])
+    want = {"lstm_seq_cseq": layers}
+    if greedy_launches != want or beam_launches != want or greedy_rows != 16 \
+            or beam_rows != 16 or gap > BEAM_SCORE_GAP or not int(gl.sum()) \
+            or not np.isfinite(scores).all():
+        raise AssertionError(f"options add joint: {row['add_joint']}")
+    try:
+        bundle.model.joint.int8_step()
+    except ValueError as e:
+        row["add_joint"]["int8_step_raises"] = str(e)
+    else:
+        raise AssertionError("Joint.int8_step on the add joint did not raise")
+    del add, bundle, enc_out
+
+    # a StreamingEngine on an LN + add bundle: one CUDA graph a step
+    bundle = ASRBundle.from_config(_options_conf(layer_norm=True, joint="add"),
+                                   seed=seed, device="cuda")
+    scfg = StreamingConfig(sr=bundle.frontend.sr, transfer_dtype="int16",
+                           max_iters=bundle.conf["stream"]["max_iters"])
+    _reset_kernel_launches()
+    eng = StreamingEngine(bundle, n_streams=OPTION_STREAMS, scfg=scfg)
+    first = _eager_vs_graph(eng, _stream_clips(OPTION_STREAMS, seed + 1), steps=4)
+    launches = {k: v for k, v in _kernel_launches().items() if v}
+    replay_ms = cuda_ms(lambda: eng._graph.replay(), reps=20)
+    row["streaming_ln_add"] = dict(n_streams=OPTION_STREAMS, replay_device_ms=replay_ms,
+                                   graph_replays=eng.replays, steps=eng.steps,
+                                   kernel_launches=launches, **first)
+    if eng.replays != eng.steps or launches:
+        raise AssertionError(f"options streaming: {row['streaming_ln_add']}")
+    del eng, bundle
+    torch.cuda.empty_cache()
+    log("options_full_width", **row)
+
+
+def phase_options_train_full_width(seed: int, card: str) -> None:
+    """The training options at full width on the train batches (N 16, T
+    49): 3 steps each of ranger_adabelief, lamb and apollo on the D/E +
+    F/G/H route (D and E 6 launches a step, F, G, H one); 3 steps with
+    deltas, an LN encoder and the add joint together (the lattice loss
+    on the scan cells: no kernel); 2 AdaHessian steps on the scan route
+    (use_pallas_train false), with step ms and peak memory; and one
+    AdaHessian step on the D/E route, which must raise."""
+    import math
+
+    import torch
+
+    from libreasr_tpu_torch.training.learner import Learner
+
+    row = {"card": card, "n": 16}
+
+    def run(conf, steps, name, want=None):
+        learner = Learner.from_config(conf, device="cuda", seed=seed)
+        batches = _train_batches(learner.cfg, learner.frontend, seed, steps=steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, launches = [], [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, counts = _counted(lambda: learner.step(b))
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(counts)
+        out = dict(losses=losses, step_ms_runs=ms,
+                   step_ms_median_after_first=statistics.median(ms[1:]),
+                   launches_per_step=launches,
+                   peak_memory_mib=torch.cuda.max_memory_allocated() / 2**20)
+        row[name] = out
+        if not all(math.isfinite(x) for x in losses) \
+                or any(c != (want or {}) for c in launches):
+            raise AssertionError(f"options train {name}: {out}, launches "
+                                 f"expected {want or {}}")
+        del learner, batches
+
+    route = {"lstm_train_fwd": 6, "lstm_train_bwd": 6, "joint_lp_fwd": 1,
+             "joint_lp_dx": 1, "joint_lp_dw": 1}
+    for name in OPTION_OPTIMIZERS:
+        conf = train_conf(accumulate=1)
+        conf["training"]["optimizer"] = name
+        run(conf, OPTION_TRAIN_STEPS, name, route)
+    conf = _options_conf(deltas=1, layer_norm=True, joint="add", inference=False)
+    conf["accumulate_n_batches"] = 1
+    conf["loss"]["fused"] = False
+    run(conf, OPTION_TRAIN_STEPS, "deltas_layer_norm_add")
+    conf = train_conf(accumulate=1, use_train_kernel=False)
+    conf["training"]["optimizer"] = "adahessian"
+    conf["loss"]["fused"] = False
+    run(conf, ADAHESSIAN_STEPS, "adahessian_scan_route")
+    conf = train_conf(accumulate=1)
+    conf["training"]["optimizer"] = "adahessian"
+    conf["loss"]["fused"] = False
+    learner = Learner.from_config(conf, device="cuda", seed=seed)
+    batch = _train_batches(learner.cfg, learner.frontend, seed, steps=1)[0]
+    try:
+        learner.step(batch)
+    except ValueError as e:
+        if "use_pallas_train: false" not in str(e):
+            raise
+        row["adahessian_kernel_route_raises"] = str(e)
+    else:
+        raise AssertionError("AdaHessian on the D/E route did not raise")
+    del learner, batch
+    torch.cuda.empty_cache()
+    log("options_train_full_width", **row)
 
 
 # the tone recipe in chip_smoke: steps, dev evals, beam width of the
@@ -2761,6 +3060,10 @@ def main() -> int:
     phase_train_small_cuda_vs_cpu(args.seed)
     torch.cuda.synchronize()
     phase_train_cli(args.seed, card)
+    torch.cuda.synchronize()
+    phase_options_full_width(args.seed, card)
+    torch.cuda.synchronize()
+    phase_options_train_full_width(args.seed, card)
     torch.cuda.synchronize()
     t_tone = time.perf_counter()
     with tempfile.TemporaryDirectory() as tone:

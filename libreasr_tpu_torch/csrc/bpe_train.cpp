@@ -1,4 +1,5 @@
-// BPE trainer: corpus (one utterance per line) -> LABPE1 model file.
+// BPE trainer: corpus (one utterance per line) -> LABPE1 model file;
+// and the encoder, with BPE-dropout.
 //
 // Word-frequency BPE: the alphabet is every word's characters, the word
 // marker U+2581 fused with each word's first character; each merge joins
@@ -15,13 +16,30 @@
 //                                  <PAD> <UNK> <BOS> <EOS>)
 //   <left> <right>\n x n_merges    (rank = line order)
 //
+// The encoder (data/bpe.py's, for every dropout, 0 included): each
+// lower-cased word is split into characters, the word marker fused with
+// the first (or a symbol of its own in models that hold a bare marker),
+// and the lowest-ranked merge is applied until none applies; but each
+// candidate merge is skipped with probability `dropout`, by the C
+// library's rand_r seeded once a call (seed 0 means 12345). The draws
+// are those of the JAX package's native encoder, so with the same seed
+// and the same libc the ids are its ids.
+//
 // Built with g++ at first use (libreasr_tpu_torch/ops/kernels/build.py,
 // load_host) and called through ctypes:
 //   int bpe_train(const char* corpus, const char* model, int vocab_size)
 // returns 0, or -1 (corpus unreadable), -2 (no words), -3 (model
-// unwritable).
+// unwritable);
+//   void* bpe_load(const char* model)     a model handle, or NULL
+//   void bpe_free_model(void* handle)
+//   int bpe_encode_dropout(void* handle, const char* text, int32_t* out,
+//                          int max_out, double dropout, unsigned seed)
+// writes at most max_out ids and returns how many the text has.
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
+#include <cstdlib>
 #include <fstream>
 #include <sstream>
 #include <string>
@@ -56,6 +74,44 @@ std::string lower_ascii(const std::string& s) {
   for (auto& c : o)
     if (c >= 'A' && c <= 'Z') c += 32;
   return o;
+}
+
+struct Model {
+  std::vector<std::string> vocab;                   // id -> token
+  std::unordered_map<std::string, int> token_to_id;
+  std::unordered_map<std::string, int> merge_rank;  // "left right" -> rank
+  bool meta_standalone = false;  // the marker is a token of its own
+
+  int id_of(const std::string& t) const {
+    auto it = token_to_id.find(t);
+    return it == token_to_id.end() ? 1 /*UNK*/ : it->second;
+  }
+};
+
+void encode_word(const Model& m, const std::string& word,
+                 std::vector<int>& out, double dropout, unsigned* rng) {
+  std::vector<std::string> syms = utf8_chars(word);
+  if (syms.empty()) return;
+  if (m.meta_standalone)
+    syms.insert(syms.begin(), META);
+  else
+    syms[0] = META + syms[0];
+  while (syms.size() > 1) {
+    int best_rank = INT32_MAX, best_i = -1;
+    for (size_t i = 0; i + 1 < syms.size(); i++) {
+      auto it = m.merge_rank.find(syms[i] + " " + syms[i + 1]);
+      if (it != m.merge_rank.end() && it->second < best_rank) {
+        if (dropout > 0.0 && (double)rand_r(rng) / RAND_MAX < dropout)
+          continue;
+        best_rank = it->second;
+        best_i = (int)i;
+      }
+    }
+    if (best_i < 0) break;
+    syms[best_i] = syms[best_i] + syms[best_i + 1];
+    syms.erase(syms.begin() + best_i + 1);
+  }
+  for (auto& s : syms) out.push_back(m.id_of(s));
 }
 
 }  // namespace
@@ -178,6 +234,45 @@ int bpe_train(const char* corpus_path, const char* model_path,
   for (auto& m : merges)
     outf << sym_str[m.first] << " " << sym_str[m.second] << "\n";
   return 0;
+}
+
+void* bpe_load(const char* model_path) {
+  std::ifstream in(model_path);
+  if (!in) return nullptr;
+  std::string magic;
+  size_t vocab_sz, n_merges;
+  in >> magic >> vocab_sz >> n_merges;
+  if (magic != "LABPE1") return nullptr;
+  std::string line;
+  std::getline(in, line);
+  Model* m = new Model();
+  m->vocab.reserve(vocab_sz);
+  for (size_t i = 0; i < vocab_sz; i++) {
+    std::getline(in, line);
+    m->vocab.push_back(line);
+    m->token_to_id[line] = (int)i;
+  }
+  for (size_t r = 0; r < n_merges; r++) {
+    std::getline(in, line);
+    m->merge_rank[line] = (int)r;
+  }
+  m->meta_standalone = m->token_to_id.count(META) > 0;
+  return m;
+}
+
+void bpe_free_model(void* handle) { delete (Model*)handle; }
+
+int bpe_encode_dropout(void* handle, const char* text, int32_t* out,
+                       int max_out, double dropout, unsigned seed) {
+  Model* m = (Model*)handle;
+  std::istringstream ss(lower_ascii(text));
+  std::string w;
+  std::vector<int> ids;
+  unsigned rng = seed ? seed : 12345u;
+  while (ss >> w) encode_word(*m, w, ids, dropout, &rng);
+  int n = std::min((int)ids.size(), max_out);
+  for (int i = 0; i < n; i++) out[i] = ids[i];
+  return (int)ids.size();
 }
 
 }  // extern "C"

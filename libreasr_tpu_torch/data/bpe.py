@@ -5,9 +5,11 @@ Id contract: 0 = <PAD> (blank), 1 = <UNK>, 2 = <BOS> (the predictor's
 BOS), 3 = <EOS>. A LABPE1 model file is the line "LABPE1", the vocab
 size, the merge count, one token per line, then one merge per line.
 
-Training runs the port's own copy of the JAX package's C++ trainer
-(csrc/bpe_train.cpp, built with g++ at first use): the token ids depend
-on its container order, so no other trainer gives the same model.
+Training and encoding run the port's own copy of the JAX package's C++
+trainer and native encoder (csrc/bpe_train.cpp, built with g++ at first
+use): the token ids depend on the trainer's container order, and
+BPE-dropout's draws come from the C library's rand_r, so no other code
+gives the same ids.
 Encoding splits each lower-cased word into characters, the word marker
 fused with the first (or standing alone, in models converted from
 youtokentome, which keep it as a token of its own), and applies the
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from functools import lru_cache
 
 META = "▁"  # the word marker
 
@@ -35,6 +38,32 @@ def train_bpe(corpus_path: str, model_path: str, vocab_size: int = 2048) -> None
         raise RuntimeError(f"bpe_train failed rc={rc} ({corpus_path} -> {model_path})")
 
 
+@lru_cache(maxsize=1)
+def _encoder_lib() -> ctypes.CDLL:
+    from ..ops.kernels.build import load_host
+
+    lib = load_host("bpe_train")
+    lib.bpe_load.argtypes = [ctypes.c_char_p]
+    lib.bpe_load.restype = ctypes.c_void_p
+    lib.bpe_free_model.argtypes = [ctypes.c_void_p]
+    lib.bpe_encode_dropout.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int, ctypes.c_double, ctypes.c_uint]
+    lib.bpe_encode_dropout.restype = ctypes.c_int
+    return lib
+
+
+def encode(handle, text: str, dropout: float, seed: int) -> list[int]:
+    """The ids of lower-cased `text`, each candidate merge skipped with
+    probability `dropout`, with a model handle of csrc/bpe_train.cpp's
+    bpe_load."""
+    raw = text.encode()
+    buf = (ctypes.c_int32 * (4 * len(raw) + 8))()
+    n = _encoder_lib().bpe_encode_dropout(handle, raw, buf, len(buf),
+                                          float(dropout), int(seed) & 0xFFFFFFFF)
+    return list(buf[: min(n, len(buf))])
+
+
 class BPELanguage:
     blank = 0
     sos = 2
@@ -48,35 +77,29 @@ class BPELanguage:
             if f.readline().strip() != "LABPE1":
                 raise ValueError(f"{model_file}: not a LABPE1 model")
             vocab_sz = int(f.readline())
-            n_merges = int(f.readline())
+            f.readline()  # the merge count: the merges are the C encoder's
             self.vocab = [f.readline().rstrip("\n") for _ in range(vocab_sz)]
-            self.rank = {f.readline().rstrip("\n"): r for r in range(n_merges)}
-        self.t2i = {t: i for i, t in enumerate(self.vocab)}
-        self.meta_standalone = META in self.t2i
+        self._handle = None  # the C encoder's model, loaded at first use
 
-    def _encode_word(self, w: str) -> list[int]:
-        syms = [META] + list(w) if self.meta_standalone else [META + w[0]] + list(w[1:])
-        while len(syms) > 1:
-            best, bi = None, -1
-            for i in range(len(syms) - 1):
-                r = self.rank.get(syms[i] + " " + syms[i + 1])
-                if r is not None and (best is None or r < best):
-                    best, bi = r, i
-            if bi < 0:
-                break
-            syms[bi: bi + 2] = [syms[bi] + syms[bi + 1]]
-        return [self.t2i.get(s, 1) for s in syms]
+    def _encoder(self):
+        if self._handle is None:
+            self._handle = _encoder_lib().bpe_load(self.model_file.encode())
+            if not self._handle:
+                raise ValueError(f"{self.model_file}: not a LABPE1 model")
+        return self._handle
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            _encoder_lib().bpe_free_model(self._handle)
 
     def numericalize(self, text: str, sos: bool = False, dropout: float = 0.0,
                      seed: int = 0, append_eos: bool = True) -> list[int]:
         """Text -> ids: lower-cased, split on whitespace, each word
         encoded; <EOS> appended unless append_eos is False, <BOS> put in
-        front when sos. BPE-dropout (dropout > 0) is not ported: the JAX
-        package draws it from the C library's rand_r."""
-        if dropout > 0:
-            raise NotImplementedError(
-                "libreasr_tpu_torch: BPE-dropout is not ported (ROADMAP)")
-        ids = [i for w in text.lower().strip().split() for i in self._encode_word(w)]
+        front when sos. With dropout > 0 each candidate merge is skipped
+        with that probability (BPE-dropout), drawn from rand_r seeded
+        with `seed` for the call."""
+        ids = encode(self._encoder(), text.lower().strip(), dropout, seed)
         if append_eos:
             ids.append(self.eos)
         return ([self.sos] if sos else []) + ids

@@ -5,7 +5,9 @@ a flax variable path such as `encoder/rnn_stack/layer0/cell/kernel`
 is the torch name `encoder.rnn_stack.layer0.cell.kernel` (see
 convert.py), and every parameter keeps its JAX layout: Dense kernels
 are [in, out], LSTM kernels [I, 4H] in gate order i,g,f,o, GRU/NBRC
-kernels [I, 3H] in order z,r,g.
+kernels [I, 3H] in order z,r,g. A LayerNorm-LSTM cell (an LSTM tower
+with `layer_norm`) adds its LN leaves `gamma` [2, 4H], `gamma_h` and
+`beta_h` [H] beside them.
 
 Seeded initialisation draws from an explicit torch.Generator on the
 CPU, so one seed gives the same weights on every device.
@@ -146,12 +148,14 @@ class QuantizedWeight(nn.Module):
 
 class Cell(nn.Module):
     """The recurrent matrices of one layer in the JAX layout, float32
-    parameters or, with `quantized`, int8 QuantizedWeights."""
+    parameters or, with `quantized`, int8 QuantizedWeights; a LayerNorm
+    LSTM's LN scales and shift stay float32 parameters."""
 
     def __init__(self, rnn_type, input_sz, hidden_sz, gen, *, quantized=False):
         super().__init__()
         self.rnn_type = rnn_type
-        g = 4 if rnn_type == "LSTM" else 3
+        lstm = rnn_type in ("LSTM", "LN_LSTM")
+        g = 4 if lstm else 3
         if quantized:
             self.kernel = QuantizedWeight(input_sz, g * hidden_sz)
             self.recurrent_kernel = QuantizedWeight(
@@ -163,17 +167,24 @@ class Cell(nn.Module):
                 _xavier_uniform((hidden_sz, g * hidden_sz), gen)
             )
         bias = torch.zeros(g * hidden_sz)
-        if rnn_type == "LSTM":
+        if lstm:
             bias[2 * hidden_sz : 3 * hidden_sz] = 1.0  # forget gate (i,g,f,o)
         self.bias = nn.Parameter(bias)
-        if rnn_type != "LSTM":
+        if not lstm:
             self.recurrent_bias = nn.Parameter(torch.zeros(g * hidden_sz))
+        if rnn_type == "LN_LSTM":
+            self.gamma = nn.Parameter(torch.ones(2, g * hidden_sz))
+            self.gamma_h = nn.Parameter(torch.ones(hidden_sz))
+            self.beta_h = nn.Parameter(torch.zeros(hidden_sz))
 
     def params(self):
         k, r = (w.tensor() if isinstance(w, QuantizedWeight) else w
                 for w in (self.kernel, self.recurrent_kernel))
         if self.rnn_type == "LSTM":
             return rnn_ops.LSTMParams(k, r, self.bias)
+        if self.rnn_type == "LN_LSTM":
+            return rnn_ops.LayerNormLSTMParams(k, r, self.bias, self.gamma,
+                                               self.gamma_h, self.beta_h)
         return rnn_ops.GRUParams(k, r, self.bias, self.recurrent_bias)
 
 
@@ -190,7 +201,12 @@ class RNNLayer(nn.Module):
     DropConnect's masked R formed outside them; zoneout in training keeps
     the scan cells and says so once; everything else runs on the
     differentiable scan cells. The kernels' wrappers take their plain
-    twins for CPU tensors."""
+    twins for CPU tensors. A LayerNorm LSTM (LN_LSTM) takes the scan
+    cells in eval and in training, as in JAX.
+
+    `second_order` (set by a Learner that differentiates twice) makes a
+    layer on the D/E route raise: kernels D and E have no double
+    backward, and JAX's Pallas training kernels have no JVP either."""
 
     def __init__(self, input_sz, hidden_sz, gen, *, rnn_type="LSTM",
                  compute_dtype=None, length_mode="pack", use_kernel=False,
@@ -208,7 +224,8 @@ class RNNLayer(nn.Module):
         self.use_train_kernel = use_train_kernel
         self.zoneout = zoneout
         self.dropconnect = dropconnect
-        self.n_state = rnn_ops.CELLS[rnn_type][1]
+        self.second_order = False
+        self.scan, _, self.n_state = rnn_ops.CELLS[rnn_type]
         self.cell = Cell(rnn_type, input_sz, hidden_sz, gen, quantized=quantized)
         self.h0 = nn.Parameter(torch.zeros(self.n_state, 1, hidden_sz))
 
@@ -245,6 +262,14 @@ class RNNLayer(nn.Module):
             state = self.initial_state(x.shape[0])
         params = self.cell.params()
         if self.train_kernel_eligible(x):
+            if self.second_order:
+                raise ValueError(
+                    f"RNNLayer(hidden={self.hidden_sz}): a second-order step "
+                    "(AdaHessian's Hutchinson probes) cannot run on the LSTM "
+                    "training kernels D and E, which have no double "
+                    "backward (nor do the JAX package's Pallas kernels a "
+                    "JVP); set encoder.use_pallas_train: false to train "
+                    "the encoder on the scan cells")
             if self.dropconnect:
                 params = params._replace(recurrent_kernel=rnn_ops.drop_connect(
                     params.recurrent_kernel, self.dropconnect, generator))
@@ -252,8 +277,7 @@ class RNNLayer(nn.Module):
                                    compute_dtype=self.compute_dtype)
         if self.kernel_eligible(x):
             return lstm_pack(x, tuple(state), params, lengths)
-        scan = rnn_ops.lstm_scan if self.rnn_type == "LSTM" else rnn_ops.gru_scan
-        return scan(x, tuple(state), params, lengths=lengths,
+        return self.scan(x, tuple(state), params, lengths=lengths,
                     compute_dtype=self.compute_dtype,
                     length_mode=self.length_mode, zoneout=self.zoneout,
                     dropconnect=self.dropconnect, training=self.training,
@@ -298,10 +322,13 @@ class MaskedBatchNorm(nn.Module):
 
 class RNNStack(nn.Module):
     """Layers named layer{i}, each followed by norm{i}; optional time
-    reduction before listed layers and a rezero residual."""
+    reduction before listed layers and a rezero residual. An LSTM stack
+    with `layer_norm` has LayerNorm-LSTM cells; `layer_norm` leaves GRU
+    and NBRC cells as they are, as in JAX."""
 
     def __init__(self, input_sz, hidden_sz, num_layers, gen, *,
-                 rnn_type="LSTM", reduction_indices=(), reduction_factors=(),
+                 rnn_type="LSTM", layer_norm=False, reduction_indices=(),
+                 reduction_factors=(),
                  rezero=False, norm="batch", compute_dtype=None,
                  length_mode="pack", use_kernel=False, quantized=False,
                  use_train_kernel=False, zoneout=0.0, dropconnect=0.0):
@@ -309,10 +336,11 @@ class RNNStack(nn.Module):
         self.num_layers = num_layers
         self.reduction = dict(zip(reduction_indices, reduction_factors))
         self.rezero = rezero
+        cell_type = "LN_LSTM" if rnn_type == "LSTM" and layer_norm else rnn_type
         in_sz = input_sz
         for i in range(num_layers):
             self.add_module(f"layer{i}", RNNLayer(
-                in_sz, hidden_sz, gen, rnn_type=rnn_type,
+                in_sz, hidden_sz, gen, rnn_type=cell_type,
                 compute_dtype=compute_dtype, length_mode=length_mode,
                 use_kernel=use_kernel, quantized=quantized,
                 use_train_kernel=use_train_kernel, zoneout=zoneout,
@@ -355,7 +383,8 @@ class Encoder(nn.Module):
     projection."""
 
     def __init__(self, feature_sz, hidden_sz, out_sz, gen, *, num_layers=6,
-                 rnn_type="LSTM", norm="batch", reduction_indices=(),
+                 rnn_type="LSTM", layer_norm=False, norm="batch",
+                 reduction_indices=(),
                  reduction_factors=(), compute_dtype=None, use_kernel=False,
                  quantized=False, dropout=0.0, use_train_kernel=False,
                  zoneout=0.0, dropconnect=0.0):
@@ -364,7 +393,7 @@ class Encoder(nn.Module):
         self.input_norm = LayerNorm(feature_sz)
         self.rnn_stack = RNNStack(
             feature_sz, hidden_sz, num_layers, gen, rnn_type=rnn_type,
-            norm=norm, reduction_indices=reduction_indices,
+            layer_norm=layer_norm, norm=norm, reduction_indices=reduction_indices,
             reduction_factors=reduction_factors, compute_dtype=compute_dtype,
             length_mode="haste" if rnn_type == "NBRC" else "pack",
             use_kernel=use_kernel, quantized=quantized,
@@ -389,7 +418,8 @@ class Predictor(nn.Module):
     """embed (blank pinned to 0) -> ffn -> RNN stack -> projection."""
 
     def __init__(self, vocab_sz, embed_sz, hidden_sz, out_sz, gen, *,
-                 num_layers=2, blank=0, rnn_type="NBRC", norm="batch",
+                 num_layers=2, blank=0, rnn_type="NBRC", layer_norm=False,
+                 norm="batch",
                  compute_dtype=None, quantized=False, dropout=0.0,
                  zoneout=0.0, dropconnect=0.0):
         super().__init__()
@@ -399,7 +429,7 @@ class Predictor(nn.Module):
         self.ffn = Dense(embed_sz, hidden_sz, gen) if embed_sz != hidden_sz else None
         self.rnn_stack = RNNStack(
             hidden_sz, hidden_sz, num_layers, gen, rnn_type=rnn_type,
-            norm=norm, compute_dtype=compute_dtype,
+            layer_norm=layer_norm, norm=norm, compute_dtype=compute_dtype,
             length_mode="haste" if rnn_type == "NBRC" else "pack",
             quantized=quantized, zoneout=zoneout, dropconnect=dropconnect,
         )
@@ -420,26 +450,42 @@ class Predictor(nn.Module):
 
 
 class Joint(nn.Module):
-    """concat joint as two projections and a broadcast add:
-    tanh(h_pred @ W_p + b + h_enc @ W_e) @ W_out + b_out, so the [.., 2H]
-    concat over the [N, T, U] lattice is never built."""
+    """The joint network, `method` "concat" or "add".
 
-    def __init__(self, out_sz, joint_sz, vocab_sz, gen, *, compute_dtype=None):
+    concat: two projections and a broadcast add,
+    tanh(h_pred @ W_p + b + h_enc @ W_e) @ W_out + b_out, so the [.., 2H]
+    concat over the [N, T, U] lattice is never built.
+    add: tanh((h_pred + h_enc) @ W_p + b) @ W_out + b_out, the sum taken
+    first, as JAX's Dense(pred_proj)(h_pred + h_enc); it has no enc_proj."""
+
+    def __init__(self, out_sz, joint_sz, vocab_sz, gen, *, method="concat",
+                 compute_dtype=None):
         super().__init__()
+        if method not in ("concat", "add"):
+            raise ValueError(f"no such joint method: {method}")
         dt = compute_dtype
+        self.method = method
         self.pred_proj = Dense(out_sz, joint_sz, gen, dtype=dt)
-        self.enc_proj = Dense(out_sz, joint_sz, gen, use_bias=False, dtype=dt)
+        if method == "concat":
+            self.enc_proj = Dense(out_sz, joint_sz, gen, use_bias=False, dtype=dt)
         self.out = Dense(joint_sz, vocab_sz, gen, dtype=dt)
 
     def forward(self, h_pred, h_enc):
-        x = self.pred_proj(h_pred) + self.enc_proj(h_enc)
+        if self.method == "add":
+            x = self.pred_proj(h_pred + h_enc)
+        else:
+            x = self.pred_proj(h_pred) + self.enc_proj(h_enc)
         return self.out(torch.tanh(x))
 
     def int8_step(self):
         """The int8 joint of the JAX package's decoder_fns(quantized=True):
         the three kernels quantized now, at bind time, and run as dynamic
         int8 products (compute_dtype ignored); biases stay float32.
-        Returns joint_step(h_pred, h_enc) -> logits."""
+        Returns joint_step(h_pred, h_enc) -> logits. The concat joint
+        only: JAX asserts it."""
+        if self.method != "concat":
+            raise ValueError("the int8 joint needs joint method 'concat' "
+                             f"(this one is {self.method!r}), as in JAX")
         q_pred, q_enc, q_out = (quantize(d.kernel) for d in
                                 (self.pred_proj, self.enc_proj, self.out))
         b_pred, b_out = self.pred_proj.bias.float(), self.out.bias.float()

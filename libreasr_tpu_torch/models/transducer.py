@@ -27,6 +27,8 @@ class TransducerConfig:
     bos: int = 2
     enc_num_layers: int = 6
     enc_rnn_type: str = "LSTM"
+    # LSTM towers with layer_norm have LayerNorm-LSTM cells
+    enc_layer_norm: bool = False
     enc_norm: str = "batch"
     enc_reduction_indices: tuple = ()
     enc_reduction_factors: tuple = ()
@@ -37,8 +39,10 @@ class TransducerConfig:
     enc_dropout: float = 0.05
     pred_num_layers: int = 2
     pred_rnn_type: str = "NBRC"
+    pred_layer_norm: bool = False
     pred_norm: str = "batch"
     pred_dropout: float = 0.05
+    joint_method: str = "concat"  # or "add"
     # zoneout and DropConnect of both towers' recurrent layers
     zoneout: float = 0.0
     dropconnect: float = 0.0
@@ -61,12 +65,6 @@ class TransducerConfig:
     def from_config(cls, conf: dict) -> "TransducerConfig":
         m = conf["model"]
         enc, pred = m["encoder"], m["predictor"]
-        if enc.get("layer_norm") or pred.get("layer_norm"):
-            raise NotImplementedError(
-                "libreasr_tpu_torch: LayerNorm-LSTM cells are not ported yet")
-        if m["joint"]["method"] != "concat":
-            raise NotImplementedError(
-                "libreasr_tpu_torch: only the concat joint is ported")
         compute = conf.get("dtypes", {}).get("compute")
         return cls(
             feature_sz=m["feature_sz"],
@@ -77,6 +75,7 @@ class TransducerConfig:
             joint_sz=m["joint_sz"],
             enc_num_layers=enc["num_layers"],
             enc_rnn_type=enc["rnn_type"],
+            enc_layer_norm=bool(enc.get("layer_norm", False)),
             enc_norm=enc.get("norm", "batch"),
             enc_reduction_indices=tuple(enc.get("reduction_indices", ())),
             enc_reduction_factors=tuple(enc.get("reduction_factors", ())),
@@ -85,8 +84,10 @@ class TransducerConfig:
             enc_dropout=enc.get("dropout", 0.05),
             pred_num_layers=pred["num_layers"],
             pred_rnn_type=pred["rnn_type"],
+            pred_layer_norm=bool(pred.get("layer_norm", False)),
             pred_norm=pred.get("norm", "batch"),
             pred_dropout=pred.get("dropout", 0.05),
+            joint_method=m["joint"]["method"],
             zoneout=m.get("zoneout", enc.get("zoneout", 0.0)),
             dropconnect=m.get("dropconnect", enc.get("dropconnect", 0.0)),
             compute_dtype=torch.bfloat16 if compute == "bfloat16" else None,
@@ -109,7 +110,7 @@ class Transducer(nn.Module):
         self.encoder = Encoder(
             c.feature_sz, c.hidden_sz, c.out_sz, gen,
             num_layers=c.enc_num_layers, rnn_type=c.enc_rnn_type,
-            norm=c.enc_norm, reduction_indices=c.enc_reduction_indices,
+            layer_norm=c.enc_layer_norm, norm=c.enc_norm, reduction_indices=c.enc_reduction_indices,
             reduction_factors=c.enc_reduction_factors,
             compute_dtype=c.compute_dtype, use_kernel=c.enc_use_kernel,
             quantized=c.quantized_cells, dropout=c.enc_dropout,
@@ -119,12 +120,13 @@ class Transducer(nn.Module):
         self.predictor = Predictor(
             c.vocab_sz, c.embed_sz, c.hidden_sz, c.out_sz, gen,
             num_layers=c.pred_num_layers, blank=c.blank,
-            rnn_type=c.pred_rnn_type, norm=c.pred_norm,
+            rnn_type=c.pred_rnn_type, layer_norm=c.pred_layer_norm,
+            norm=c.pred_norm,
             compute_dtype=c.compute_dtype, quantized=c.quantized_cells,
             dropout=c.pred_dropout, zoneout=c.zoneout, dropconnect=c.dropconnect,
         )
         self.joint = Joint(c.out_sz, c.joint_sz, c.vocab_sz, gen,
-                           compute_dtype=c.compute_dtype)
+                           method=c.joint_method, compute_dtype=c.compute_dtype)
         self.eval()
         if device is not None:
             self.to(device)

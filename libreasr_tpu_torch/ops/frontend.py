@@ -104,6 +104,20 @@ def num_frames(n_samples, hop: int):
     return n_samples // hop + 1
 
 
+def compute_deltas(x: torch.Tensor, win_length: int = 3) -> torch.Tensor:
+    """Deltas over the time axis of [..., T, F], as
+    torchaudio.functional.compute_deltas: the frames edge-padded by
+    n = (win_length - 1) // 2 on both ends, the centered filter
+    -n..n summed over them, divided by n(n+1)(2n+1)/3."""
+    n = (win_length - 1) // 2
+    denom = n * (n + 1) * (2 * n + 1) / 3.0
+    t = x.shape[-2]
+    idx = torch.clamp(torch.arange(-n, t + n, device=x.device), 0, t - 1)
+    xp = x.index_select(-2, idx)
+    out = sum(float(k - n) * xp[..., k : k + t, :] for k in range(win_length))
+    return out / denom
+
+
 def stack_downsample(x: torch.Tensor, *, n_stack: int = 10,
                      downsample: int = 8) -> torch.Tensor:
     """[N, T, F] -> [N, T', F * n_stack], T' = (T - n_stack)//ds + 1,
@@ -168,9 +182,11 @@ class FrontendConfig:
     n_mels: int = 128
     n_stack: int = 10
     downsample: int = 8
-    # delta features: not ported (from_config and features_batch refuse
-    # them, and so does the streaming engine, as in the JAX package)
+    # delta features: `deltas` orders of compute_deltas over the log-mel
+    # frames, concatenated after them (the streaming engine refuses them,
+    # as in the JAX package: the filter reads future frames)
     deltas: int = 0
+    delta_win_length: int = 3
     # SpecAugment
     cut_max_front: int = 1
     cut_max_back: int = 1
@@ -185,7 +201,7 @@ class FrontendConfig:
 
     @property
     def feature_sz(self) -> int:
-        return self.n_mels * self.n_stack
+        return self.n_mels * (1 + self.deltas) * self.n_stack
 
     @classmethod
     def from_config(cls, conf: dict) -> "FrontendConfig":
@@ -193,10 +209,6 @@ class FrontendConfig:
         package: a stage present turns its augmentation on with its
         args, a stage absent turns it off; without a feature list the
         defaults stand."""
-        if conf.get("deltas", 0):
-            raise NotImplementedError(
-                "libreasr_tpu_torch: delta features are not ported yet"
-            )
         mk = conf.get("melkwargs", {})
         kw = dict(
             sr=conf.get("sr", 16000),
@@ -204,6 +216,8 @@ class FrontendConfig:
             n_mels=mk.get("n_mels", 128),
             win_length=conf.get("win_length", 0.025),
             hop_length=conf.get("hop_length", 0.01),
+            deltas=conf.get("deltas", 0),
+            delta_win_length=conf.get("delta_win_length", 3),
         )
         feats = (conf.get("transforms") or {}).get("features")
         if feats:
@@ -234,7 +248,8 @@ class FrontendConfig:
 
     def draw_augment(self, n: int, t: int, generator) -> AugmentDraws:
         """SpecAugment's integers for a batch of n rows of t mel frames,
-        from `generator` on its device, with jax.random.randint's ranges."""
+        from `generator` on its device, with jax.random.randint's ranges
+        (frequency masks over the log-mel features and their deltas)."""
         dev = generator.device
 
         def randint(high, shape):
@@ -246,7 +261,8 @@ class FrontendConfig:
             back=randint(self.cut_max_back + 1, (n,)) if cut else None,
             time=(randint(max(t - self.time_mask_size, 1), (n, self.time_masks))
                   if self.time_masks and self.time_mask_size else None),
-            freq=(randint(max(self.n_mels - self.freq_mask_size, 1),
+            freq=(randint(max(self.n_mels * (1 + self.deltas)
+                              - self.freq_mask_size, 1),
                           (n, self.freq_masks))
                   if self.freq_masks and self.freq_mask_size else None),
         )
@@ -272,15 +288,18 @@ def features_batch(audio: torch.Tensor, sample_lengths: torch.Tensor,
     log-mel frames with `draws`, or with integers drawn from `generator`.
     Returns (features [N, T', feature_sz], frame_lengths [N] int64,
     clipped to [1, T'])."""
-    if cfg.deltas:
-        raise NotImplementedError(
-            "libreasr_tpu_torch: delta features are not ported yet")
     if not audio.is_floating_point():
         audio = audio.float() * (1.0 / 32768.0)
     mel = log_mel_spectrogram(
         audio, sr=cfg.sr, n_fft=cfg.n_fft, win_length=cfg.win_length,
         hop_length=cfg.hop_length, n_mels=cfg.n_mels,
     )
+    if cfg.deltas:
+        ds, d = [mel], mel
+        for _ in range(cfg.deltas):
+            d = compute_deltas(d, cfg.delta_win_length)
+            ds.append(d)
+        mel = torch.cat(ds, dim=-1)
     frame_len = num_frames(sample_lengths.long(), cfg.hop)
     if augment:
         if draws is None:

@@ -8,6 +8,10 @@ nn.LSTM/nn.GRU's:
   recurrent_bias [3H], gates z,r,g with the reset applied after the
   matmul: z = σ(Wx_z+Rh_z); r = σ(Wx_r+Rh_r); g = tanh(Wx_g + r·Rh_g);
   h' = z·h + (1-z)·g
+- LayerNorm-LSTM (LN_LSTM): the LSTM's gates from LN(Wx; gamma[0]) +
+  LN(Rh; gamma[1]) + b, each LN scale-only; then the cell output
+  h' = σ(o)tanh(LN(c'; gamma_h, beta_h)), the state keeping c' itself;
+  the LNs take the biased variance and eps 1e-5
 
 Length modes: "pack" zeroes outputs and freezes the state past each
 length; "haste" keeps every output and reads the returned state off at
@@ -53,6 +57,15 @@ class GRUParams(NamedTuple):
     recurrent_bias: torch.Tensor    # [3H]
 
 
+class LayerNormLSTMParams(NamedTuple):
+    kernel: torch.Tensor            # [I, 4H]  gates i,g,f,o
+    recurrent_kernel: torch.Tensor  # [H, 4H]
+    bias: torch.Tensor              # [4H]
+    gamma: torch.Tensor             # [2, 4H]  LN scales of Wx and Rh
+    gamma_h: torch.Tensor           # [H]      LN scale of the cell output
+    beta_h: torch.Tensor            # [H]      LN shift of the cell output
+
+
 def round_to(x: torch.Tensor, dtype) -> torch.Tensor:
     """Round to `dtype` and widen back to float32 (identity for None)."""
     return x if dtype is None else x.to(dtype).float()
@@ -69,6 +82,14 @@ def _mm(a, b, compute_dtype):
     if isinstance(b, QuantizedTensor):
         return int8_matmul(a, b)
     return round_to(a, compute_dtype) @ b
+
+
+def _ln(x, gamma, beta=None, eps: float = 1e-5):
+    """LayerNorm over the last axis with the biased variance."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps) * gamma
+    return y if beta is None else y + beta
 
 
 def _gated(t: int, lengths, new, old):
@@ -116,9 +137,10 @@ def _zoneout(h_new, h_old, p: float, mask, training: bool):
 
 def _recurrent(params, x, h, compute_dtype, zoneout, dropconnect, training,
                generator, dropconnect_mask, zoneout_mask):
-    """The parts both scans share: the projection of every step, R (masked
-    in training when DropConnect is on), and the zoneout masks."""
-    wx = _mm(x, _weight(params.kernel, compute_dtype), compute_dtype) + params.bias
+    """The parts every scan shares: the projection of every step (without
+    the bias), R (masked in training when DropConnect is on), and the
+    zoneout masks."""
+    wx = _mm(x, _weight(params.kernel, compute_dtype), compute_dtype)
     rk = params.recurrent_kernel
     if training and dropconnect:
         rk = drop_connect(rk, dropconnect, generator, dropconnect_mask)
@@ -127,24 +149,21 @@ def _recurrent(params, x, h, compute_dtype, zoneout, dropconnect, training,
     return wx, _weight(rk, compute_dtype), zm
 
 
-def lstm_scan(x, state, params: LSTMParams, *, lengths=None,
-              compute_dtype=None, length_mode: str = "pack",
-              zoneout: float = 0.0, dropconnect: float = 0.0,
-              training: bool = False, generator=None, dropconnect_mask=None,
-              zoneout_mask=None):
-    """x: [N, T, I]; state: (h, c) each [N, H]; the masks, when given:
-    [H, 4H] and [T, N, H]. Returns (y [N, T, H], (h, c))."""
+def _lstm_steps(x, state, preact, ln_h, zm, *, lengths, length_mode,
+                zoneout, training):
+    """The LSTM recurrence over T steps, shared by the plain and the
+    LayerNorm cell: preact(h, t) gives the gates' pre-activations v,
+    ln_h (gamma_h, beta_h) or None normalises c' before the output gate.
+    Returns (y [N, T, H], (h, c))."""
     h, c = state
-    wx, r, zm = _recurrent(params, x, h, compute_dtype, zoneout, dropconnect,
-                           training, generator, dropconnect_mask, zoneout_mask)
     haste = length_mode == "haste"
     sh, sc = h, c
     ys = []
     for t in range(x.shape[1]):
-        v = _mm(h, r, compute_dtype) + wx[:, t]
-        i, g, f, o = v.chunk(4, dim=-1)
+        i, g, f, o = preact(h, t).chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        c_out = c_new if ln_h is None else _ln(c_new, *ln_h)
+        h_new = torch.sigmoid(o) * torch.tanh(c_out)
         h_new = _zoneout(h_new, h, zoneout, None if zm is None else zm[t],
                          training)
         if haste:
@@ -160,6 +179,23 @@ def lstm_scan(x, state, params: LSTMParams, *, lengths=None,
     return y, ((sh, sc) if haste else (h, c))
 
 
+def lstm_scan(x, state, params: LSTMParams, *, lengths=None,
+              compute_dtype=None, length_mode: str = "pack",
+              zoneout: float = 0.0, dropconnect: float = 0.0,
+              training: bool = False, generator=None, dropconnect_mask=None,
+              zoneout_mask=None):
+    """x: [N, T, I]; state: (h, c) each [N, H]; the masks, when given:
+    [H, 4H] and [T, N, H]. Returns (y [N, T, H], (h, c))."""
+    wx, r, zm = _recurrent(params, x, state[0], compute_dtype, zoneout,
+                           dropconnect, training, generator, dropconnect_mask,
+                           zoneout_mask)
+    wx = wx + params.bias
+    return _lstm_steps(
+        x, state, lambda h, t: _mm(h, r, compute_dtype) + wx[:, t], None, zm,
+        lengths=lengths, length_mode=length_mode, zoneout=zoneout,
+        training=training)
+
+
 def gru_scan(x, state, params: GRUParams, *, lengths=None,
              compute_dtype=None, length_mode: str = "pack",
              zoneout: float = 0.0, dropconnect: float = 0.0,
@@ -170,6 +206,7 @@ def gru_scan(x, state, params: GRUParams, *, lengths=None,
     (h,) = state
     wx, r, zm = _recurrent(params, x, h, compute_dtype, zoneout, dropconnect,
                            training, generator, dropconnect_mask, zoneout_mask)
+    wx = wx + params.bias
     haste = length_mode == "haste"
     sh = h
     ys = []
@@ -194,6 +231,26 @@ def gru_scan(x, state, params: GRUParams, *, lengths=None,
     return y, ((sh,) if haste else (h,))
 
 
+def layernorm_lstm_scan(x, state, params: LayerNormLSTMParams, *,
+                        lengths=None, compute_dtype=None,
+                        length_mode: str = "pack", zoneout: float = 0.0,
+                        dropconnect: float = 0.0, training: bool = False,
+                        generator=None, dropconnect_mask=None,
+                        zoneout_mask=None):
+    """The LayerNorm LSTM; arguments and returns as for lstm_scan."""
+    wx, r, zm = _recurrent(params, x, state[0], compute_dtype, zoneout,
+                           dropconnect, training, generator, dropconnect_mask,
+                           zoneout_mask)
+    wx = _ln(wx, params.gamma[0])
+
+    def preact(h, t):
+        return _ln(_mm(h, r, compute_dtype), params.gamma[1]) + wx[:, t] + params.bias
+
+    return _lstm_steps(x, state, preact, (params.gamma_h, params.beta_h), zm,
+                       lengths=lengths, length_mode=length_mode,
+                       zoneout=zoneout, training=training)
+
+
 def time_reduce(x, lengths, factor: int):
     """Mean-pool time by `factor`: [N, T, H] -> [N, T//factor, H]."""
     n, t, h = x.shape
@@ -208,9 +265,10 @@ def mish(x):
     return x * torch.tanh(F.softplus(x))
 
 
-# rnn type -> (params type, number of state tensors)
+# rnn type -> (scan, params type, number of state tensors)
 CELLS = {
-    "LSTM": (LSTMParams, 2),
-    "GRU": (GRUParams, 1),
-    "NBRC": (GRUParams, 1),  # NBRC is haste's GRU under another name
+    "LSTM": (lstm_scan, LSTMParams, 2),
+    "GRU": (gru_scan, GRUParams, 1),
+    "NBRC": (gru_scan, GRUParams, 1),  # NBRC is haste's GRU under another name
+    "LN_LSTM": (layernorm_lstm_scan, LayerNormLSTMParams, 2),
 }

@@ -10,6 +10,8 @@ the DP runs as T + U1 - 1 vector steps over the diagonals instead of
 T * U1 cell steps (JAX runs a scan over T of associative scans over U;
 the sums are the same, taken in another order). The gradient is
 analytic, from the forward/backward occupancies, as JAX's custom_vjp.
+`rnnt_loss_autodiff` runs the same DP through autograd instead, for
+second-order steps.
 """
 
 from __future__ import annotations
@@ -159,6 +161,59 @@ def rnnt_loss(logits, labels, frame_lengths, label_lengths, blank: int = 0):
     differentiable in logits (analytic occupancy gradient)."""
     return _RNNTLoss.apply(logits, labels, frame_lengths.long(),
                            label_lengths.long(), blank)
+
+
+def _logaddexp2(a, b):
+    """logaddexp whose derivatives of every order stay finite at NEG:
+    torch.logaddexp's second derivative is inf / inf where one side is
+    NEG. The max is held constant, which leaves the derivatives exact
+    (it cancels out of them)."""
+    m = torch.maximum(a, b).detach()
+    return m + torch.log(torch.exp(a - m) + torch.exp(b - m))
+
+
+def rnnt_loss_autodiff(logits, labels, frame_lengths, label_lengths,
+                       blank: int = 0):
+    """rnnt_loss built from plain differentiable ops, without the analytic
+    backward, so that autograd can differentiate it twice (the Hessian-
+    vector products of AdaHessian's Hutchinson probes), as JAX's
+    rnnt_loss_autodiff. The same diagonal DP: diagonal d = t + u is a
+    vector over t, its cell (t, u = d - t) reached from (t-1, u) by a blank
+    and from (t, u-1) by label u-1; every term is gathered once from the
+    log-probs, and cells off the lattice hold NEG."""
+    lpb, lpe = log_probs(logits, labels, blank)
+    n, t, u1 = lpb.shape
+    dev = lpb.device
+    fl, yl = frame_lengths.long(), label_lengths.long()
+    lpe_m = mask_emit(lpe, yl)
+    n_diag = t + u1 - 1
+    d = torch.arange(n_diag, device=dev)[:, None]
+    ti = torch.arange(t, device=dev)[None, :]
+    u = d - ti                                        # [D, T]
+    on = (u >= 0) & (u < u1)
+
+    def skew(x, rows, cols, ok):
+        """x [N, R, C] -> [N, D, T] of x[:, rows, cols], NEG where not ok."""
+        rows, cols = torch.broadcast_tensors(rows, cols)
+        idx = (rows.clamp(0, x.shape[1] - 1) * x.shape[2]
+               + cols.clamp(0, x.shape[2] - 1)).reshape(-1)
+        g = x.reshape(n, -1)[:, idx].reshape(n, *rows.shape)
+        return torch.where(ok, g, torch.full_like(g, NEG))
+
+    from_top = skew(lpb, ti - 1, u, on & (ti >= 1))
+    from_left = skew(lpe_m, ti, u - 1, on & (u >= 1))
+    neg = torch.full((n, 1), NEG, device=dev)
+    diag = torch.where(ti == 0, 0.0, NEG).expand(n, t)
+    diags = [diag]
+    for k in range(1, n_diag):
+        prev = diags[-1]
+        cell = _logaddexp2(torch.cat([neg, prev[:, :-1]], 1) + from_top[:, k],
+                           prev + from_left[:, k])
+        diags.append(torch.where(on[k], cell, torch.full_like(cell, NEG)))
+    alpha = torch.stack(diags, 1)                     # [N, D, T]
+    rows = torch.arange(n, device=dev)
+    log_z = alpha[rows, fl - 1 + yl, fl - 1] + lpb[rows, fl - 1, yl]
+    return -log_z
 
 
 def rnnt_loss_naive(logits, labels, frame_lengths, label_lengths,

@@ -5,12 +5,17 @@ checkpoint, and exports a release bundle.
 
     python -m libreasr_tpu_torch.train --config config/base.yaml \\
         [--lang en] [--steps N] [--ckpt tmp/ckpt] [--bundle-out model.tar.gz] \\
-        [--device cuda]
+        [--device cuda] [--platform cpu|gpu|cuda] [--chain-steps K]
 
-Runs on the card unless `--device cpu` is given. With `train_tokenizer`
-set, it first trains the config's BPE tokenizer on the training labels.
-The JAX CLI's CTC models, pipeline and tensor parallelism, multi-host
-training and chained steps are not ported: their flags raise.
+Runs on the card unless `--device cpu` (or `--platform cpu`, the JAX
+CLI's flag) is given. With `train_tokenizer` set, it first trains the
+config's BPE tokenizer on the training labels. `--chain-steps K` buffers
+batches of one bucket shape and runs every K of them through
+`Learner.step_chained`; a shorter remainder steps singly, and no chain
+runs past `--steps`. An adahessian config trains with Hutchinson probes,
+and `reduce_on_plateau` feeds the loss to the optimizer. The JAX CLI's
+CTC models, pipeline and tensor parallelism and multi-host training are
+not ported: their flags raise.
 """
 
 from __future__ import annotations
@@ -21,9 +26,10 @@ import os
 import time
 
 # flags of the JAX CLI this port does not implement, with their defaults
-_UNPORTED = {"mesh_model": 0, "pp": 0, "pp_micro": 4, "chain_steps": 1,
-             "dist_coordinator": "", "dist_procs": 0, "dist_pid": 0,
-             "platform": ""}
+_UNPORTED = {"mesh_model": 0, "pp": 0, "pp_micro": 4,
+             "dist_coordinator": "", "dist_procs": 0, "dist_pid": 0}
+# --platform values (the JAX CLI's jax platform names) -> torch devices
+_PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 
 def parse_args(argv=None):
@@ -41,6 +47,10 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-every-s", type=float, default=600.0,
                    help="least seconds between epoch-end checkpoints")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--platform", default="",
+                   help="cpu, or gpu/cuda for the card (overrides --device)")
+    p.add_argument("--chain-steps", type=int, default=1,
+                   help="run K same-bucket train steps as one chain")
     for name, default in _UNPORTED.items():
         p.add_argument("--" + name.replace("_", "-"), type=type(default),
                        default=default, help=argparse.SUPPRESS)
@@ -50,6 +60,12 @@ def parse_args(argv=None):
             raise NotImplementedError(
                 f"libreasr_tpu_torch.train: --{name.replace('_', '-')} is not "
                 "ported (ROADMAP)")
+    if args.platform:
+        if args.platform.lower() not in _PLATFORMS:
+            raise ValueError(f"libreasr_tpu_torch.train: --platform "
+                             f"{args.platform!r} is not one of "
+                             f"{sorted(_PLATFORMS)}")
+        args.device = _PLATFORMS[args.platform.lower()]
     return args
 
 
@@ -118,15 +134,38 @@ def _train_loop(args, conf, learner, train_ds, logger, step, run_eval) -> int:
     """Epochs over the training set until --steps (or the config's
     epochs); evaluates every --eval-every steps (default: tests_per_epoch
     times an epoch, counted on the first epoch) and checkpoints at epoch
-    ends at most every --ckpt-every-s seconds. Returns the last step."""
+    ends at most every --ckpt-every-s seconds. With --chain-steps K,
+    batches wait in one buffer per (audio, label) shape, across epochs,
+    until K of them run as one chain; what is left after the last epoch
+    steps singly. Returns the last step."""
     from .training.checkpoint import save_train_state
 
     if args.steps and step >= args.steps:
         return step
     epochs = 10**9 if args.steps else (conf.get("training") or {}).get("epochs", 20)
     eval_every = args.eval_every if args.eval_every > 0 else None
+    chain_k = max(args.chain_steps, 1)
+    pending: dict = {}
     t0 = last_save = time.time()
-    loss = float("nan")
+    metrics = None
+
+    def run_chunk(chunk) -> bool:
+        """Step through `chunk` (cut at --steps): chained when it is K
+        long, else singly. True once --steps is reached."""
+        nonlocal step, metrics
+        if args.steps:
+            chunk = chunk[: args.steps - step]
+        if chain_k > 1 and len(chunk) == chain_k:
+            metrics = learner.step_chained(chunk)
+        else:
+            for b in chunk:
+                metrics = learner.step(b)
+        prev, step = step, step + len(chunk)
+        logger.log_step(step, metrics, chunk[-1], prev_step=prev)
+        if step // eval_every > prev // eval_every:
+            run_eval(step)
+        return bool(args.steps) and step >= args.steps
+
     for epoch in range(epochs):
         batches = train_ds if eval_every is not None else list(train_ds)
         if eval_every is None:
@@ -134,23 +173,32 @@ def _train_loop(args, conf, learner, train_ds, logger, step, run_eval) -> int:
         saw_batch = False
         for batch in batches:
             saw_batch = True
-            metrics = learner.step(batch)
-            prev, step = step, step + 1
-            logger.log_step(step, metrics, batch, prev_step=prev)
-            if step // eval_every > prev // eval_every:
-                run_eval(step)
-            if args.steps and step >= args.steps:
-                return step
+            if chain_k <= 1:
+                if run_chunk([batch]):
+                    return step
+                continue
+            key = (tuple(batch.audio.shape), tuple(batch.labels.shape))
+            buf = pending.setdefault(key, [])
+            buf.append(batch)
+            if len(buf) == chain_k:
+                pending[key] = []
+                if run_chunk(buf):
+                    return step
         if not saw_batch:
             raise SystemExit(
                 "[train] the loader produced no batch: check the dataset "
                 "paths, the bucket ladder and the limits")
-        loss = float(metrics["loss"])
-        print(f"[train] epoch {epoch} done step={step} loss={loss:.3f} "
+        loss = "n/a (no chain filled yet)" if metrics is None else \
+            f"{float(metrics['loss']):.3f}"
+        print(f"[train] epoch {epoch} done step={step} loss={loss} "
               f"({time.time() - t0:.0f}s)", flush=True)
         if time.time() - last_save >= args.ckpt_every_s:
             save_train_state(os.path.abspath(args.ckpt), learner)
             last_save = time.time()
+    for buf in pending.values():
+        for b in buf:
+            if run_chunk([b]):
+                return step
     return step
 
 

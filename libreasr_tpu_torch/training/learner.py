@@ -25,8 +25,19 @@ device for SpecAugment and dropout masks, one on the host for the
 per-step carry and tmp-BOS draws (a host draw needs no device sync).
 They cannot give jax.random's bits.
 
-Not ported: pipeline parallelism, Hutchinson probes (AdaHessian), the
-chained multi-batch step.
+AdaHessian (`hutchinson`): the loss is rnnt_loss_autodiff, the gradient
+is taken with its graph, and the Hessian-vector product H z with
+Rademacher probes z (one per parameter, drawn from the device generator,
+or injected by overriding `probes`) is its second backward; the
+optimizer gets hessian_diag = z * H z. JAX takes H z as a JVP of the
+gradient; both are exact. The fused loss is first-order only, and the
+LSTM training kernels D and E have no double backward, so a layer on
+that route raises (JAX's Pallas kernels have no JVP either).
+`pass_loss_value` hands the loss to the optimizer (reduce_on_plateau).
+`step_chained` runs K same-shape steps as K `step` calls in a loop (the
+JAX package scans them in one program).
+
+Not ported: pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -37,10 +48,11 @@ from typing import Any, NamedTuple
 import torch
 
 from .. import resolve_device
+from ..models.modules import RNNLayer
 from ..models.transducer import Transducer, TransducerConfig, learnable_states
 from ..ops.frontend import FrontendConfig, features_batch
 from ..ops.fused_loss import joint_params, rnnt_loss_fused
-from ..ops.rnnt_loss import rnnt_loss
+from ..ops.rnnt_loss import rnnt_loss, rnnt_loss_autodiff
 from .optimizers import Transform, apply_updates, build_optimizer, global_norm, make_lr_schedule
 
 
@@ -120,7 +132,17 @@ class Learner:
 
     def __init__(self, model: Transducer, tx: Transform,
                  frontend: FrontendConfig | None = None,
-                 loss_cfg: LossConfig = LossConfig(), *, seed: int = 0):
+                 loss_cfg: LossConfig = LossConfig(), *, seed: int = 0,
+                 hutchinson: bool = False, pass_loss_value: bool = False):
+        if loss_cfg.fused and model.cfg.joint_method != "concat":
+            raise ValueError("fused loss requires joint_method='concat'")
+        if loss_cfg.fused and hutchinson:
+            raise ValueError("fused loss is first-order only (no hutchinson)")
+        self.hutchinson = hutchinson
+        self.pass_loss_value = pass_loss_value
+        for m in model.modules():
+            if isinstance(m, RNNLayer):
+                m.second_order = hutchinson
         self.model = model.train()
         self.cfg: TransducerConfig = model.cfg
         self.device = next(model.parameters()).device
@@ -145,16 +167,20 @@ class Learner:
         model = Transducer(TransducerConfig.from_config(conf), seed=seed,
                            device=device)
         tconf = conf.get("training", {}) or {}
+        name = tconf.get("optimizer", "ranger")
+        plateau = bool(tconf.get("reduce_on_plateau", False))
         tx = build_optimizer(
-            tconf.get("optimizer", "ranger"),
+            name,
             make_lr_schedule(tconf),
             weight_decay=tconf.get("wd", 0.01),
             grad_clip=tconf.get("grad_clip", 10.0),
             accumulate=conf.get("accumulate_n_batches", 1),
-            reduce_on_plateau=bool(tconf.get("reduce_on_plateau", False)),
+            reduce_on_plateau=plateau,
         )
         return cls(model, tx, FrontendConfig.from_config(conf),
-                   LossConfig.from_config(conf), seed=seed)
+                   LossConfig.from_config(conf), seed=seed,
+                   hutchinson=name.lower() == "adahessian",
+                   pass_loss_value=plateau)
 
     # -- the parts of one step (separate methods, so a profiler can time them)
 
@@ -208,7 +234,8 @@ class Learner:
             if lc.zero_nan:
                 logits = torch.nan_to_num(logits, nan=0.0, posinf=0.0,
                                           neginf=0.0)
-            per_seq = rnnt_loss(logits, y, flens_red, yl, cfg.blank)
+            loss_fn = rnnt_loss_autodiff if self.hutchinson else rnnt_loss
+            per_seq = loss_fn(logits, y, flens_red, yl, cfg.blank)
             if lc.entropy_loss:
                 logp = torch.log_softmax(logits.float(), -1)
                 ent = -(logp.exp() * logp).sum(-1)
@@ -225,19 +252,43 @@ class Learner:
 
     def backward(self, loss):
         """Gradients of every parameter (zeros where one is unused), zeroed
-        all together unless the loss and every gradient are finite."""
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        all together unless the loss and every gradient are finite. With
+        `hutchinson`, also the Hessian diagonal estimate z * H z (not
+        zeroed, as in JAX); else None."""
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True,
+                                    create_graph=self.hutchinson)
+        hessian_diag = self.hessian_diag(grads) if self.hutchinson else None
+        grads = [torch.zeros_like(p) if g is None else g.detach()
                  for g, p in zip(grads, self.params)]
         finite = torch.isfinite(loss)
         for g in grads:
             finite = finite & torch.isfinite(g).all()
         grads = [torch.where(finite, g, torch.zeros_like(g)) for g in grads]
-        return grads, finite
+        return grads, finite, hessian_diag
 
-    def optimize(self, grads) -> None:
+    def probes(self) -> list:
+        """Rademacher probes (+1 or -1), one for each parameter, from the
+        device generator (a test injects JAX's by overriding this)."""
+        return [torch.randint(0, 2, p.shape, generator=self.gen,
+                              device=self.device).float() * 2.0 - 1.0
+                for p in self.params]
+
+    def hessian_diag(self, grads) -> list:
+        """z * H z from gradients taken with their graph: H z is the
+        gradient of <grad, z>, a second backward."""
+        z = self.probes()
+        live = [i for i, g in enumerate(grads)
+                if g is not None and g.requires_grad]
+        hz = torch.autograd.grad([grads[i] for i in live], self.params,
+                                 grad_outputs=[z[i] for i in live],
+                                 allow_unused=True)
+        return [zz * (torch.zeros_like(zz) if h is None else h.detach())
+                for zz, h in zip(z, hz)]
+
+    def optimize(self, grads, **extra) -> None:
         params = [p.detach() for p in self.params]
-        updates, opt_state = self.tx.update(grads, self.state.opt_state, params)
+        updates, opt_state = self.tx.update(grads, self.state.opt_state, params,
+                                            **extra)
         apply_updates(params, updates)
         self.state = TrainState(step=self.state.step + 1, opt_state=opt_state)
 
@@ -248,10 +299,33 @@ class Learner:
         feats, flens = self.features(batch)
         out, (enc_st, pred_st) = self.forward(feats, flens, batch, carry)
         loss = self.loss(out, flens, batch)
-        grads, finite = self.backward(loss)
-        self.optimize(grads)
+        grads, finite, hessian_diag = self.backward(loss)
+        extra = {}
+        if self.pass_loss_value:
+            extra["value"] = loss.detach()
+        if hessian_diag is not None:
+            extra["hessian_diag"] = hessian_diag
+        self.optimize(grads, **extra)
         y, yl = batch.labels.long(), batch.label_len.long()
         last = torch.gather(y, 1, torch.clamp(yl - 1, min=0)[:, None])
         self.carries[n] = BatchCarry(_detach(enc_st), _detach(pred_st), last, True)
         return {"loss": loss.detach(), "grad_norm": global_norm(grads),
                 "finite": finite, "frames": flens.sum(), "tokens": yl.sum()}
+
+    def step_chained(self, batches: list) -> dict:
+        """K train steps on batches of one shape (audio and labels), the
+        same steps as K `step` calls, generators included. Returns the last
+        step's metrics plus `loss_mean`, the chain's mean loss (one batch:
+        `step`'s metrics alone, as in JAX)."""
+        if len(batches) == 1:
+            return self.step(batches[0])
+        shape, yshape = batches[0].audio.shape, batches[0].labels.shape
+        if any(b.audio.shape != shape or b.labels.shape != yshape
+               for b in batches):
+            raise ValueError("step_chained needs one bucket shape per chain "
+                             "(audio AND label padding)")
+        losses = []
+        for b in batches:
+            metrics = self.step(b)
+            losses.append(metrics["loss"])
+        return {**metrics, "loss_mean": torch.stack(losses).mean()}

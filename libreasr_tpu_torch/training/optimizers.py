@@ -1,17 +1,26 @@
 """Optimizers with optax's numerics, on lists of tensors.
 
 The port of the JAX package's training/optimizers.py. Each optimizer is
-a pair of functions like an optax GradientTransformation:
-`init(params) -> state` and `update(grads, state, params) -> (updates,
-state)`, where params, grads and updates are lists of tensors in one
-order; `apply_updates` adds the updates to the parameters in place.
-The state is plain tensors and ints, held by the caller (the Learner).
+a pair of functions like an optax GradientTransformationExtraArgs:
+`init(params) -> state` and `update(grads, state, params, **extra) ->
+(updates, state)`, where params, grads and updates are lists of tensors
+in one order and `extra` carries the keyword arguments some transforms
+read (`value`: the loss, for reduce_on_plateau; `hessian_diag`: the
+Hutchinson estimate, for adahessian); `apply_updates` adds the updates
+to the parameters in place. The state is plain tensors, numbers and
+containers of them, held by the caller (the Learner).
 
 - ranger = lookahead(radam) (radam threshold 5, eps 1e-8; lookahead
-  k 6, alpha 0.5), adam, adamw, sgd (momentum 0.9), each scaled by a
-  learning rate or a schedule evaluated at the count of its own updates;
-- clip_by_global_norm before the optimizer, MultiSteps accumulation
-  (the mean of k gradients, one inner update on the k-th) after, as
+  k 6, alpha 0.5), ranger_adabelief = lookahead(adabelief),
+  over9000 / lamb = lookahead(lamb(weight_decay)), adam, adamw, sgd
+  (momentum 0.9), each scaled by a learning rate or a schedule evaluated
+  at the count of its own updates, as optax's scale_by_learning_rate;
+- apollo and adahessian, the JAX package's own transforms, which read
+  the schedule at their count after the increment, as it does;
+- clip_by_global_norm before the optimizer, reduce_on_plateau (factor
+  0.5, patience 10, cooldown 5, losses averaged over 50 steps) after it,
+  MultiSteps accumulation (the mean of k gradients, one inner update on
+  the k-th, with the k-th call's extra arguments) around them, as
   `build_optimizer` chains them;
 - make_lr_schedule: optax's warmup_cosine_decay_schedule.
 
@@ -44,7 +53,7 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def clip_by_global_norm(max_norm: float) -> Transform:
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, **extra):
         norm = global_norm(grads)
         # optax: (t / norm) * max_norm past the limit, t itself below it
         clipped = [torch.where(norm < max_norm, g, (g / norm) * max_norm)
@@ -70,7 +79,7 @@ def radam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           threshold: float = 5.0) -> Transform:
     ro_inf = 2.0 / (1.0 - b2) - 1.0
 
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, **extra):
         mu, nu, count = _adam_moments(grads, state, b1, b2)
         b2t = b2 ** count
         ro = ro_inf - 2 * count * b2t / (1 - b2t)
@@ -93,7 +102,7 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     """optax.adam, or optax.adamw with `weight_decay` (decay added to the
     scaled moments before the learning rate)."""
 
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, **extra):
         mu, nu, count = _adam_moments(grads, state, b1, b2)
         c1, c2 = 1 - b1 ** count, 1 - b2 ** count
         ups = [(m / c1) / (torch.sqrt(v / c2) + eps) for m, v in zip(mu, nu)]
@@ -109,7 +118,7 @@ def sgd(lr, momentum: float = 0.9) -> Transform:
     def init(params):
         return {"count": 0, "trace": [torch.zeros_like(p) for p in params]}
 
-    def update(grads, state, params=None):
+    def update(grads, state, params=None, **extra):
         trace = [g + momentum * t for g, t in zip(grads, state["trace"])]
         step = -_lr_at(lr, state["count"])
         return ([step * t for t in trace],
@@ -127,8 +136,9 @@ def lookahead(inner: Transform, k: int = 6, alpha: float = 0.5) -> Transform:
         return {"inner": inner.init(params), "count": 0,
                 "slow": [p.detach().clone() for p in params]}
 
-    def update(grads, state, params):
-        inner_ups, inner_state = inner.update(grads, state["inner"], params)
+    def update(grads, state, params, **extra):
+        inner_ups, inner_state = inner.update(grads, state["inner"], params,
+                                              **extra)
         fast = [p + u for p, u in zip(params, inner_ups)]
         count = state["count"] + 1
         slow = state["slow"]
@@ -146,10 +156,10 @@ def chain(*parts: Transform) -> Transform:
     def init(params):
         return [t.init(params) for t in parts]
 
-    def update(grads, state, params):
+    def update(grads, state, params, **extra):
         new = []
         for t, s in zip(parts, state):
-            grads, s = t.update(grads, s, params)
+            grads, s = t.update(grads, s, params, **extra)
             new.append(s)
         return grads, new
 
@@ -165,15 +175,182 @@ def multi_steps(inner: Transform, k: int) -> Transform:
         return {"inner": inner.init(params), "mini_step": 0,
                 "acc": [torch.zeros_like(p) for p in params]}
 
-    def update(grads, state, params):
+    def update(grads, state, params, **extra):
         n = state["mini_step"]
         acc = [a + (g - a) / (n + 1) for g, a in zip(grads, state["acc"])]
         if n == k - 1:
-            ups, inner_state = inner.update(acc, state["inner"], params)
+            ups, inner_state = inner.update(acc, state["inner"], params,
+                                            **extra)
             return ups, {"inner": inner_state, "mini_step": 0,
                          "acc": [torch.zeros_like(a) for a in acc]}
         return ([torch.zeros_like(g) for g in grads],
                 {"inner": state["inner"], "mini_step": n + 1, "acc": acc})
+
+    return Transform(init, update)
+
+
+def adabelief(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-16,
+              eps_root: float = 1e-16) -> Transform:
+    """optax.adabelief: s tracks the squared prediction error g - m, plus
+    eps_root, and the step is m_hat / (sqrt(s_hat) + eps)."""
+
+    def update(grads, state, params=None, **extra):
+        mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state["mu"])]
+        nu = [(1 - b2) * (g - m) * (g - m) + b2 * v + eps_root
+              for g, m, v in zip(grads, mu, state["nu"])]
+        count = state["count"] + 1
+        c1, c2 = 1 - b1 ** count, 1 - b2 ** count
+        step = -_lr_at(lr, state["count"])
+        ups = [step * ((m / c1) / (torch.sqrt(v / c2) + eps))
+               for m, v in zip(mu, nu)]
+        return ups, {"count": count, "mu": mu, "nu": nu}
+
+    return Transform(_zeros_state, update)
+
+
+def _trust_ratio(u, p):
+    """optax.scale_by_trust_ratio: u * |p| / |u|, or u where either norm
+    is 0."""
+    pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+    ratio = torch.where((pn == 0.0) | (un == 0.0), torch.ones_like(pn), pn / un)
+    return u * ratio
+
+
+def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+         weight_decay: float = 0.0) -> Transform:
+    """optax.lamb: the adam direction (eps 1e-6), plus weight_decay * p,
+    scaled per tensor by the trust ratio, then by the learning rate."""
+    direction = adam(-1.0, b1=b1, b2=b2, eps=eps)  # rate -1: m_hat / (sqrt(v_hat) + eps)
+
+    def update(grads, state, params, **extra):
+        ups, new = direction.update(grads, state, params)
+        ups = [_trust_ratio(u + weight_decay * p, p)
+               for u, p in zip(ups, params)]
+        step = -_lr_at(lr, state["count"])
+        return [step * u for u in ups], new
+
+    return Transform(_zeros_state, update)
+
+
+def add_decayed_weights(weight_decay: float) -> Transform:
+    def update(grads, state, params, **extra):
+        return [g + weight_decay * p for g, p in zip(grads, params)], state
+
+    return Transform(lambda params: None, update)
+
+
+def apollo(lr, beta: float = 0.9, eps: float = 1e-4, rebound: float = 0.01,
+           warmup: int = 100, init_lr_factor: float = 0.01,
+           weight_decay: float = 0.0) -> Transform:
+    """The JAX package's apollo: per tensor, the bias-corrected gradient
+    EMA m, the diagonal Hessian estimate B moved by the secant correction
+    alpha = (d.(m_t - m_{t-1}) - d.B.d) / (|d|_4^4 + eps) along d^2, and
+    the direction d = m / max(|B|, rebound); the rate ramps from
+    init_lr_factor to 1 over `warmup` steps. weight_decay adds decay * p
+    to the gradients first."""
+
+    def init(params):
+        return {"count": 0,
+                **{k: [torch.zeros_like(p) for p in params]
+                   for k in ("exp_avg_grad", "approx_hessian", "update_prev")}}
+
+    def update(grads, state, params=None, **extra):
+        count = state["count"] + 1
+        bc = 1.0 - beta ** count
+        ms, bs, ds = [], [], []
+        for g, m, b, d in zip(grads, state["exp_avg_grad"],
+                              state["approx_hessian"], state["update_prev"]):
+            delta_m = (g - m) * (1.0 - beta) / bc
+            m_new = m + delta_m
+            denom4 = torch.sum(d ** 4) + eps
+            alpha = (torch.sum(d * delta_m) - torch.sum(d * b * d)) / denom4
+            b_new = b - alpha * d * d
+            ms.append(m_new)
+            bs.append(b_new)
+            ds.append(m_new / torch.clamp(torch.abs(b_new), min=rebound))
+        ramp = min(count / float(max(warmup, 1)), 1.0)
+        lr_t = _lr_at(lr, count) * (init_lr_factor + (1.0 - init_lr_factor) * ramp)
+        return ([-lr_t * d for d in ds],
+                {"count": count, "exp_avg_grad": ms, "approx_hessian": bs,
+                 "update_prev": ds})
+
+    tx = Transform(init, update)
+    return chain(add_decayed_weights(weight_decay), tx) if weight_decay else tx
+
+
+def adahessian(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-4,
+               weight_decay: float = 0.0) -> Transform:
+    """The JAX package's adahessian: an adam-shaped step whose second
+    moment tracks the square of `hessian_diag` (the Hutchinson estimate
+    z * Hz that the Learner passes), or of |grad| when none is given;
+    weight_decay * p is added to the normalised step."""
+
+    def update(grads, state, params=None, *, hessian_diag=None, **extra):
+        count = state["count"] + 1
+        hd = hessian_diag if hessian_diag is not None else [g.abs() for g in grads]
+        mu = [b1 * m + (1 - b1) * g for m, g in zip(state["mu"], grads)]
+        nu = [b2 * v + (1 - b2) * d * d for v, d in zip(state["nu"], hd)]
+        mc, vc = 1 - b1 ** count, 1 - b2 ** count
+        step = -_lr_at(lr, count)
+        ups = []
+        for i, (m, v) in enumerate(zip(mu, nu)):
+            u = (m / mc) / (torch.sqrt(v / vc) + eps)
+            if weight_decay and params is not None:
+                u = u + weight_decay * params[i]
+            ups.append(step * u)
+        return ups, {"count": count, "mu": mu, "nu": nu}
+
+    return Transform(_zeros_state, update)
+
+
+def plateau_scale(factor: float = 0.1, patience: int = 10, cooldown: int = 0,
+                  accumulation_size: int = 1) -> Transform:
+    """optax.contrib.reduce_on_plateau with its default tolerances (rtol
+    1e-4, atol 0, min_scale 0): the `value` of each call (the loss) is
+    averaged over `accumulation_size` calls; a mean below (1 - 1e-4) *
+    best is an improvement; `patience` means without one multiply the
+    scale by `factor` and start `cooldown` means in which plateaus are
+    not counted. Updates are multiplied by the scale. Its numbers are
+    0-d float32 and int32 tensors on the parameters' device, so no call
+    syncs the host."""
+
+    def init(params):
+        dev = params[0].device if params else None
+
+        def f(v, dt=torch.float32):
+            return torch.tensor(v, dtype=dt, device=dev)
+
+        return {"best_value": f(float("inf")), "plateau_count": f(0, torch.int32),
+                "scale": f(1.0), "cooldown_count": f(0, torch.int32),
+                "count": 0, "avg_value": f(0.0)}
+
+    def update_scale(st):
+        avg, best = st["avg_value"], st["best_value"]
+        improved = avg < (1 - 1e-4) * best
+        zero = torch.zeros_like(st["plateau_count"])
+        plateau = torch.where(improved, zero, st["plateau_count"] + 1)
+        hit = plateau == patience
+        cool = st["cooldown_count"] > 0
+        scale = torch.where(hit, st["scale"] * factor, st["scale"])
+        return {
+            "best_value": torch.where(improved, avg, best),
+            "plateau_count": torch.where(cool | hit, zero, plateau),
+            "scale": torch.where(cool, st["scale"], scale),
+            "cooldown_count": torch.where(
+                cool, st["cooldown_count"] - 1,
+                torch.where(hit, torch.full_like(zero, cooldown), zero)),
+            "count": 0,
+            "avg_value": torch.zeros_like(avg),
+        }
+
+    def update(grads, state, params=None, *, value, **extra):
+        n = state["count"] + 1
+        value = torch.as_tensor(value).to(state["avg_value"])
+        st = dict(state, count=n,
+                  avg_value=(state["count"] * state["avg_value"] + value) / n)
+        if n == accumulation_size:
+            st = update_scale(st)
+        return [st["scale"] * g for g in grads], st
 
     return Transform(init, update)
 
@@ -184,21 +361,24 @@ def apply_updates(params, updates) -> None:
         p.add_(u.to(p.dtype))
 
 
-_NOT_PORTED = ("ranger_adabelief", "over9000", "lamb", "apollo", "adahessian")
-
-
 def build_optimizer(name: str, learning_rate, *, weight_decay: float = 0.01,
                     grad_clip: float = 10.0, accumulate: int = 1,
                     reduce_on_plateau: bool = False) -> Transform:
-    """clip -> optimizer [-> MultiSteps], as the JAX package chains them."""
+    """clip -> optimizer [-> plateau scaling] [-> MultiSteps], as the JAX
+    package chains them. With reduce_on_plateau the caller passes
+    `value=loss` to update (the Learner's pass_loss_value); adahessian
+    reads the `hessian_diag` the Learner's Hutchinson step passes."""
     name = name.lower()
-    if name in _NOT_PORTED or reduce_on_plateau:
-        raise NotImplementedError(
-            f"libreasr_tpu_torch: optimizer {name!r}"
-            f"{' with reduce_on_plateau' if reduce_on_plateau else ''} is not "
-            "ported yet (ROADMAP queue 1, training part 2)")
     if name == "ranger":
         base = lookahead(radam(learning_rate))
+    elif name == "ranger_adabelief":
+        base = lookahead(adabelief(learning_rate))
+    elif name in ("over9000", "lamb"):
+        base = lookahead(lamb(learning_rate, weight_decay=weight_decay))
+    elif name == "apollo":
+        base = apollo(learning_rate, weight_decay=weight_decay)
+    elif name == "adahessian":
+        base = adahessian(learning_rate, weight_decay=weight_decay)
     elif name == "adam":
         base = adam(learning_rate)
     elif name == "adamw":
@@ -207,7 +387,11 @@ def build_optimizer(name: str, learning_rate, *, weight_decay: float = 0.01,
         base = sgd(learning_rate, momentum=0.9)
     else:
         raise ValueError(f"unknown optimizer: {name}")
-    tx = chain(clip_by_global_norm(grad_clip), base)
+    parts = [clip_by_global_norm(grad_clip), base]
+    if reduce_on_plateau:
+        parts.append(plateau_scale(factor=0.5, patience=10, cooldown=5,
+                                   accumulation_size=50))
+    tx = chain(*parts)
     return multi_steps(tx, accumulate) if accumulate > 1 else tx
 
 

@@ -139,3 +139,39 @@ def test_bpe_decoder_fns_default_matches_jax(golden, kw, tmp_path):
         blank=jb.cfg.blank, bos=jb.cfg.bos, max_iters=3, max_tokens=64)
     np.testing.assert_array_equal(tok_lens.numpy(), np.asarray(jlens))
     np.testing.assert_array_equal(toks.numpy(), np.asarray(jtoks))
+
+
+def test_transcribe_beam_scales_int16_as_transcribe_batch(golden):
+    """int16 PCM into transcribe_beam is scaled by 1/32768, as the port's
+    and JAX's transcribe_batch scale it: the port keeps the dtype. JAX's
+    transcribe_beam casts to float32 first (libreasr_tpu/api.py:367), so
+    there int16 reaches the frontend unscaled; the port gives JAX's
+    result for the float32 cast only when asked with float32 input.
+    Beam K 2 on the golden char bundle at 1 s (scan path); scores within
+    1e-4 (tests/test_beam.py:105). The encoder's input LayerNorm all but
+    cancels the scale (the log-mel moves by log(32768**2) but for the
+    1e-6 floor), so the scaling is pinned on the features."""
+    tb, jb, audio = golden
+    pcm16 = np.round(audio[:3] * 32768.0).clip(-32768, 32767).astype(np.int16)
+    lengths = np.full(3, 16000)
+    texts, scores = tb.transcribe_beam(pcm16, lengths, beam_width=2)
+    scaled, sscores = tb.transcribe_beam(pcm16 / np.float32(32768.0), lengths,
+                                         beam_width=2)
+    assert texts == scaled == TEXTS[:3]
+    np.testing.assert_array_equal(scores, sscores)
+    raw = pcm16.astype(np.float32)
+    jtexts, jscores = jb.transcribe_beam(pcm16, lengths, beam_width=2)
+    rtexts, rscores = tb.transcribe_beam(raw, lengths, beam_width=2)
+    assert jtexts == rtexts
+    np.testing.assert_allclose(rscores, jscores, rtol=0, atol=1e-4)
+    import torch
+
+    from libreasr_tpu_torch.ops.frontend import features_batch
+
+    def feats(a):
+        return features_batch(torch.from_numpy(a), torch.from_numpy(lengths),
+                              tb.frontend)[0].numpy()
+
+    np.testing.assert_array_equal(feats(pcm16), feats(pcm16 / np.float32(32768.0)))
+    shift = float(np.median(feats(raw) - feats(pcm16)))
+    np.testing.assert_allclose(shift, np.log(32768.0 ** 2), rtol=1e-3)

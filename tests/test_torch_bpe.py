@@ -145,11 +145,43 @@ def test_roundtrip_and_frequent_words(trained_models):
     assert len(lang.numericalize("the", append_eos=False)) == 1
 
 
-def test_bpe_dropout_raises(model_file):
+def test_bpe_dropout_splits_words(model_file, tmp_path):
+    """Dropout 0 is the plain encoding whatever the seed, dropout > 0
+    splits words further, and a model the C library cannot read raises."""
     lang = BPELanguage(model_file)
     assert lang.numericalize("hello", dropout=0.0, seed=3) == lang.numericalize("hello")
-    with pytest.raises(NotImplementedError, match="BPE-dropout"):
-        lang.numericalize("hello", dropout=0.1)
+    text = "hello world turn right three four"
+    plain = lang.numericalize(text)
+    dropped = lang.numericalize(text, dropout=0.5, seed=7)
+    assert len(dropped) > len(plain)
+    assert lang.denumericalize(dropped) == text
+    gone = BPELanguage(model_file)
+    gone.model_file = str(tmp_path / "missing")
+    with pytest.raises(ValueError, match="LABPE1"):
+        gone.numericalize("hello", dropout=0.1)
+
+
+@pytest.mark.parametrize("dropout", [0.05, 0.3, 1.0])
+def test_bpe_dropout_ids_equal_jax(model_file, dropout):
+    """With the same seed (and this host's libc rand_r on both sides) the
+    ids are JAX's native encoder's, id for id, for several seeds; seed 0
+    stands for 12345 on both sides. At 0.3 the seeds draw different
+    splits; at 1.0 every merge is skipped, whatever the seed."""
+    lang, ref = BPELanguage(model_file), JaxBPE(model_file)
+    assert ref._py is None  # JAX's native encoder, not its Python fallback
+    texts = ["hello world", "turn right now", "three four stop go left",
+             "The Quick Brown Fox"]
+    seen = set()
+    for seed in (0, 1, 7, 12345, 2**31 + 5):
+        for text in texts:
+            ids = lang.numericalize(text, dropout=dropout, seed=seed, sos=True)
+            assert ids == ref.numericalize(text, dropout=dropout, seed=seed,
+                                           sos=True), (seed, text)
+            seen.add(tuple(ids))
+    if dropout == 0.3:
+        assert len(seen) > len(texts)
+    if dropout == 1.0:
+        assert len(seen) == len(texts)
 
 
 @pytest.mark.parametrize("compiler", ["missing", "failing"])

@@ -64,12 +64,13 @@ def test_importing_every_module_loads_no_jax():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'libreasr_tpu', 'pandas', 'tensorboardX'))\n"
-        "assert len(mods) >= 48, mods\n"
+        "assert len(mods) >= 49, mods\n"
         "assert {'libreasr_tpu_torch.ops.quant', 'libreasr_tpu_torch.data.bpe',"
         " 'libreasr_tpu_torch.ops.rnnt_loss', 'libreasr_tpu_torch.ops.fused_loss',"
         " 'libreasr_tpu_torch.ops.kernels.joint_lp',"
         " 'libreasr_tpu_torch.training.learner',"
         " 'libreasr_tpu_torch.training.optimizers',"
+        " 'libreasr_tpu_torch.training.debug',"
         " 'libreasr_tpu_torch.ops.kernels.lstm_train', 'libreasr_tpu_torch.train',"
         " 'libreasr_tpu_torch.data.builder', 'libreasr_tpu_torch.data.transforms',"
         " 'libreasr_tpu_torch.data.batching', 'libreasr_tpu_torch.training.metrics',"

@@ -175,13 +175,11 @@ def test_resource_exhausted_when_slots_are_full(golden):
         servicer.stepper.shutdown()
 
 
-def test_servicer_refuses_beam_and_lm(golden):
-    """The servicer no longer refuses beam search or LM fusion (the name
-    is kept from when it did, so that the test's history stays one): it
-    builds a beam engine of beam_width, or else of the bundle's
-    stream.beam_width, fuses the LM only when the bundle has one, and
-    takes the fusion weights from its arguments, else from the stream
-    block, else 0.1 / 0.0 (JAX's precedence)."""
+def test_servicer_takes_beam_and_lm_settings(golden):
+    """The servicer builds a beam engine of beam_width, or else of the
+    bundle's stream.beam_width, fuses the LM only when the bundle has
+    one, and takes the fusion weights from its arguments, else from the
+    stream block, else 0.1 / 0.0 (JAX's precedence)."""
     bundle, _ = golden
     stream = bundle.conf.get("stream")
     made = []

@@ -301,11 +301,11 @@ def test_reset_restores_fresh_state(tiny):
     np.testing.assert_array_equal(toks_a[0, : lens_a[0]], toks_b[0, : lens_b[0]])
 
 
-def test_deltas_and_beam_lm_mesh_refused(tiny):
-    """Deltas and a mesh are refused; beam search and LM fusion no longer
-    are (the name is kept from when they were, so that the test's
-    history stays one): a beam engine is built, and a bundle without an
-    LM decodes without, as in JAX."""
+def test_engine_refuses_deltas_and_mesh_and_takes_beam_lm(tiny):
+    """The engine refuses delta features (offline decoding takes them;
+    the delta filter reads future frames, as JAX's engine says) and a
+    mesh; it takes beam search and LM fusion: a beam engine is built, and
+    a bundle without an LM decodes without, as in JAX."""
     _, tb = tiny
     with_deltas = copy.copy(tb)
     with_deltas.frontend = dataclasses.replace(tb.frontend, deltas=1)

@@ -134,13 +134,139 @@ def test_restored_learner_continues_the_run(conf_path, tmp_path):
 
 
 def test_unported_flags_and_missing_cuda_raise(conf_path, monkeypatch):
-    for flag in (["--chain-steps", "2"], ["--pp", "2"], ["--mesh-model", "2"],
+    """The multi-device flags raise (--chain-steps and --platform are
+    ported: tests below); so do an unknown --platform and, without a
+    card, the default device and --platform gpu."""
+    for flag in (["--pp", "2"], ["--mesh-model", "2"],
                  ["--dist-coordinator", "h:1"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             cli.main(["--config", conf_path, "--device", "cpu", *flag])
+    with pytest.raises(ValueError, match="--platform 'tpu'"):
+        cli.main(["--config", conf_path, "--platform", "tpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main(["--config", conf_path])
+    for extra in ([], ["--platform", "gpu"], ["--device", "cpu", "--platform", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["--config", conf_path, *extra])
+
+
+def _run(args) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(args)
+    return buf.getvalue()
+
+
+def test_chain_steps_leave_the_parameters_of_single_steps(conf_path, tmp_path):
+    """--chain-steps 2 with --steps 3 (the corpus gives 3 batches an
+    epoch of one shape): one chain of 2, the third batch waits for a
+    partner, and the next epoch's first cuts the chunk at --steps, so it
+    steps singly. The checkpoint equals the one of 3 single steps, bit
+    for bit (the same steps on the same batches, generators included).
+    --platform cpu stands in for --device cpu."""
+    chained_calls = []
+    real = Learner.step_chained
+
+    def counting(self, batches):
+        chained_calls.append(len(batches))
+        return real(self, batches)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(Learner, "step_chained", counting)
+    try:
+        out = _run(["--config", conf_path, "--platform", "cpu", "--steps", "3",
+                    "--chain-steps", "2", "--ckpt", str(tmp_path / "a"),
+                    "--eval-batches", "1", "--logdir", str(tmp_path / "ra")])
+    finally:
+        mp.undo()
+    _run(["--config", conf_path, "--device", "cpu", "--steps", "3",
+          "--ckpt", str(tmp_path / "b"), "--eval-batches", "1",
+          "--logdir", str(tmp_path / "rb")])
+    assert chained_calls == [2] and "done: step=3" in out
+    a = torch.load(tmp_path / "a" / STATE_FILE, weights_only=True)
+    b = torch.load(tmp_path / "b" / STATE_FILE, weights_only=True)
+    assert a["step"] == b["step"] == 3
+    for k, v in a["model"].items():
+        assert torch.equal(v, b["model"][k]), k
+
+
+class _ChainLog:
+    """A learner and a logger for cli._train_loop that record what ran."""
+
+    def __init__(self):
+        self.ran = []
+
+    def step(self, b):
+        self.ran.append(("single", b.tag))
+        return {"loss": 0.0}
+
+    def step_chained(self, batches):
+        self.ran.append(("chain", tuple(b.tag for b in batches)))
+        return {"loss": 0.0}
+
+    def log_step(self, step, metrics, batch, prev_step=None):
+        pass
+
+
+def _shaped(tag, t):
+    import types
+
+    return types.SimpleNamespace(tag=tag, audio=np.zeros((2, t)),
+                                 labels=np.zeros((2, 3)))
+
+
+@pytest.mark.parametrize("steps,epoch,want", [
+    # --steps 5: A2 fills A's chain and B2 B's; A3 waits, and the next
+    # epoch's A1 fills the chain, which --steps cuts to A3 alone
+    (5, ["A1", "B1", "A2", "B2", "A3"],
+     [("chain", ("A1", "A2")), ("chain", ("B1", "B2")), ("single", "A3")]),
+    # one epoch, no --steps: B1 never finds a partner and steps singly
+    (0, ["A1", "B1", "A2"], [("chain", ("A1", "A2")), ("single", "B1")]),
+], ids=["cut_at_steps", "remainder"])
+def test_chain_steps_buffer_batches_by_shape(tmp_path, steps, epoch, want):
+    """--chain-steps 2 over batches of two bucket shapes (A: T 8, B: T 16):
+    each shape buffers on its own, a chain runs when its shape has 2, in
+    arrival order within the shape."""
+    import argparse
+
+    batches = [_shaped(tag, 8 if tag[0] == "A" else 16) for tag in epoch]
+    rec = _ChainLog()
+    args = argparse.Namespace(steps=steps, eval_every=1000, chain_steps=2,
+                              ckpt_every_s=1e9, ckpt=str(tmp_path / "ck"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        last = cli._train_loop(args, {"training": {"epochs": 1}}, rec, batches,
+                               rec, 0, lambda step: None)
+    assert rec.ran == want
+    assert last == sum(len(x[1]) if x[0] == "chain" else 1 for x in want)
+
+
+@pytest.mark.parametrize("optimizer,plateau", [("adahessian", False),
+                                               ("adam", True)],
+                         ids=["adahessian", "reduce_on_plateau"])
+def test_adahessian_and_plateau_configs_train(conf_path, tmp_path, optimizer,
+                                              plateau):
+    """An adahessian config (the lattice loss and the scan cells, as JAX's
+    Hutchinson step needs) and a reduce_on_plateau config each train 2
+    steps, checkpoint and export; the plateau state has seen both
+    losses."""
+    conf = yaml.safe_load(open(conf_path))
+    conf["training"].update(optimizer=optimizer, reduce_on_plateau=plateau)
+    if optimizer == "adahessian":
+        conf["loss"]["fused"] = False
+        conf["model"]["encoder"]["use_pallas_train"] = False
+    path = tmp_path / "conf.yaml"
+    path.write_text(yaml.safe_dump(conf))
+    out = _run(["--config", str(path), "--device", "cpu", "--steps", "2",
+                "--ckpt", str(tmp_path / "ck"), "--eval-batches", "1",
+                "--bundle-out", str(tmp_path / "b.tar.gz"),
+                "--logdir", str(tmp_path / "runs")])
+    assert "done: step=2" in out and os.path.exists(tmp_path / "b.tar.gz")
+    state = torch.load(tmp_path / "ck" / STATE_FILE, weights_only=True)
+    opt = state["opt_state"]
+    if plateau:
+        assert opt[2]["count"] == 2 and torch.isfinite(opt[2]["avg_value"])
+    else:
+        assert opt[1]["count"] == 2
+        assert all(torch.isfinite(v).all() for v in opt[1]["nu"])
 
 
 def test_best_wer_bar_survives_resume(tmp_path, capsys):
