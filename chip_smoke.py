@@ -169,8 +169,34 @@ Phases, one line each (any failure raises and exits non-zero):
      alpha 0.2, beta 0.6): a unary 6 s clip (B 6 launches) and 64
      streams paced at real time for 6 s each: partial latency p50/p90
      against BASELINE.md's < 300 ms p50 bar, and overrun.
+ 25. data_tools (host): a LibriSpeech-shaped tree of 24 16-bit FLAC files
+     (mono and stereo, every stereo mode, LPC and FIXED subframes, written
+     by tests/helpers/flac_writer.py) and, where the host has lame and
+     mpg123, a common-voice tree of 8 MP3s, through the port's
+     create_dataset (a process pool of 2), split, the CSV builder and
+     inspect's statistics: every FLAC decodes to its source samples
+     exactly and its STREAMINFO MD5 verifies; files, rows, seconds and
+     whether the MP3/Ogg libraries are there;
+ 26. train_ctc_full_width: base.yaml with model.name CTCModel (features
+     1280, d 128, 8 heads, 8 layers, V 2048) trained by CTCLearner (adamw)
+     on the batches of 12 (N 16, T 49, labels cut to 16), 8 steps: losses finite and
+     falling, no kernel launch, step ms and split, peak memory; the
+     greedy CTC evaluate on a batch; one small step card against CPU
+     (CTC_*); the training CLI with model.name CTCModel on the data_tools
+     CSVs, 2 steps ([ctc] epoch, [train] done);
+ 27. train_lm_full_width: the port's train_lm at base.yaml's LM width
+     (1024, 1024, 6 layers, V 2048), bs 768, seq len 64, 20 steps on the
+     tone corpus's sentences: the valid loss falls, no kernel launch, step
+     ms, peak memory; the saved lm.msgpack in a bundle loads through
+     from_bundle with log-probs equal to the trained model's; one small
+     step card against CPU (LM_*);
+ 28. soak: tests/test_soak.py's engine soak on the card (golden char
+     bundle, 4 slots, graph replays): 8 repetitions of "hello world", a
+     silent slot (at most 12 tokens), a slot closed mid-utterance, the
+     sample buffers under a chunk and the slots recycled; chunks,
+     seconds and host ms a step.
 Then the script's own wall seconds (every phase, the build included;
-and those of 15a-15b),
+and those of 15a-15b and of 25-28),
 one JSON line with every kernel's numbers (B and C also with their
 launches a transcribe_beam), and as the last line
 {"ok": true, "device": {...}}.
@@ -3017,6 +3043,481 @@ def phase_serving_beam(seed: int, card: str, bundle) -> None:
         raise AssertionError("serving_beam at full width failed")
 
 
+# --- compressed audio and the dataset tools, the CTC family, LM training,
+# --- and the engine soak: no kernel of A-H lies on these paths -------------
+
+DATA_FLAC = 24          # LibriSpeech-shaped FLAC files (every third stereo)
+DATA_MP3 = 8            # common-voice MP3 clips, where the host has lame
+CTC_STEPS = 8           # the 4 train batches twice: the loss must fall
+# the train batches' labels cut to 16 tokens for CTC: 40 labels in as few
+# as 31 frames make a row infeasible, and its loss (~1e5, optax's
+# log_epsilon) would swamp what the step learns
+CTC_MAX_LABELS = 16
+# CTC card vs CPU, one step of a small float32 model from the same
+# weights and batch: the same float32 sums in another order (cuBLAS's
+# against the CPU's GEMMs; TF32 off): loss 1e-5 relative, every gradient
+# within 1e-4 of its tensor's largest entry (the key biases, whose true
+# gradient is 0, hold float32 noise: floored at 1e-6 of the largest
+# gradient), features within FRONTEND_TOL
+CTC_SMALL = dict(d_model=32, n_heads=2, n_layers=2, vocab_sz=64, dropout=0.0)
+CTC_LOSS_REL = 1e-5
+CTC_GRAD_REL = 1e-4
+LM_STEPS = 20
+LM_EVAL_EVERY = 5
+LM_SENTENCES = 20000
+# LM card vs CPU, one step at a small width (V 64, 32 wide, 2 layers,
+# dropout 0): the scan cells' float32 GEMMs in another order: held as
+# the CTC step (CTC_LOSS_REL, CTC_GRAD_REL)
+LM_SMALL = dict(vocab_sz=64, embed_sz=32, hidden_sz=32, num_layers=2, p=0.0)
+SOAK_REPS = 8
+
+
+def _flac_tree(root: str, rng) -> list:
+    """LibriSpeech layout (<spk>/<chapter>/<id>.flac + .trans.txt) of
+    DATA_FLAC seeded 2.5-3.75 s noise clips, 16-bit, mono and (every
+    third) stereo, written with the tests' FLAC writer: LPC and FIXED
+    subframes, every stereo mode. Returns (path, int16 samples)."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from helpers.flac_writer import write_flac
+
+    words = ["yes", "no", "stop", "go", "up", "down", "left", "right"]
+    modes = ["left_side", "right_side", "mid_side", "independent"]
+    out = []
+    for spk in range(2):
+        d = os.path.join(root, str(100 + spk), "10")
+        os.makedirs(d)
+        lines = []
+        for i in range(DATA_FLAC // 2):
+            utt = f"{100 + spk}-10-{i:04d}"
+            n = int(rng.integers(40000, 60001))
+            ch = 2 if i % 3 == 0 else 1
+            x = np.clip(np.round(rng.standard_normal((ch, n)) * 3000),
+                        -32768, 32767).astype(np.int64)
+            method = "lpc" if i % 4 == 0 else f"fixed{i % 5}"
+            path = os.path.join(d, f"{utt}.flac")
+            write_flac(path, x, 16000, method=method, blocksize=4096,
+                       stereo=modes[i % 4] if ch == 2 else "independent")
+            out.append((path, x))
+            lines.append(f"{utt} {' '.join(rng.choice(words, 2)).upper()}")
+        with open(os.path.join(d, f"{100 + spk}-10.trans.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return out
+
+
+def _mp3_tree(root: str, rng) -> int:
+    import numpy as np
+
+    from libreasr_tpu_torch.data.audio import write_mp3
+
+    clips = os.path.join(root, "clips")
+    os.makedirs(clips)
+    rows = ["client_id\tpath\tsentence"]
+    for i in range(DATA_MP3):
+        pcm = (rng.standard_normal(int(rng.integers(40000, 60001))) * 0.1).clip(-1, 1)
+        write_mp3(os.path.join(clips, f"cv_{i:03d}.mp3"), pcm.astype(np.float32), 16000)
+        rows.append(f"c\tcv_{i:03d}.mp3\tclip number {i}")
+    with open(os.path.join(root, "validated.tsv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return DATA_MP3
+
+
+def _data_conf(corpus: str) -> dict:
+    from libreasr_tpu_torch.config import parse_and_apply_config
+
+    conf = parse_and_apply_config()
+    conf.update(datasets=["libri"], dataset_paths={"libri": corpus},
+                accumulate_n_batches=1, tokenizer={"model_file": ""})
+    return conf
+
+
+def phase_data_tools(seed: int, card: str, root: str) -> str:
+    """Host: a LibriSpeech-shaped FLAC tree (and a common-voice MP3 tree
+    where the host has lame and mpg123) through the port's create_dataset
+    (a process pool of 2), split, the CSV builder and inspect's
+    statistics; every FLAC decodes to its source samples exactly and its
+    STREAMINFO MD5 verifies. Returns the LibriSpeech dataset directory."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from libreasr_tpu_torch.data import audio as audio_io
+    from libreasr_tpu_torch.data import inspect as port_inspect
+    from libreasr_tpu_torch.data.batching import ASRDataset
+    from libreasr_tpu_torch.data.create_dataset import create_dataset
+    from libreasr_tpu_torch.data.language import get_language
+    from libreasr_tpu_torch.data.split import split_dataset
+
+    rng = np.random.default_rng(seed)
+    times = {}
+    t0 = time.perf_counter()
+    libri = os.path.join(root, "libri")
+    files = _flac_tree(libri, rng)
+    have_mp3, have_ogg = audio_io.have_mp3(), audio_io.have_ogg()
+    cv = os.path.join(root, "cv")
+    n_mp3 = _mp3_tree(cv, rng) if have_mp3 else 0
+    times["write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = md5_ok = 0
+    for path, x in files:
+        pcm, sr = audio_io.read_audio(path)
+        exact += int(sr == 16000 and np.array_equal(
+            np.round(pcm * 32768).astype(np.int64), x))
+        md5_ok += int(audio_io.verify_flac_md5(path))
+    times["decode_verify"] = time.perf_counter() - t0
+    quiet = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        rows = create_dataset(libri, "librispeech", workers=2, pool="process")
+        cv_rows = (create_dataset(cv, "common-voice", workers=2, pool="process")
+                   if have_mp3 else [])
+    times["create_dataset"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        parts = split_dataset(libri, valid=0.25, test=0.0)
+    times["split"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conf = _data_conf(libri)
+    ds = ASRDataset.from_config(conf, get_language()[0], "train")
+    pipe = port_inspect.pipeline_statistics(ds, n_items=32)
+    batches = port_inspect.batch_statistics(ds)
+    times["builder_inspect"] = time.perf_counter() - t0
+    log("data_tools", card=card, flac_files=len(files), flac_exact=exact,
+        flac_md5_verified=md5_ok, mp3_files=n_mp3, have_mp3=have_mp3,
+        have_ogg=have_ogg, rows=len(rows), bad_rows=sum(r["bad"] for r in rows),
+        cv_rows=len(cv_rows), cv_bad_rows=sum(r["bad"] for r in cv_rows),
+        split={k: len(v) for k, v in parts.items()}, builder_rows=len(ds.builder),
+        pipeline_statistics=pipe, batch_statistics=batches, seconds=times)
+    if exact != len(files) or md5_ok != len(files):
+        raise AssertionError(f"data_tools: {exact} exact, {md5_ok} MD5 of {len(files)}")
+    if len(rows) != len(files) or any(r["bad"] for r in rows):
+        raise AssertionError(f"data_tools: rows {rows}")
+    if have_mp3 and (len(cv_rows) != n_mp3 or any(r["bad"] for r in cv_rows)):
+        raise AssertionError(f"data_tools: common-voice rows {cv_rows}")
+    if not 0 < pipe.get("items", 0) == len(ds.builder) or not batches:
+        raise AssertionError(f"data_tools: inspect {pipe} {batches}")
+    return libri
+
+
+def _ctc_conf() -> dict:
+    from libreasr_tpu_torch.config import parse_and_apply_config
+
+    conf = parse_and_apply_config()
+    conf["model"]["name"] = "CTCModel"
+    conf["accumulate_n_batches"] = 1
+    return conf
+
+
+def _grad_gap(a, b) -> float:
+    """The largest gradient difference over CTC_GRAD_REL of its tensor's
+    largest entry, that entry floored at 1e-2 of the largest of all (the
+    CTC key biases' true gradient is 0): <= 1 passes."""
+    top = max(float(g.abs().max()) for g in b)
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               / (CTC_GRAD_REL * max(float(y.abs().max()), 1e-2 * top, 1e-30))
+               for x, y in zip(a, b))
+
+
+def ctc_setup(seed: int):
+    """The CTC main path's learner and batches: base.yaml as a CTCModel
+    on the card, adamw at the config's lr over CTC_STEPS, SpecAugment as
+    configured; the 4 train batches of 12 with labels cut to
+    CTC_MAX_LABELS. Returns (learner, batches)."""
+    import torch
+
+    from libreasr_tpu_torch.models.ctc import CTCConfig, CTCModel
+    from libreasr_tpu_torch.ops.frontend import FrontendConfig
+    from libreasr_tpu_torch.training.ctc_learner import CTCLearner
+    from libreasr_tpu_torch.training.optimizers import build_optimizer, make_lr_schedule
+
+    conf = _ctc_conf()
+    cfg = CTCConfig.from_config(conf)
+    frontend = FrontendConfig.from_config(conf)
+    sched = make_lr_schedule({**conf["training"], "total_steps": CTC_STEPS})
+    learner = CTCLearner(CTCModel(cfg, seed=seed, device="cuda"),
+                         build_optimizer("adamw", sched), frontend, seed=seed)
+    batches = []
+    for b in _train_batches(cfg, frontend, seed):
+        keep = torch.arange(b.labels.shape[1], device=b.labels.device)[None] < CTC_MAX_LABELS
+        batches.append(b._replace(labels=b.labels * keep,
+                                  label_len=b.label_len.clamp(max=CTC_MAX_LABELS)))
+    return learner, batches
+
+
+def phase_train_ctc_full_width(seed: int, card: str, corpus: str) -> None:
+    """The CTC family at full width: base.yaml with model.name CTCModel
+    (features 1280, d 128, 8 heads, 8 layers, V 2048, dropout 0.1), adamw
+    at the config's lr on the train batches of 12 (N 16, T 49; labels cut
+    to CTC_MAX_LABELS) for CTC_STEPS steps: losses finite, the mean of the last 4 below that of
+    the first 4 (the same batches), no kernel launch; step time, its
+    split and peak memory; the greedy evaluate on a batch; one step card
+    against CPU at a small width; then the training CLI with model.name
+    CTCModel on the data_tools CSVs for 2 steps."""
+    import contextlib
+    import io
+
+    import torch
+    import yaml
+
+    from libreasr_tpu_torch import train
+    from libreasr_tpu_torch.data.language import get_language
+
+    learner, batches = ctc_setup(seed)
+    cfg, frontend = learner.cfg, learner.frontend
+    times: dict = {}
+    for part, label in (("features", "frontend"), ("loss", "forward_loss"),
+                        ("backward", "backward"), ("optimize", "optimizer")):
+        setattr(learner, part, _timed(label, getattr(learner, part), times))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_launches()
+    losses = []
+    for i in range(CTC_STEPS):
+        m = _timed("step", learner.step, times)(batches[i % len(batches)])
+        losses.append(float(m["loss"]))
+    launches = {k: v for k, v in _kernel_launches().items() if v}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    lang, _ = get_language()
+    t0 = time.perf_counter()
+    res = learner.evaluate([batches[0]], lang)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    med = {k: statistics.median(v[1:]) for k, v in times.items()}
+    small = _ctc_small_cuda_vs_cpu(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        cconf = _ctc_conf()
+        cconf.update(datasets=["libri"], dataset_paths={"libri": corpus},
+                     tokenizer={"model_file": ""})
+        path = os.path.join(tmp, "ctc.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cconf, f)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train.main(["--config", path, "--steps", "2", "--eval-batches", "1",
+                        "--ckpt", os.path.join(tmp, "ck"),
+                        "--logdir", os.path.join(tmp, "runs")])
+        cli_s = time.perf_counter() - t0
+    cli = [ln for ln in buf.getvalue().splitlines()
+           if ln.startswith(("[ctc]", "[train] done"))]
+    log("train_ctc_full_width", card=card, n=16, t_enc=int(frontend.out_length(
+        torch.tensor(4 * frontend.sr))), d_model=cfg.d_model, heads=cfg.n_heads,
+        layers=cfg.n_layers, vocab=cfg.vocab_sz, feature_sz=cfg.feature_sz,
+        losses=losses, step_ms_median_after_first=med.pop("step"),
+        split_ms_median_after_first=med, step_ms_runs=times["step"],
+        peak_memory_mib=peak_mib, kernel_launches=launches, eval=res,
+        eval_ms=eval_ms, small_cuda_vs_cpu=small, cli_lines=cli,
+        cli_seconds=cli_s)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_ctc_full_width: losses {losses}")
+    if not sum(losses[-4:]) < sum(losses[:4]):
+        raise AssertionError(f"train_ctc_full_width: the loss did not fall {losses}")
+    if launches:
+        raise AssertionError(f"train_ctc_full_width: kernels launched {launches}")
+    if res["n"] != 16:
+        raise AssertionError(f"train_ctc_full_width: eval {res}")
+    if not (any(ln.startswith("[ctc] epoch") for ln in cli)
+            and any(ln.startswith("[train] done: step=2") for ln in cli)):
+        raise AssertionError(f"train_ctc_full_width CLI: {buf.getvalue()}")
+
+
+def _ctc_small_cuda_vs_cpu(seed: int) -> dict:
+    """One CTCLearner step on the card and on the CPU, a small float32
+    model from the same weights and batch, dropout 0, no SpecAugment:
+    features, loss and every gradient (module docs: CTC_*)."""
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch.models.ctc import CTCConfig, CTCModel
+    from libreasr_tpu_torch.ops.frontend import FrontendConfig
+    from libreasr_tpu_torch.training.ctc_learner import CTCLearner
+    from libreasr_tpu_torch.training.learner import Batch
+    from libreasr_tpu_torch.training.optimizers import build_optimizer
+
+    cfg = CTCConfig(feature_sz=1280, **CTC_SMALL)
+    fe = FrontendConfig(cut_max_front=0, cut_max_back=0, time_masks=0, freq_masks=0)
+    rng = np.random.default_rng(seed)
+    audio = (rng.standard_normal((4, 24000)) * 0.1).astype(np.float32)
+    b = (audio, np.array([24000, 20000, 16000, 12000]),
+         rng.integers(1, cfg.vocab_sz, (4, 6)), np.array([6, 5, 3, 1]))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        learner = CTCLearner(CTCModel(cfg, seed=seed, device=dev),
+                             build_optimizer("adamw", 1e-3), fe, seed=seed)
+        kept = []
+        backward = learner.backward
+
+        def keep(loss, backward=backward, kept=kept):
+            grads, finite = backward(loss)
+            kept.extend(g.detach().cpu() for g in grads)
+            return grads, finite
+
+        learner.backward = keep
+        batch = Batch(*(torch.from_numpy(np.asarray(x)) for x in b))
+        feats = learner.features(Batch(*(x.to(dev) for x in batch)))[0].cpu()
+        m = learner.step(batch)
+        out[dev] = (float(m["loss"]), kept, feats)
+    (lc, gc, fc), (lh, gh, fh) = out["cuda"], out["cpu"]
+    res = {"loss_cuda": lc, "loss_cpu": lh, "loss_rel": abs(lc - lh) / abs(lh),
+           "grad_gap": _grad_gap(gc, gh),
+           "features_max_abs": float((fc - fh).abs().max())}
+    if not (res["loss_rel"] <= CTC_LOSS_REL and res["grad_gap"] <= 1.0
+            and res["features_max_abs"] <= FRONTEND_TOL):
+        raise AssertionError(f"train_ctc small cuda vs cpu: {res}")
+    return res
+
+
+def _lm_small_cuda_vs_cpu(seed: int, corpus_ids) -> dict:
+    """One LMTrainer step on the card and on the CPU at a small width,
+    from the same weights and batch (module docs: LM_*)."""
+    import torch
+
+    from libreasr_tpu_torch.models.lm import LM, LMConfig
+    from libreasr_tpu_torch.train_lm import LMTrainer, batch_stream, lm_optimizer
+
+    x, y = next(batch_stream(corpus_ids, 16, 32, seed=seed))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr = LMTrainer(LM(LMConfig(**LM_SMALL), seed=seed, device=dev),
+                       lm_optimizer(1e-2, 10))
+        loss, grads = tr.grads(x, y)
+        tr.apply(grads)
+        out[dev] = (float(loss), [g.detach().cpu() for g in grads])
+    (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+    res = {"loss_cuda": lc, "loss_cpu": lh, "loss_rel": abs(lc - lh) / abs(lh),
+           "grad_gap": _grad_gap(gc, gh)}
+    if not (res["loss_rel"] <= CTC_LOSS_REL and res["grad_gap"] <= 1.0):
+        raise AssertionError(f"train_lm small cuda vs cpu: {res}")
+    return res
+
+
+def write_lm_corpus(path: str, seed: int) -> str:
+    """LM_SENTENCES of the tone corpus's sentences, one a line."""
+    import numpy as np
+
+    from libreasr_tpu_torch.data.synth import sentences
+
+    with open(path, "w") as f:
+        f.write("\n".join(sentences(np.random.default_rng(seed), LM_SENTENCES)) + "\n")
+    return path
+
+
+def phase_train_lm_full_width(seed: int, card: str) -> None:
+    """The LM that the beam phases serve, trained at its width
+    (base.yaml's lm: embed 1024, hidden 1024, 6 layers, V 2048) by the
+    port's train_lm at its defaults (bs 768, seq len 64) for LM_STEPS
+    steps on the tone corpus's sentences (char ids): the valid loss
+    falls, no kernel launch; step ms (median after the first), peak
+    memory, the printed valid_loss and ppl; the saved lm.msgpack in a
+    bundle loads through from_bundle on the card with log-probs equal
+    to the in-memory model's; one step card against CPU at a small
+    width."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch import train_lm
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.checkpoint import msgpack_restore, save_bundle
+    from libreasr_tpu_torch.config import parse_and_apply_config
+    from libreasr_tpu_torch.convert import export_variables
+    from libreasr_tpu_torch.data.language import get_language
+    from libreasr_tpu_torch.models.transducer import Transducer, TransducerConfig
+
+    conf = parse_and_apply_config(inference=True)
+    lmc = conf["lm"]
+    times: dict = {}
+    step = train_lm.LMTrainer.step
+    train_lm.LMTrainer.step = _timed("step", step, times)
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = write_lm_corpus(os.path.join(tmp, "text.txt"), seed)
+        out = os.path.join(tmp, "lm.msgpack")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_kernel_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = train_lm.main([
+                    "--corpus", corpus, "--steps", str(LM_STEPS),
+                    "--eval-every", str(LM_EVAL_EVERY),
+                    "--embed-sz", str(lmc["embed_sz"]), "--hidden-sz", str(lmc["hidden_sz"]),
+                    "--num-layers", str(lmc["num_layers"]),
+                    "--vocab-sz", str(lmc["vocab_sz"]), "--out", out])
+        finally:
+            train_lm.LMTrainer.step = step
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in _kernel_launches().items() if v}
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        lm = res["trainer"].lm.eval()
+        bundle_path = os.path.join(tmp, "bundle.tar.gz")
+        model = Transducer(TransducerConfig.from_config(conf), seed=seed)
+        with open(out, "rb") as f:
+            lm_vars = msgpack_restore(f.read())
+        save_bundle(bundle_path, "en", export_variables(model), conf,
+                    lm_variables=lm_vars)
+        bundle = ASRBundle.from_bundle(bundle_path, extract_to=os.path.join(tmp, "x"),
+                                       device="cuda")
+        y = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, lmc["vocab_sz"], (8, 16))).cuda()
+        with torch.no_grad():
+            same = float((bundle.lm(y)[0] - lm(y)[0]).abs().max())
+        ids = train_lm.corpus_ids(corpus, get_language()[0])
+    small = _lm_small_cuda_vs_cpu(seed, ids)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[lm]")]
+    vl = res["valid_losses"]
+    log("train_lm_full_width", card=card, bs=768, seq_len=64, steps=LM_STEPS,
+        embed=lmc["embed_sz"], hidden=lmc["hidden_sz"], layers=lmc["num_layers"],
+        vocab=lmc["vocab_sz"], corpus_tokens=int(len(ids)), lines=lines,
+        valid_losses=vl, step_ms_median_after_first=statistics.median(times["step"][1:]),
+        step_ms_runs=times["step"], seconds=run_s, peak_memory_mib=peak_mib,
+        kernel_launches=launches, bundle_lm_logprob_max_abs=same,
+        small_cuda_vs_cpu=small)
+    if not (len(vl) == LM_STEPS // LM_EVAL_EVERY and vl[-1] < vl[0]
+            and all(math.isfinite(v) for v in vl)):
+        raise AssertionError(f"train_lm_full_width: valid losses {vl}")
+    if launches or same != 0.0 or bundle.lm.cfg.hidden_sz != lmc["hidden_sz"]:
+        raise AssertionError(f"train_lm_full_width: launches {launches}, "
+                             f"bundle LM gap {same}")
+
+
+def phase_soak(card: str) -> None:
+    """tests/test_soak.py's soak on the card: the golden char bundle in a
+    StreamingEngine of 4 slots, every step one CUDA graph replay: SOAK_REPS
+    repetitions of "hello world", a silent slot, a slot closed
+    mid-utterance; the silent slot emits at most 12 tokens, every sample
+    buffer stays under a chunk, the slots are recycled."""
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.data.audio import read_wav
+    from libreasr_tpu_torch.models.streaming import StreamingEngine
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from helpers.soak import check_soak, golden_audio, run_soak
+
+    audio = golden_audio(read_wav(os.path.join(GOLDEN, "s-002.wav"))[0][0])
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = ASRBundle.from_bundle(os.path.join(GOLDEN, "model.tar.gz"),
+                                       device="cuda", extract_to=tmp)
+        eng = StreamingEngine(bundle, n_streams=4)
+        _reset_kernel_launches()
+        res = run_soak(eng, audio, reps=SOAK_REPS)
+        launches = {k: v for k, v in _kernel_launches().items() if v}
+        silent = len(eng.emitted[res["silence"]])
+        log("soak", card=card, chunks=res["chunks"], seconds=res["seconds"], steps=eng.steps,
+            graph_replays=eng.replays, host_ms_per_step=res["seconds"] / eng.steps * 1e3,
+            transcripts=res["transcripts"], silent_slot_tokens=silent,
+            churn_cycles=res["churn_cycles"], kernel_launches=launches,
+            sample_buf=[len(b) for b in eng.sample_buf])
+        check_soak(eng, res, reps=SOAK_REPS)
+        if eng.replays != eng.steps or not eng.steps or launches:
+            raise AssertionError(f"soak: {eng.steps} steps, {eng.replays} "
+                                 f"replays, launches {launches}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3087,11 +3588,22 @@ def main() -> int:
     phase_serving_beam(args.seed, card, lm_bundle)
     del lm_bundle
     torch.cuda.synchronize()
+    t_new = time.perf_counter()
+    with tempfile.TemporaryDirectory() as data:
+        corpus = phase_data_tools(args.seed, card, data)
+        phase_train_ctc_full_width(args.seed, card, corpus)
+    torch.cuda.synchronize()
+    phase_train_lm_full_width(args.seed, card)
+    torch.cuda.synchronize()
+    phase_soak(card)
+    torch.cuda.synchronize()
+    new_s = time.perf_counter() - t_new
     rows += joint_rows(args.seed, worst_joint, launches)
     rows += train_kernel_rows(args.seed, worst_train, launches)
     torch.cuda.synchronize()
     # every phase, the build included, and the two tone phases' share
-    log("wall", seconds=time.perf_counter() - t_start, tone_phases_seconds=tone_s)
+    log("wall", seconds=time.perf_counter() - t_start, tone_phases_seconds=tone_s,
+        data_ctc_lm_soak_seconds=new_s)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

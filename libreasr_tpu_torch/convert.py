@@ -99,3 +99,21 @@ def export_lm_variables(lm: torch.nn.Module) -> dict:
     """The inverse of load_jax_lm_variables: {"params": ...} of numpy
     arrays, the tree the JAX package serializes into lm.msgpack."""
     return export_variables(lm)
+
+
+def load_jax_ctc_variables(model: torch.nn.Module, variables: dict) -> None:
+    """Copy a JAX CTCModel's variables (init_ctc's tree {"params":
+    {"in_proj"?, "block{i}": {"LayerNorm_0", "MultiHeadDotProductAttention_0":
+    {"query", "key", "value", "out"}, "LayerNorm_1", "Dense_0", "Dense_1"},
+    "LayerNorm_0", "out"}} of numpy arrays) into the port's
+    models.ctc.CTCModel, whose names are flax's: load_jax_variables with
+    its checks."""
+    if set(variables) - {"params"}:
+        raise ValueError(f"a CTC model has params only, got {sorted(variables)}")
+    load_jax_variables(model, variables)
+
+
+def export_ctc_variables(model: torch.nn.Module) -> dict:
+    """The inverse of load_jax_ctc_variables: {"params": ...} of numpy
+    arrays in flax's layout."""
+    return export_variables(model)

@@ -20,11 +20,11 @@ class CharLanguage:
         self.t2i = dict(tokens)
         self.i2t = {i: t for t, i in tokens.items()}
 
-    def numericalize(self, text: str) -> list[int]:
+    def numericalize(self, text: str, sos: bool = False) -> list[int]:
         """Text -> ids: lower-cased and stripped, unknown characters
-        dropped, EOS appended."""
+        dropped, EOS appended, <s> put in front when `sos`."""
         ids = [self.t2i[c] for c in text.lower().strip() if c in self.t2i]
-        return ids + [_EOS]
+        return ([self.sos] if sos else []) + ids + [_EOS]
 
     def denumericalize(self, ids) -> str:
         """Token ids -> text: specials dropped, and nothing after EOS (a

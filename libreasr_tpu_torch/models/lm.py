@@ -1,14 +1,16 @@
 """LSTM language model (the JAX package's models/lm.py).
 
 Embedding (the blank/pad id 0 gives a zero vector) -> `num_layers` LSTM
-layers -> output projection, tied to the embedding when embed_sz ==
-hidden_sz -> log_softmax. The state is an explicit per-layer (h, c)
-carry, so that a decoder can step the LM one token at a time.
+layers -> dropout (training mode only) -> output projection, tied to the
+embedding when embed_sz == hidden_sz -> log_softmax. The state is an
+explicit per-layer (h, c) carry, so that a decoder can step the LM one
+token at a time.
 
 The LSTM layers are the port's scan cells (ops/rnn.py:lstm_scan), in
 float32 with no compute dtype, as in JAX; the decoders only ever call
-the LM at T = 1, so no sequence kernel is involved. Parameter names are
-the flax ones (`embed.embedding`, `lstm{i}.kernel`,
+the LM at T = 1, so no sequence kernel is involved, and the trainer
+(train_lm.py) runs the same scan cells under autograd. Parameter names
+are the flax ones (`embed.embedding`, `lstm{i}.kernel`,
 `lstm{i}.recurrent_kernel`, `lstm{i}.bias`, `out.kernel`, `out.bias`),
 so convert.load_jax_lm_variables maps a JAX LM 1:1.
 """
@@ -21,7 +23,7 @@ import torch
 from torch import nn
 
 from ..ops import rnn as rnn_ops
-from .modules import Cell, Dense, Embed
+from .modules import Cell, Dense, Embed, dropout
 
 
 @dataclass(frozen=True)
@@ -74,10 +76,11 @@ class LM(nn.Module):
              torch.zeros((n, self.cfg.hidden_sz), device=dev))
             for _ in range(self.cfg.num_layers))
 
-    def forward(self, y, state=None):
+    def forward(self, y, state=None, generator=None):
         """y: [N, T] token ids. Returns (log-probs [N, T, V], per-layer
-        (h, c)); `state` None starts from zeros. Dropout is an eval no-op
-        and is left out: the port does not train the LM."""
+        (h, c)); `state` None starts from zeros. In training mode the
+        last LSTM layer's output is dropped out at rate p, with masks
+        from `generator`; in eval mode nothing is dropped."""
         x = self.embed(y)
         x = torch.where((y == 0)[..., None], torch.zeros_like(x), x)
         if state is None:
@@ -87,6 +90,8 @@ class LM(nn.Module):
             x, st = rnn_ops.lstm_scan(x, tuple(state[i]),
                                       getattr(self, f"lstm{i}").params())
             new_states.append(st)
+        if self.training:
+            x = dropout(x, self.cfg.p, generator)
         if self.tied:
             logits = x @ self.embed.embedding.T
         else:

@@ -2,9 +2,9 @@
 
 Each source `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into
 `build/lib<name>-<hash>.so` (a plain C interface, loaded with ctypes).
-Host sources `csrc/<name>.cpp` (the BPE trainer) are compiled the same
-way by HOST_CXX, the g++ on the PATH (nvcc's host compiler), with
-CXX_FLAGS, and need no nvcc: `load_host`. `$CXX` is not read: a
+Host sources `csrc/<name>.cpp` (the BPE trainer, the audio codecs) are
+compiled the same way by HOST_CXX, the g++ on the PATH (nvcc's host
+compiler), with CXX_FLAGS and HOST_LIBS, and need no nvcc: `load_host`. `$CXX` is not read: a
 compiler whose C++ runtime is not the one the process has loaded gives a
 library that crashes in it (seen with a second GCC install that `$CXX`
 named on an H100 host).
@@ -37,6 +37,9 @@ NVCC_FLAGS = [
 ]
 HOST_CXX = "g++"
 CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-Wall"]
+# libraries a host source links, after the source (the codecs dlopen
+# the host's codec libraries)
+HOST_LIBS = {"audio_codecs": ["-ldl"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -99,7 +102,7 @@ def library_path(name: str) -> str:
 
 def host_library_path(name: str) -> str:
     return _library_path(name, [os.path.join(CSRC_DIR, f"{name}.cpp")],
-                         HOST_CXX, CXX_FLAGS)
+                         HOST_CXX, CXX_FLAGS + HOST_LIBS.get(name, []))
 
 
 def _compile(jobs: dict[str, tuple[list[str], str]], what: str) -> dict[str, float]:
@@ -180,6 +183,7 @@ def load_host(name: str) -> ctypes.CDLL:
     compiler's output."""
     def build_host(n):
         src = os.path.join(CSRC_DIR, f"{n}.cpp")
-        _compile({n: ([HOST_CXX, *CXX_FLAGS, src], host_library_path(n))}, "host")
+        _compile({n: ([HOST_CXX, *CXX_FLAGS, src, *HOST_LIBS.get(n, [])],
+                      host_library_path(n))}, "host")
 
     return _load(name, host_library_path, build_host)

@@ -189,9 +189,12 @@ def lstm_scan(x, state, params: LSTMParams, *, lengths=None,
     wx, r, zm = _recurrent(params, x, state[0], compute_dtype, zoneout,
                            dropconnect, training, generator, dropconnect_mask,
                            zoneout_mask)
-    wx = wx + params.bias
+    # one view a step: the backward of unbind stacks the steps' gradients
+    # once, where indexing wx[:, t] would add a zero-filled [N, T, 4H]
+    # gradient a step (T times the traffic; most of a long scan's backward)
+    wx = (wx + params.bias).unbind(1)
     return _lstm_steps(
-        x, state, lambda h, t: _mm(h, r, compute_dtype) + wx[:, t], None, zm,
+        x, state, lambda h, t: _mm(h, r, compute_dtype) + wx[t], None, zm,
         lengths=lengths, length_mode=length_mode, zoneout=zoneout,
         training=training)
 

@@ -13,9 +13,12 @@ config's BPE tokenizer on the training labels. `--chain-steps K` buffers
 batches of one bucket shape and runs every K of them through
 `Learner.step_chained`; a shorter remainder steps singly, and no chain
 runs past `--steps`. An adahessian config trains with Hutchinson probes,
-and `reduce_on_plateau` feeds the loss to the optimizer. The JAX CLI's
-CTC models, pipeline and tensor parallelism and multi-host training are
-not ported: their flags raise.
+and `reduce_on_plateau` feeds the loss to the optimizer. A config with
+`model.name: CTCModel` trains the CTC family instead (training/
+ctc_learner.py), as the JAX CLI does: epochs up to --steps, a greedy
+CTC eval of --eval-batches batches after each, with no checkpoint and
+no bundle. The JAX CLI's pipeline and tensor parallelism and multi-host
+training are not ported: their flags raise.
 """
 
 from __future__ import annotations
@@ -86,9 +89,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     conf = parse_and_apply_config(lang=args.lang, path=args.config)
-    if conf["model"].get("name", "Transducer") != "Transducer":
-        raise NotImplementedError(
-            "libreasr_tpu_torch.train: only the Transducer is ported")
+    family = conf["model"].get("name", "Transducer")
+    if family not in ("Transducer", "CTCModel"):
+        raise ValueError(f"libreasr_tpu_torch.train: unknown model.name {family!r}")
     tok_file = (conf.get("tokenizer", {}) or {}).get("model_file")
     if conf.get("train_tokenizer") and tok_file:
         builder = ASRDatasetBuilder.from_config(conf, "train")
@@ -100,6 +103,8 @@ def main(argv=None):
     train_ds = ASRDataset.from_config(conf, lang, "train")
     valid_ds = ASRDataset.from_config({**conf, "drop_last": False}, lang, "valid")
     print(f"[train] train={train_ds.builder.stats()} valid={len(valid_ds.builder)}")
+    if family == "CTCModel":
+        return _train_ctc(args, conf, lang, train_ds, valid_ds, device)
 
     tconf = conf.get("training", {}) or {}
     run_conf = {**conf, "training": {
@@ -200,6 +205,45 @@ def _train_loop(args, conf, learner, train_ds, logger, step, run_eval) -> int:
             if run_chunk([b]):
                 return step
     return step
+
+
+def _train_ctc(args, conf, lang, train_ds, valid_ds, device):
+    """The CTC family: epochs of CTCLearner steps, each followed by a
+    greedy CTC eval, until --steps (or the config's epochs)."""
+    from .models.ctc import CTCConfig, CTCModel
+    from .ops.frontend import FrontendConfig
+    from .training.ctc_learner import CTCLearner
+    from .training.optimizers import build_optimizer, make_lr_schedule
+
+    tconf = conf.get("training", {}) or {}
+    seed = conf.get("seed", 42)
+    model = CTCModel(CTCConfig.from_config(conf), seed=seed, device=device)
+    schedule = make_lr_schedule(
+        {**tconf, "total_steps": args.steps or tconf.get("total_steps", 100_000)})
+    tx = build_optimizer(
+        tconf.get("optimizer", "adamw"), schedule,
+        weight_decay=tconf.get("wd", 0.01),
+        grad_clip=tconf.get("grad_clip", 10.0),
+        accumulate=conf.get("accumulate_n_batches", 1))
+    learner = CTCLearner(model, tx, FrontendConfig.from_config(conf), seed=seed)
+    step, metrics, res = 0, None, None
+    for epoch in range(tconf.get("epochs", 20)):
+        for batch in train_ds:
+            metrics = learner.step(batch)
+            step += 1
+            if args.steps and step >= args.steps:
+                break
+        if metrics is None:
+            raise SystemExit(
+                "[train] the loader produced no batch: check the dataset "
+                "paths, the bucket ladder and the limits")
+        res = learner.evaluate(iter(valid_ds), lang, max_batches=args.eval_batches)
+        print(f"[ctc] epoch {epoch} step={step} loss={float(metrics['loss']):.3f} "
+              f"wer={res['wer']:.3f} cer={res['cer']:.3f}", flush=True)
+        if args.steps and step >= args.steps:
+            break
+    if res is not None:
+        print(f"[train] done: step={step} wer={res['wer']:.3f} cer={res['cer']:.3f}")
 
 
 def _restore_best_wer_bar(logger, ckpt, start_step):

@@ -22,7 +22,8 @@ containers of them, held by the caller (the Learner).
   MultiSteps accumulation (the mean of k gradients, one inner update on
   the k-th, with the k-th call's extra arguments) around them, as
   `build_optimizer` chains them;
-- make_lr_schedule: optax's warmup_cosine_decay_schedule.
+- warmup_cosine_decay_schedule, optax's, and make_lr_schedule, the
+  training config's use of it.
 
 Scalars (bias corrections, the radam rectifier, the schedule) are
 computed in float64 on the host; optax computes them in float32 on the
@@ -395,22 +396,35 @@ def build_optimizer(name: str, learning_rate, *, weight_decay: float = 0.01,
     return multi_steps(tx, accumulate) if accumulate > 1 else tx
 
 
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule: linear from init_value to
+    peak_value over warmup_steps, then a cosine down to end_value at
+    decay_steps (counted from 0, the warmup included), constant after.
+    Like optax, it raises unless decay_steps > warmup_steps."""
+    decay = decay_steps - warmup_steps
+    if not decay > 0:
+        raise ValueError(f"cosine decay needs decay_steps > warmup_steps, got "
+                         f"{decay_steps} and {warmup_steps}")
+    alpha = end_value / peak_value if peak_value else 0.0
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1 - min(max(count, 0), warmup_steps) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(count - warmup_steps, decay)
+        return peak_value * ((1 - alpha) * 0.5
+                             * (1 + math.cos(math.pi * c / decay)) + alpha)
+
+    return schedule
+
+
 def make_lr_schedule(conf_training: dict) -> Callable[[int], float]:
     """optax.warmup_cosine_decay_schedule from lr / 25 up to lr over
     warmup_pct of total_steps, then a cosine down to lr / 100."""
     lr = conf_training.get("lr", 5e-4)
     steps = conf_training.get("total_steps", 100_000)
     warmup = max(int(steps * conf_training.get("warmup_pct", 0.3)), 1)
-    decay = max(steps, warmup + 1) - warmup
-    init, end = lr / 25.0, lr / 100.0
-    alpha = end / lr if lr else 0.0
-
-    def schedule(count: int) -> float:
-        if count < warmup:
-            frac = 1 - min(max(count, 0), warmup) / warmup
-            return (init - lr) * frac + lr
-        c = min(count - warmup, decay)
-        return lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay))
-                     + alpha)
-
-    return schedule
+    return warmup_cosine_decay_schedule(lr / 25.0, lr, warmup,
+                                        max(steps, warmup + 1), lr / 100.0)

@@ -126,9 +126,15 @@ def test_resample_matches_jax_fallback():
 
 
 def test_compressed_audio_raises(tmp_path):
+    """A compressed file that does not decode (missing, or garbage)
+    raises AudioReadError; nothing falls back to another reader."""
     for ext in (".flac", ".ogg", ".mp3"):
-        with pytest.raises(taudio.AudioReadError, match="not ported"):
+        with pytest.raises(taudio.AudioReadError, match="decode failed"):
             taudio.read_audio(str(tmp_path / f"a{ext}"))
+        garbage = tmp_path / f"g{ext}"
+        garbage.write_bytes(b"\x00\x01not-audio" * 64)
+        with pytest.raises(taudio.AudioReadError, match="decode failed"):
+            taudio.read_audio(str(garbage))
 
 
 @pytest.mark.parametrize("pred,target", [
