@@ -195,8 +195,45 @@ Phases, one line each (any failure raises and exits non-zero):
      silent slot (at most 12 tokens), a slot closed mid-utterance, the
      sample buffers under a chunk and the slots recycled; chunks,
      seconds and host ms a step.
+ 29. dist_train_full_width: an NCCL group of one rank (tcp://127.0.0.1,
+     a free port) and Learner(mesh=make_mesh(data=1)) at base.yaml's
+     width on train_full_width's batches (accumulation 1), 3 steps
+     against the plain Learner from the same seed: the loss and every
+     parameter and batch statistic equal bit for bit (an axis of one
+     rank has no group, so the step exchanges nothing, as GSPMD's;
+     scripts/multi_gpu_check.py runs the collectives across cards),
+     D, E 6 and F, G, H 1 launches a step
+     on both; step ms of both, the NCCL version; then a checkpoint saved
+     under the mesh restores into a plain Learner, whose next step
+     equals the mesh Learner's bit for bit;
+ 30. train_cli_dist: the CLI on train_cli's corpus with --dist-coordinator
+     127.0.0.1:PORT --dist-procs 1 --dist-pid 0 --steps 2: NCCL starts
+     inside it, one process builds no mesh, and the run ends as the plain
+     CLI's (eval, `[train] done:`) with the parameters and done line of
+     the plain 2-step run of 15 bit for bit; then a resume to step 3;
+ 31. streaming_mesh: engines of 64 over the mesh devices=[cuda:0, cuda:0]
+     (two graphs of 32; [cuda:0, cuda:1] where two cards are visible)
+     on the same ragged int16 streams: greedy in bf16 against two
+     engines of 32 (the slots that differ from an engine of 64 logged,
+     with the state leaves where an engine of 32 first parts from it
+     and the step's products over 64 streams against their first 32
+     alone: the frontend's float32 DFT, the recurrent product in bf16
+     and float32, each with its differing elements and GEMM kernels;
+     near-tied bf16 argmaxes part on such differences), greedy and
+     beam K 4 + LM on the
+     sharpened joint of 22 in float32 against the engine of 64: tokens
+     equal on every slot, graph replays only, replay ms of each; then
+     ASRServicer on a mesh engine of the golden char bundle: two streams
+     exact;
+ 32. import_reference: a seeded reference-layout state_dict at base.yaml's
+     shapes and a youtokentome model of 2048 ids, packed as the
+     reference's release tar.gz and imported by
+     libreasr_tpu_torch.scripts.import_reference on the card:
+     transcribe_batch on the clips of 5 launches B 6 times, the encoder
+     output is within ENC_TOL of the same bundle on the CPU, and the
+     bundle reloaded transcribes the same.
 Then the script's own wall seconds (every phase, the build included;
-and those of 15a-15b and of 25-28),
+and those of 15a-15b, of 25-28 and of 29-32),
 one JSON line with every kernel's numbers (B and C also with their
 launches a transcribe_beam), and as the last line
 {"ok": true, "device": {...}}.
@@ -1720,17 +1757,17 @@ def _chain_steps_check(conf_path: str, tmp: str) -> dict:
         calls.append(len(batches))
         return real(self, batches)
 
-    states, secs = {}, {}
+    states, secs, done = {}, {}, {}
     Learner.step_chained = counting
     try:
         for name, extra in (("chained", ["--chain-steps", "2"]), ("single", [])):
             d = os.path.join(tmp, name)
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
-                train.main(["--config", conf_path, "--ckpt", d, "--logdir", d + "_runs",
-                            "--eval-batches", "1", "--eval-every", "1000",
-                            "--steps", "2", *extra])
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                train.main(_cli_args(conf_path, d) + ["--steps", "2", *extra])
             secs[name] = time.perf_counter() - t0
+            done[name] = _done_line(buf.getvalue())
             states[name] = torch.load(os.path.join(d, "train_state.pt"),
                                       map_location="cpu", weights_only=True)["model"]
     finally:
@@ -1742,13 +1779,42 @@ def _chain_steps_check(conf_path: str, tmp: str) -> dict:
                            for k, x in a.items() if x.is_floating_point()))
     if calls != [2] or not out["bit_equal"]:
         raise AssertionError(f"--chain-steps 2 against single steps: {out}")
-    return out
+    return out, {"state": b, "done": done["single"]}
+
+
+def _cli_args(conf_path: str, d: str) -> list:
+    """The CLI flags of a 2-step run from a fresh start with one eval, at
+    its end (the chain check's and train_cli_dist's)."""
+    return ["--config", conf_path, "--ckpt", d, "--logdir", d + "_runs",
+            "--eval-batches", "1", "--eval-every", "1000"]
+
+
+def _done_line(out: str) -> str:
+    return next(ln for ln in out.splitlines() if ln.startswith("[train] done"))
+
+
+def _train_cli_conf(tmp: str, seed: int) -> str:
+    """train_cli's corpus of noise WAVs in `tmp` and its config there
+    (base.yaml's model as written, accumulation 1). Returns its path."""
+    import yaml
+
+    from libreasr_tpu_torch.config import parse_and_apply_config
+
+    _write_noise_corpus(tmp, seed)
+    conf = parse_and_apply_config()
+    conf.update(datasets=["noise"], dataset_paths={"noise": tmp},
+                accumulate_n_batches=1,
+                tokenizer={"model_file": os.path.join(tmp, "none")})
+    path = os.path.join(tmp, "conf.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(conf, f)
+    return path
 
 
 def phase_train_cli(seed: int, card: str) -> dict:
     """The training CLI at full width: base.yaml's model as written, the
     noise corpus, accumulation 1 so that every step updates. Returns the
-    D/E launch counts of the two runs."""
+    plain 2-step run of the chain check: its parameters and done line."""
     import contextlib
     import io
 
@@ -1758,18 +1824,12 @@ def phase_train_cli(seed: int, card: str) -> dict:
 
     from libreasr_tpu_torch import train
     from libreasr_tpu_torch.api import ASRBundle
-    from libreasr_tpu_torch.config import parse_and_apply_config
     from libreasr_tpu_torch.ops.kernels import lstm_train as klt
 
     with tempfile.TemporaryDirectory() as tmp:
-        _write_noise_corpus(tmp, seed)
-        conf = parse_and_apply_config()
-        conf.update(datasets=["noise"], dataset_paths={"noise": tmp},
-                    accumulate_n_batches=1,
-                    tokenizer={"model_file": os.path.join(tmp, "none")})
-        path = os.path.join(tmp, "conf.yaml")
-        with open(path, "w") as f:
-            yaml.safe_dump(conf, f)
+        path = _train_cli_conf(tmp, seed)
+        with open(path) as f:
+            conf = yaml.safe_load(f)
         bundle_path = os.path.join(tmp, "bundle.tar.gz")
         common = ["--config", path, "--ckpt", os.path.join(tmp, "ckpt"),
                   "--logdir", os.path.join(tmp, "runs"), "--eval-batches", "1"]
@@ -1789,7 +1849,7 @@ def phase_train_cli(seed: int, card: str) -> dict:
         rng = np.random.default_rng(seed)
         audio = (rng.standard_normal((2, 48000)) * 0.1).astype(np.float32)
         texts, metrics = bundle.transcribe_batch(audio, np.array([48000, 30000]))
-        chain = _chain_steps_check(path, tmp)
+        chain, plain = _chain_steps_check(path, tmp)
     first, second = outs
     lines = [ln for o in outs for ln in o.splitlines()
              if ln.startswith(("[eval]", "[train] resumed", "[train] done"))]
@@ -1803,7 +1863,7 @@ def phase_train_cli(seed: int, card: str) -> dict:
           and np.isfinite(np.asarray(metrics["alignment_score"])).all())
     if not ok:
         raise AssertionError("training CLI: " + "\n".join(outs))
-    return launches
+    return plain
 
 
 # --- the Transducer options the JAX config and CLI accept -------------------
@@ -3518,6 +3578,479 @@ def phase_soak(card: str) -> None:
                                  f"replays, launches {launches}")
 
 
+# --- multi-GPU training and serving, and the reference importer -------------
+
+DIST_STEPS = 3
+MESH_STREAMS = 64
+# base.yaml's shapes in the reference's names
+REF_SHAPES = dict(feature_sz=1280, embed_sz=512, vocab_sz=2048, hidden_sz=1024,
+                  joint_sz=1024, enc_layers=6, pred_layers=2)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _nccl_world_of_one() -> None:
+    """An NCCL process group of one rank on this card, on a free port."""
+    from libreasr_tpu_torch.parallel import distributed as dist
+
+    dist.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+
+
+def _timed_step(learner, batch) -> tuple[float, float, dict]:
+    """One step, counted and timed: (loss, ms, launches of that step)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_kernel_launches()
+    t0 = time.perf_counter()
+    loss = float(learner.step(batch)["loss"])
+    torch.cuda.synchronize()
+    return loss, (time.perf_counter() - t0) * 1e3, {
+        k: v for k, v in _kernel_launches().items() if v}
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def phase_dist_train_full_width(seed: int, card: str) -> None:
+    """train_full_width's Learner on an NCCL group of one rank
+    (Learner(mesh=make_mesh(data=1)): row-scoped draws run; an axis of
+    one rank has no group, so no collective does, as under GSPMD) against
+    the plain Learner from the same seed, 3 steps on the same batches
+    (accumulation 1): the same loss and parameters bit for bit, the same
+    D, E, F, G, H launches a step; then a checkpoint saved under the mesh
+    restores into a plain Learner whose next step equals the mesh
+    Learner's bit for bit."""
+    import torch
+    import torch.distributed as tdist
+
+    from libreasr_tpu_torch.parallel.mesh import make_mesh
+    from libreasr_tpu_torch.training.checkpoint import (restore_train_state,
+                                                        save_train_state)
+    from libreasr_tpu_torch.training.learner import Learner
+
+    _nccl_world_of_one()
+    try:
+        mesh = make_mesh(data=1)
+        plain = Learner.from_config(train_conf(accumulate=1), device="cuda", seed=seed)
+        meshed = Learner.from_config(train_conf(accumulate=1), device="cuda",
+                                     seed=seed, mesh=mesh)
+        batches = _train_batches(plain.cfg, plain.frontend, seed,
+                                 steps=DIST_STEPS + 1)
+        layers = plain.cfg.enc_num_layers
+        want = {"lstm_train_fwd": layers, "lstm_train_bwd": layers,
+                "joint_lp_fwd": 1, "joint_lp_dx": 1, "joint_lp_dw": 1}
+        steps = []
+        for b in batches[:DIST_STEPS]:
+            lp, msp, np_ = _timed_step(plain, b)
+            lm, msm, nm = _timed_step(meshed, b)
+            steps.append(dict(loss_plain=lp, loss_mesh=lm, ms_plain=msp,
+                              ms_mesh=msm, launches_plain=np_, launches_mesh=nm))
+        same = [_bit_equal(plain.params, meshed.params),
+                _bit_equal(list(plain.model.buffers()), list(meshed.model.buffers()))]
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            save_train_state(tmp, meshed)
+            save_s = time.perf_counter() - t0
+            restored = Learner.from_config(train_conf(accumulate=1), device="cuda",
+                                           seed=seed + 1)
+            restore_train_state(tmp, restored)
+        l_mesh, _, _ = _timed_step(meshed, batches[DIST_STEPS])
+        l_rest, _, _ = _timed_step(restored, batches[DIST_STEPS])
+        # the host's cost of one collective (a data-parallel step makes
+        # 45: the batch norms' sums, the loss's gathers, the flat
+        # gradient, the counts; at one rank it makes none)
+        one = torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            tdist.all_reduce(one)
+        torch.cuda.synchronize()
+        nccl_call_us = (time.perf_counter() - t0) / 200 * 1e6
+        resumed = dict(loss_mesh=l_mesh, loss_restored=l_rest,
+                       params_equal=_bit_equal(meshed.params, restored.params),
+                       save_s=save_s)
+        log("dist_train_full_width", card=card, backend=tdist.get_backend(),
+            nccl_version=".".join(map(str, torch.cuda.nccl.version())),
+            world=tdist.get_world_size(), mesh=mesh.shape, n=16, steps=steps,
+            nccl_all_reduce_host_us=nccl_call_us,
+            params_bit_equal=same[0], batch_stats_bit_equal=same[1],
+            expected_launches_per_step=want, resumed=resumed,
+            step_ms_median_plain=statistics.median(x["ms_plain"] for x in steps[1:]),
+            step_ms_median_mesh=statistics.median(x["ms_mesh"] for x in steps[1:]))
+        bad = [x for x in steps if x["loss_plain"] != x["loss_mesh"]
+               or x["launches_plain"] != want or x["launches_mesh"] != want]
+        if bad or not all(same) or l_mesh != l_rest or not resumed["params_equal"]:
+            raise AssertionError(f"dist_train_full_width: steps {bad}, params and "
+                                 f"statistics equal {same}, resumed {resumed}")
+        del plain, meshed, restored
+        torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+
+
+def phase_train_cli_dist(seed: int, card: str, plain: dict) -> None:
+    """`python -m libreasr_tpu_torch.train` (its main, in this process)
+    with --dist-coordinator 127.0.0.1:PORT --dist-procs 1 --dist-pid 0 on
+    train_cli's corpus: NCCL starts inside the CLI; with one process the
+    CLI builds no mesh and ends as the plain CLI does (an eval and the
+    `[train] done:` line), and its 2 steps leave the parameters of the
+    plain CLI's 2-step run (train_cli's chain check) bit for bit, with
+    its done line; then a resume to step 3."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as tdist
+
+    from libreasr_tpu_torch import train
+
+    outs, secs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _train_cli_conf(tmp, seed)
+        d = os.path.join(tmp, "ckpt")
+        for steps in ("2", "3"):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    train.main(_cli_args(path, d) + [
+                        "--steps", steps, "--dist-coordinator",
+                        f"127.0.0.1:{_free_port()}", "--dist-procs", "1",
+                        "--dist-pid", "0"])
+                backend = tdist.get_backend()
+            finally:
+                if tdist.is_initialized():
+                    tdist.destroy_process_group()
+            secs.append(time.perf_counter() - t0)
+            outs.append(buf.getvalue())
+            if steps == "2":
+                state = torch.load(os.path.join(d, "train_state.pt"),
+                                   map_location="cpu", weights_only=True)["model"]
+                equal = set(state) == set(plain["state"]) and all(
+                    torch.equal(v, plain["state"][k]) for k, v in state.items())
+                done2 = _done_line(outs[0])
+    log("train_cli_dist", card=card, backend=backend, seconds=secs,
+        done_dist=done2, done_plain=plain["done"], params_bit_equal=equal,
+        resumed=[ln for ln in outs[1].splitlines()
+                 if ln.startswith(("[train] resumed", "[train] done"))])
+    if not (equal and done2 == plain["done"] and backend == "nccl"
+            and "multi-host" not in "".join(outs) and "[eval]" in outs[0]
+            and "resumed" in outs[1] and "done: step=3" in outs[1]):
+        raise AssertionError("train_cli_dist: " + "\n".join(outs))
+
+
+def _state_gaps(whole, part, rows: slice) -> dict:
+    """Where an engine's state (rows `rows` of `whole`) and a smaller
+    engine's (`part`) part after the same steps: each leaf that differs,
+    by its path, with its largest difference (or count of differing
+    entries for integer leaves)."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+
+    def walk(path, a, b):
+        if isinstance(a, torch.Tensor):
+            a = a[rows]
+            if a.shape != b.shape:
+                return
+            if a.dtype.is_floating_point:
+                gap = float((a.float() - b.float()).abs().max())
+            else:
+                gap = int((a != b).sum())
+            if gap:
+                out[path] = gap
+        elif dataclasses.is_dataclass(a):
+            for f in dataclasses.fields(a):
+                walk(f"{path}.{f.name}", getattr(a, f.name), getattr(b, f.name))
+        elif isinstance(a, (tuple, list)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(f"{path}[{i}]", x, y)
+
+    walk("state", whole, part)
+    return out
+
+
+def _mesh_vs_single(bundle, scfg, mesh, clips, use_lm: bool,
+                    per_device: bool = False) -> dict:
+    """An engine of MESH_STREAMS over `mesh` against the single engine of
+    MESH_STREAMS on the same streams, step by step, and with `per_device`
+    also against single engines of each device's share of the slots (the
+    same shapes as the mesh's graphs): tokens and counts equal on every
+    slot against the engines the check holds (the per-device ones when
+    given, else the single one; the single engine's differing slots are
+    counted either way, and with `per_device` the state leaves where the
+    first device's engine parts from the single one after steps 1 and
+    2); replay ms of the single engine and of the mesh engine (every
+    device's graph in turn)."""
+    import numpy as np
+
+    from libreasr_tpu_torch.models.streaming import StreamingEngine
+
+    c, n = STREAM_CHUNK, MESH_STREAMS
+    d = mesh.size("data")
+    single = StreamingEngine(bundle, n_streams=n, scfg=scfg, use_lm=use_lm)
+    meshed = StreamingEngine(bundle, n_streams=n, scfg=scfg, use_lm=use_lm,
+                             mesh=mesh)
+    parts = [StreamingEngine(bundle, n_streams=n // d, scfg=scfg, use_lm=use_lm)
+             for _ in range(d)] if per_device else []
+    lengths = np.array([len(x) for x in clips])
+    steps = int(lengths.max()) // c
+    _reset_kernel_launches()
+    tokens, differ, gaps = 0, set(), {}
+    for k in range(steps):
+        chunks = np.zeros((n, 1, c), np.float32)
+        for i, x in enumerate(clips):
+            chunks[i, 0, : len(x[k * c:(k + 1) * c])] = x[k * c:(k + 1) * c]
+        valid = lengths >= (k + 1) * c
+        t1, l1 = single.step_batch(chunks, valid=valid)
+        t2, l2 = meshed.step_batch(chunks, valid=valid)
+        differ |= set(np.nonzero((l1 != l2) | (t1 != t2).any(1))[0].tolist())
+        if parts:
+            rows = [slice(i * (n // d), (i + 1) * (n // d)) for i in range(d)]
+            got = [e.step_batch(chunks[r], valid=valid[r]) for e, r in zip(parts, rows)]
+            t1 = np.concatenate([g[0] for g in got])
+            l1 = np.concatenate([g[1] for g in got])
+            if k < 2:
+                gaps[f"after_step_{k + 1}"] = _state_gaps(single.state,
+                                                          parts[0].state, rows[0])
+        if not (np.array_equal(l1, l2) and np.array_equal(t1, t2)):
+            rows = np.nonzero((l1 != l2) | (t1 != t2).any(1))[0]
+            raise AssertionError(f"streaming_mesh: step {k}, slots {rows.tolist()} "
+                                 "differ from the engines they are held to")
+        tokens += int(l2.sum())
+    launches = {k: v for k, v in _kernel_launches().items() if v}
+    if parts:
+        gaps["products_n_against_n_over_2"] = _gemm_rows(single, 0)
+    out = dict(steps=steps, tokens=tokens, kernel_launches=launches,
+               held_to="engines of N/D" if parts else f"the engine of {n}",
+               state_gaps_to_engine_of_n=gaps,
+               slots_differing_from_engine_of_n=sorted(differ),
+               replays_single=single.replays, replays_mesh=meshed.replays,
+               shards=len(meshed._shards),
+               replay_ms_single=cuda_ms(lambda: single._graph.replay(), reps=20),
+               **_mesh_replay_ms(meshed))
+    if launches or single.replays != steps or meshed.replays != steps * len(
+            meshed._shards) or not tokens:
+        raise AssertionError(f"streaming_mesh: {out}")
+    return out
+
+
+def _mesh_replay_ms(meshed, reps: int = 20) -> dict:
+    """The replay ms of every sub-engine's graph in turn: on CUDA events
+    when one card holds them all, else on the host's clock with every
+    card synchronized (the cards replay side by side)."""
+    import torch
+
+    devs = sorted({sh.device for sh in meshed._shards}, key=str)
+
+    def run():
+        for sh in meshed._shards:
+            with torch.cuda.device(sh.device):
+                sh._graph.replay()
+
+    if len(devs) == 1:
+        return dict(replay_ms_mesh=cuda_ms(run, reps=reps),
+                    replay_clock="cuda events")
+    run()
+    for d in devs:
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    for d in devs:
+        torch.cuda.synchronize(d)
+    return dict(replay_ms_mesh=(time.perf_counter() - t0) * 1e3 / reps,
+                replay_clock="host wall, every card synchronized")
+
+
+def _gemm_rows(engine, seed: int) -> dict:
+    """The products a streaming step runs on every stream, over the
+    engine's n streams against its first n/2 alone (seeded inputs): the
+    frontend's float32 DFT and mel products (`mel_chunk` on one chunk),
+    and the first encoder layer's recurrent product h @ R in bf16 and in
+    float32. For each: how many of those rows' elements differ, the
+    largest difference, and the kernels each launches (torch.profiler)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = engine.n
+    rng = np.random.default_rng(seed)
+    carry = torch.zeros((n, engine._sample_carry_len), device="cuda")
+    chunk = torch.from_numpy((rng.standard_normal((n, STREAM_CHUNK)) * 0.1)
+                             .astype(np.float32)).cuda()
+    r = engine.model.encoder.rnn_stack.layer(0).cell.params().recurrent_kernel.detach()
+    h = torch.from_numpy(rng.standard_normal((n, r.shape[0])).astype(np.float32)).cuda()
+    cases = {"frontend_float32": lambda k: engine.mel_chunk(carry[:k], chunk[:k])[0],
+             "recurrent_bfloat16": lambda k: h[:k].bfloat16() @ r.bfloat16(),
+             "recurrent_float32": lambda k: h[:k] @ r}
+    out = {}
+    for name, fn in cases.items():
+        got, names = {}, {}
+        for rows in (n, n // 2):
+            with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+                got[rows] = fn(rows)
+                torch.cuda.synchronize()
+            names[str(rows)] = sorted({
+                e.key[:90] for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and ("gemm" in e.key.lower() or "nvjet" in e.key or "splitK" in e.key)})
+        diff = (got[n][: n // 2].float() - got[n // 2].float()).abs()
+        out[name] = dict(rows=[n, n // 2], elements=int(diff.numel()),
+                         elements_differing=int((diff > 0).sum()),
+                         max_abs=float(diff.max()), gemm_kernels=names)
+    return out
+
+
+def phase_streaming_mesh(seed: int, card: str, devices=None) -> None:
+    """Engines of 64 streams over the mesh `devices` (default [cuda:0,
+    cuda:0]: two sub-engines of 32, two weight copies, two CUDA graphs;
+    [cuda:0, cuda:1] where two cards are visible) on the same ragged 3-6
+    s int16 streams: greedy on the model of 5 in bf16 against engines of
+    each device's share (a batch of 32 may take another cuBLAS kernel
+    than one of 64, and near-tied bf16 argmaxes part then: the slots
+    that differ from the engine of 64 are logged, with where the state
+    first parts and _gemm_rows's products at both batches); greedy, and
+    beam K 4 + LM, on the sharpened joint (_make_emitting) in float32
+    against the engine of 64. Tokens equal on every slot. Then
+    ASRServicer on a mesh engine of the golden char bundle (8 slots, 4 a
+    device): two streams exact."""
+    import dataclasses
+
+    import torch
+
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.config import parse_and_apply_config
+    from libreasr_tpu_torch.models.streaming import StreamingConfig, StreamingEngine
+    from libreasr_tpu_torch.parallel.mesh import make_mesh
+    from libreasr_tpu_torch.serving.server import ASRServicer
+
+    if devices is None:
+        devices = [f"cuda:{i % torch.cuda.device_count()}" for i in range(2)]
+    mesh = make_mesh(data=len(devices), devices=devices)
+    clips = _stream_clips(MESH_STREAMS, seed + 11)
+    conf = parse_and_apply_config(inference=True)
+    bundle = ASRBundle.from_config(conf, seed=seed, device="cuda")
+    scfg = StreamingConfig(sr=bundle.frontend.sr, transfer_dtype="int16",
+                           max_iters=conf["stream"]["max_iters"])
+    greedy = _mesh_vs_single(bundle, scfg, mesh, clips, use_lm=False,
+                             per_device=True)
+    del bundle
+    lm_bundle = _lm_bundle(seed, compute="float32")
+    _make_emitting(lm_bundle)
+    greedy32 = _mesh_vs_single(lm_bundle, scfg, mesh, clips, use_lm=False)
+    beam = _mesh_vs_single(lm_bundle, dataclasses.replace(
+        scfg, beam_width=BEAM_WIDTH, lm_alpha=LM_ALPHA), mesh, clips, use_lm=True)
+    del lm_bundle
+    torch.cuda.empty_cache()
+    audio = _golden_audio()
+    with tempfile.TemporaryDirectory() as tmp:
+        golden = ASRBundle.from_bundle(os.path.join(GOLDEN, "model.tar.gz"),
+                                       device="cuda", extract_to=tmp)
+        eng = StreamingEngine(golden, n_streams=8, mesh=mesh)
+        servicer = ASRServicer(golden, engine=eng)
+        try:
+            texts, _, _, errors = _stream_through(servicer, [audio[2], audio[3]])
+        finally:
+            servicer.stepper.shutdown()
+    log("streaming_mesh", card=card, mesh=mesh.shape,
+        devices=[str(d) for d in mesh.devices], n_streams=MESH_STREAMS,
+        greedy_bf16=greedy, greedy_float32_sharpened=greedy32,
+        beam_lm_float32_sharpened=beam, beam_width=BEAM_WIDTH,
+        serving_golden=texts, serving_replays=eng.replays, serving_steps=eng.steps,
+        errors=errors)
+    if texts != ["hello world", "stop now"] or errors \
+            or eng.replays != len(eng._shards) * eng.steps:
+        raise AssertionError(f"streaming_mesh serving: {texts} {errors}")
+
+
+def phase_import_reference(seed: int, card: str) -> None:
+    """A seeded state_dict in the reference's layout at base.yaml's
+    shapes (6x1024 LSTM encoder with batch norms, 2-layer NBRC predictor,
+    joint 1024, V 2048) and a youtokentome model of 2048 ids, packed as
+    the reference's release tar.gz and imported by the port's script on
+    the card: transcribe_batch on the 16 clips of 5 launches B once per
+    encoder layer; the encoder output against the same bundle on the CPU
+    within ENC_TOL; the bundle reloaded transcribes the same."""
+    import copy
+    import tarfile
+
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.compat.yttm_import import write_yttm_model
+    from libreasr_tpu_torch.scripts import import_reference
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from helpers.reference_layout import reference_state_dict, yttm_vocabulary
+
+    t_pack = time.perf_counter()
+    sd = reference_state_dict(np.random.default_rng(seed), **REF_SHAPES)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "en")
+        os.makedirs(d)
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                   os.path.join(d, "model.pth"))
+        del sd
+        write_yttm_model(os.path.join(d, "tokenizer.yttm-model"),
+                         *yttm_vocabulary(REF_SHAPES["vocab_sz"]))
+        archive = os.path.join(tmp, "libreasr-model-en.tar.gz")
+        with tarfile.open(archive, "w:gz", compresslevel=1) as tar:
+            tar.add(d, arcname="en")
+        out = os.path.join(tmp, "imported.tar.gz")
+        pack_s = time.perf_counter() - t_pack
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            import_reference.main(["--archive", archive, "--out", out, "--config",
+                                   os.path.join(HERE, "config", "base.yaml")])
+        import_s = time.perf_counter() - t0
+        bundle = ASRBundle.from_bundle(out, device="cuda",
+                                       extract_to=os.path.join(tmp, "x"))
+        cfg = bundle.cfg
+        audio, lengths, _, _, feats, flens = _full_width_clips(bundle, seed)
+        (texts, _), launches = _counted(lambda: bundle.transcribe_batch(audio, lengths))
+        enc_cuda, _ = bundle.encode(feats, flens)
+        cpu = ASRBundle(bundle.conf, copy.deepcopy(bundle.model).cpu(), bundle.lang,
+                        torch.device("cpu"))
+        enc_cpu, _ = cpu.encode(feats.cpu(), flens.cpu())
+        diff = (enc_cuda.float().cpu() - enc_cpu.float()).abs()
+        enc_err = {"max_abs": float(diff.max()), "mean_abs": float(diff.mean())}
+        again = ASRBundle.from_bundle(out, device="cuda",
+                                      extract_to=os.path.join(tmp, "y"))
+        texts2, _ = again.transcribe_batch(audio, lengths)
+        want = {"lstm_seq_cseq": cfg.enc_num_layers}
+        log("import_reference", card=card, pack_s=pack_s, import_s=import_s,
+            phase_s=time.perf_counter() - t_pack,
+            enc_layers=cfg.enc_num_layers, hidden=cfg.hidden_sz,
+            pred=[cfg.pred_num_layers, cfg.pred_rnn_type], joint=cfg.joint_sz,
+            vocab=cfg.vocab_sz, tokenizer_vocab=len(bundle.lang),
+            compute_dtype=str(cfg.compute_dtype), launches=launches,
+            expected_launches=want, enc_cuda_vs_cpu=enc_err, tol_max=ENC_TOL_MAX,
+            tol_mean=ENC_TOL_MEAN, texts_sample=texts[:2],
+            reloaded_texts_equal=texts2 == texts,
+            chars=sum(len(t) for t in texts))
+        if launches != want or texts2 != texts \
+                or len(bundle.lang) != REF_SHAPES["vocab_sz"] \
+                or not bool(torch.isfinite(enc_cuda).all()) \
+                or enc_err["max_abs"] > ENC_TOL_MAX \
+                or enc_err["mean_abs"] > ENC_TOL_MEAN:
+            raise AssertionError(f"import_reference: launches {launches}, "
+                                 f"encoder {enc_err}, reloaded {texts2 == texts}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3560,7 +4093,7 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_train_small_cuda_vs_cpu(args.seed)
     torch.cuda.synchronize()
-    phase_train_cli(args.seed, card)
+    plain_cli = phase_train_cli(args.seed, card)
     torch.cuda.synchronize()
     phase_options_full_width(args.seed, card)
     torch.cuda.synchronize()
@@ -3598,12 +4131,23 @@ def main() -> int:
     phase_soak(card)
     torch.cuda.synchronize()
     new_s = time.perf_counter() - t_new
+    t_dist = time.perf_counter()
+    phase_dist_train_full_width(args.seed, card)
+    torch.cuda.synchronize()
+    phase_train_cli_dist(args.seed, card, plain_cli)
+    del plain_cli
+    torch.cuda.synchronize()
+    phase_streaming_mesh(args.seed, card)
+    torch.cuda.synchronize()
+    phase_import_reference(args.seed, card)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t_dist
     rows += joint_rows(args.seed, worst_joint, launches)
     rows += train_kernel_rows(args.seed, worst_train, launches)
     torch.cuda.synchronize()
     # every phase, the build included, and the two tone phases' share
     log("wall", seconds=time.perf_counter() - t_start, tone_phases_seconds=tone_s,
-        data_ctc_lm_soak_seconds=new_s)
+        data_ctc_lm_soak_seconds=new_s, dist_mesh_import_seconds=dist_s)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -98,7 +98,9 @@ def save_bundle(out_path: str, lang_name: str, variables: dict, conf: dict,
             shutil.copy(tokenizer_file, os.path.join(d, "tokenizer.labpe-model"))
         with open(os.path.join(d, "config.json"), "w") as f:
             json.dump(conf, f, indent=2)
-        with tarfile.open(out_path, "w:gz") as tar:
+        # gzip's fastest level: float weights barely compress, and level
+        # 9 spends ~15 s on a full-width model for the same bytes within %
+        with tarfile.open(out_path, "w:gz", compresslevel=1) as tar:
             tar.add(d, arcname=lang_name)
     return out_path
 

@@ -38,6 +38,7 @@ from ..ops import rnn as rnn_ops
 from ..ops.kernels.lstm import lstm_pack, pack_k4
 from ..ops.kernels.lstm_train import lstm_pack_train
 from ..ops.quant import QuantizedTensor, int8_matmul, quantize
+from ..parallel.rows import draw_rows
 
 # shortest sequence the sequence kernel takes; shorter ones (streaming
 # chunks, the predictor's single steps) run on the scan cells, as in
@@ -66,7 +67,8 @@ def dropout(x, rate: float, generator):
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    u = draw_rows(lambda shape: torch.rand(shape, generator=generator,
+                                           device=generator.device), x.shape)
     return torch.where(u.to(x.device) < keep, x / keep, torch.zeros_like(x))
 
 
@@ -288,12 +290,19 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over features (the JAX package's MaskedBatchNorm). In
     eval it normalises with the running statistics; in training with the
     batch statistics of the valid frames (t < length), and moves the
-    running statistics to m * running + (1 - m) * batch, m = momentum."""
+    running statistics to m * running + (1 - m) * batch, m = momentum.
+
+    `group` (a process group, set by a data-parallel Learner): the
+    batch statistics are those of the global batch, as under JAX's
+    GSPMD: the masked sums and counts are all-reduced over the group
+    (autograd-aware: the sums' gradients are all-reduced too), so the
+    running statistics are equal on every rank. Without a group the module is the single-process one."""
 
     def __init__(self, feat, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.group = None
         self.scale = nn.Parameter(torch.ones(feat))
         self.bias = nn.Parameter(torch.zeros(feat))
         self.register_buffer("mean", torch.zeros(feat))
@@ -303,7 +312,9 @@ class MaskedBatchNorm(nn.Module):
         mean, var = self.mean, self.var
         if self.training:
             xf = x.float()
-            if lengths is None:
+            if self.group is not None:
+                mean, var = self._global_moments(xf, lengths)
+            elif lengths is None:
                 mean = xf.mean(dim=(0, 1))
                 var = xf.var(dim=(0, 1), unbiased=False)
             else:
@@ -318,6 +329,24 @@ class MaskedBatchNorm(nn.Module):
                 self.var.copy_(m * self.var + (1.0 - m) * var)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return (y * self.scale + self.bias).to(x.dtype)
+
+    def _global_moments(self, xf, lengths):
+        """Mean and (biased) variance of the valid frames of every rank's
+        rows: the single-process formulas on all-reduced sums."""
+        from ..parallel.collectives import AllReduceSum
+
+        def all_reduce(x, group):
+            return AllReduceSum.apply(x, group)
+
+        if lengths is None:
+            mask = torch.ones(xf.shape[:2] + (1,), device=xf.device)
+        else:
+            mask = (torch.arange(xf.shape[1], device=xf.device)[None, :]
+                    < lengths[:, None]).float()[..., None]
+        denom = torch.clamp(all_reduce(mask.sum(), group=self.group), min=1.0)
+        mean = all_reduce((xf * mask).sum(dim=(0, 1)), group=self.group) / denom
+        sq = ((xf - mean) ** 2 * mask).sum(dim=(0, 1))
+        return mean, all_reduce(sq, group=self.group) / denom
 
 
 class RNNStack(nn.Module):

@@ -28,12 +28,19 @@ rounds a frame (beam_frame, LM state per beam) and keeps each beam's
 uncommitted tokens across steps, in a [N, K, beam_buf_tokens] buffer: a
 step emits the prefix every live beam agrees on, so partials never
 retract, and `flush_slot` commits the best beam's tail when a stream
-ends. Multi-GPU sharding is not ported; asking for it raises
-NotImplementedError.
+ends.
+
+Over a mesh (`mesh=make_mesh(data=D, devices=[...])`, the device-list
+form) the streams shard over the data axis, as JAX's engine shards them:
+one sub-engine a device, with its own copy of the weights, its own
+state and, on the card, its own CUDA graph; slot s lives on device
+s // (N / D). A step dispatches every device's replay before it
+collects any. The host side (slots, buffers, outboxes) stays one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Any
@@ -52,8 +59,6 @@ from .transducer import learnable_states
 # (powers of two; the last is its cap)
 CHAIN_DEPTHS = (2, 4, 8)
 
-_MESH = ("a StreamingEngine sharded over several devices is not ported "
-         "yet (ROADMAP.md queue 1 item 7)")
 
 
 @dataclass(frozen=True)
@@ -196,6 +201,37 @@ class StreamState:
         return _tree_map(torch.clone, self)
 
 
+class _Joined:
+    """The outputs of every device of a mesh engine, joined along the
+    streams in slot order once each has landed."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def numpy(self) -> np.ndarray:
+        return np.concatenate([p.numpy() for p in self.parts], axis=1)
+
+
+def _bundle_on(bundle, device):
+    """A copy of `bundle` whose model (and LM) lives on `device`."""
+    import copy
+
+    model = copy.deepcopy(bundle.model).to(device)
+    lm = None if bundle.lm is None else copy.deepcopy(bundle.lm).to(device)
+    return type(bundle)(bundle.conf, model, bundle.lang, device, lm)
+
+
+def _on_device(device: torch.device):
+    """Make `device` the current card while a sub-engine enqueues work
+    (a no-op on the CPU), so that the streams, events and graph captures
+    made meanwhile belong to the card that holds its tensors."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 class _Outputs:
     """The packed outputs [k, N, K+1] int32 of k sub-steps, in host
     memory (pinned on the card) once `done` has passed; `staging` keeps
@@ -221,9 +257,10 @@ class StreamingEngine:
                  mesh=None):
         """use_lm: fuse the bundle's LM (greedy: standardized, alpha 0.1;
         beam: log-linear, scfg.lm_alpha); as in JAX, a bundle without an
-        LM decodes without."""
-        if mesh is not None:
-            raise NotImplementedError(f"libreasr_tpu_torch: {_MESH}")
+        LM decodes without. mesh: a device-list mesh whose data axis
+        divides n_streams."""
+        if mesh is not None and n_streams % mesh.size("data"):
+            raise AssertionError("n_streams must divide the data axis")
         self.bundle = bundle
         self.n = n_streams
         self.scfg = scfg or StreamingConfig(sr=bundle.frontend.sr)
@@ -248,6 +285,25 @@ class StreamingEngine:
         # (quantize) is refused, never served the old weights
         self.model = bundle.model
         self.fns = bundle.decoder_fns(use_lm=use_lm)
+        self.mesh = mesh
+        self.replays = 0  # CUDA graph replays (every step on the card)
+        self.steps = 0    # device steps run
+        self._shards = None
+        if mesh is None:
+            with _on_device(self.device):
+                self._init_device()
+        else:
+            grid = mesh.device_grid()
+            per = n_streams // mesh.size("data")
+            self._shards = [
+                StreamingEngine(_bundle_on(bundle, grid[i, 0, 0]), per,
+                                self.scfg, use_lm)
+                for i in range(mesh.size("data"))]
+        self._init_host()
+
+    def _init_device(self) -> None:
+        """The step's device side: weights' views, static inputs, the
+        stream state, the packed output and the graph."""
         (self._frames_per_chunk, _, self._sample_carry_len,
          self._mel_carry_len) = _stream_geometry(self.frontend,
                                                  self.scfg.chunk_samples)
@@ -267,8 +323,6 @@ class StreamingEngine:
         self._flags = torch.zeros((2, self.n), dtype=torch.bool,
                                   device=self.device)
         self._valid, self._reset = self._flags[0], self._flags[1]
-        self.replays = 0  # CUDA graph replays (every step on the card)
-        self.steps = 0    # device steps run
         with torch.no_grad():
             self.state = self._init_state()
             # BOS-primed decode state: the reset template (read only)
@@ -279,6 +333,7 @@ class StreamingEngine:
                                        device=self.device)
         self._graph = self._capture() if self.device.type == "cuda" else None
 
+    def _init_host(self) -> None:
         # host-side slot bookkeeping. PCM lives in ONE [N, cap] ring
         # matrix with per-slot head/tail offsets: dispatch copies every
         # ready slot's chunk with one slice per slot, append is an
@@ -454,7 +509,10 @@ class StreamingEngine:
                     self._step_in_place()
             torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            # a capture stream of this card: torch.cuda.graph's default
+            # one is made once, on whichever card was current then
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.device),
+                                  capture_error_mode="thread_local"):
                 self._step_in_place()
         torch.cuda.synchronize(self.device)
         return graph
@@ -479,6 +537,19 @@ class StreamingEngine:
             raise RuntimeError(
                 "libreasr_tpu_torch: the bundle's model changed (quantize?) "
                 "after this StreamingEngine was built; build a new engine")
+        if self._shards is not None:
+            # every device's replays are enqueued before any is collected
+            per = self.n // len(self._shards)
+            chunks = np.asarray(chunks)
+            valid, reset = np.asarray(valid, bool), np.asarray(reset, bool)
+            parts = []
+            for i, sh in enumerate(self._shards):
+                rows = slice(i * per, (i + 1) * per)
+                parts.append(sh._run_chain(k, chunks[:, rows], valid[:, rows],
+                                           reset[:, rows]))
+            self.replays = sum(sh.replays for sh in self._shards)
+            self.steps += k
+            return _Joined(parts)
         cuda = self.device.type == "cuda"
         ch = torch.from_numpy(self._encode_chunks(chunks))
         fl = torch.from_numpy(np.stack([np.asarray(valid, bool),
@@ -487,7 +558,7 @@ class StreamingEngine:
             ch, fl = ch.pin_memory(), fl.pin_memory()
         host = torch.empty((k, self.n, self._packed.shape[1]), dtype=torch.int32,
                            pin_memory=cuda)
-        with torch.no_grad():
+        with torch.no_grad(), _on_device(self.device):
             for j in range(k):
                 # sub-step j's inputs into the step's static buffers; on
                 # the card these are stream-ordered async copies
@@ -500,10 +571,10 @@ class StreamingEngine:
                     self._step_in_place()
                 self.steps += 1
                 host[j].copy_(self._packed, non_blocking=True)
-        done = None
-        if cuda:
-            done = torch.cuda.Event()
-            done.record()
+            done = None
+            if cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
         return _Outputs(host, done, (ch, fl))
 
     def _step_device(self, chunks, valid=None, reset=None) -> _Outputs:
@@ -563,11 +634,15 @@ class StreamingEngine:
                 f"flush_slot({slot}): {int(self._inflight[slot])} dispatched "
                 "step(s) of this slot are not collected yet")
         self._flushed[slot] = True
-        beam = self.state.decode
-        best = int(torch.argmax(beam.scores[slot]))
-        n_rest = int(beam.y_len[slot, best])
+        owner, row = self, slot
+        if self._shards is not None:
+            owner, row = divmod(slot, self.n // len(self._shards))
+            owner = self._shards[owner]
+        beam = owner.state.decode
+        best = int(torch.argmax(beam.scores[row]))
+        n_rest = int(beam.y_len[row, best])
         if n_rest > 0:
-            ids = beam.y_buf[slot, best, :n_rest].tolist()
+            ids = beam.y_buf[row, best, :n_rest].tolist()
             eos = getattr(self.bundle.lang, "eos", None)
             if eos is not None and eos in ids:
                 ids = ids[: ids.index(eos)]

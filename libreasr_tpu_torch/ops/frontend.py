@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.rows import draw_rows
+
 
 def hz_to_mel(f):
     return 2595.0 * np.log10(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
@@ -253,7 +255,8 @@ class FrontendConfig:
         dev = generator.device
 
         def randint(high, shape):
-            return torch.randint(0, high, shape, generator=generator, device=dev)
+            return draw_rows(lambda full: torch.randint(
+                0, high, full, generator=generator, device=dev), shape)
 
         cut = self.cut_max_front or self.cut_max_back
         return AugmentDraws(

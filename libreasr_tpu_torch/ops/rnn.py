@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.rows import draw_rows
 from .quant import QuantizedTensor, int8_matmul
 
 
@@ -124,7 +125,8 @@ def _zoneout_masks(p, training, t, n, h, generator, masks, device):
         return masks.to(device=device, dtype=torch.float32)
     if generator is None:
         raise ValueError("zoneout in training needs a torch.Generator")
-    return _bernoulli(1.0 - p, (t, n, h), generator, device)
+    return draw_rows(lambda shape: _bernoulli(1.0 - p, shape, generator, device),
+                     (t, n, h), dim=1)
 
 
 def _zoneout(h_new, h_old, p: float, mask, training: bool):

@@ -5,7 +5,16 @@ checkpoint, and exports a release bundle.
 
     python -m libreasr_tpu_torch.train --config config/base.yaml \\
         [--lang en] [--steps N] [--ckpt tmp/ckpt] [--bundle-out model.tar.gz] \\
-        [--device cuda] [--platform cpu|gpu|cuda] [--chain-steps K]
+        [--device cuda] [--platform cpu|gpu|cuda] [--chain-steps K] \\
+        [--mesh-model M] [--pp P] [--pp-micro K] \\
+        [--dist-coordinator host:port --dist-procs N --dist-pid I]
+
+Several GPUs: one process each, started by torchrun
+
+    torchrun --nproc-per-node N -m libreasr_tpu_torch.train --config ...
+
+or by hand with the --dist-* flags (every process runs the CLI with the
+same arguments and its own --dist-pid).
 
 Runs on the card unless `--device cpu` (or `--platform cpu`, the JAX
 CLI's flag) is given. With `train_tokenizer` set, it first trains the
@@ -17,8 +26,19 @@ and `reduce_on_plateau` feeds the loss to the optimizer. A config with
 `model.name: CTCModel` trains the CTC family instead (training/
 ctc_learner.py), as the JAX CLI does: epochs up to --steps, a greedy
 CTC eval of --eval-batches batches after each, with no checkpoint and
-no bundle. The JAX CLI's pipeline and tensor parallelism and multi-host
-training are not ported: their flags raise.
+no bundle.
+
+With more than one process the run trains on a mesh over them
+(parallel/mesh.py; the CTC family takes none, as in JAX): data-parallel
+over the processes, with --mesh-model M a model axis and with --pp P
+GPipe stages of the encoder (which sets the encoder's norm to "none",
+use_tmp_state_pcent to 0 and the fused loss, as the JAX CLI does).
+Bucket batch sizes round up to the data axis and ragged last batches
+are dropped; each process takes its rows of every global batch; chains
+are 1; only rank 0 prints and logs. The run ends with a checkpoint and
+the `[train] done (multi-host)` line, without an eval or a bundle (eval
+runs in one process on the checkpoint). NCCL on the card, gloo with
+--device cpu; a failed NCCL start raises.
 """
 
 from __future__ import annotations
@@ -28,9 +48,6 @@ import json
 import os
 import time
 
-# flags of the JAX CLI this port does not implement, with their defaults
-_UNPORTED = {"mesh_model": 0, "pp": 0, "pp_micro": 4,
-             "dist_coordinator": "", "dist_procs": 0, "dist_pid": 0}
 # --platform values (the JAX CLI's jax platform names) -> torch devices
 _PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
@@ -54,15 +71,17 @@ def parse_args(argv=None):
                    help="cpu, or gpu/cuda for the card (overrides --device)")
     p.add_argument("--chain-steps", type=int, default=1,
                    help="run K same-bucket train steps as one chain")
-    for name, default in _UNPORTED.items():
-        p.add_argument("--" + name.replace("_", "-"), type=type(default),
-                       default=default, help=argparse.SUPPRESS)
+    p.add_argument("--mesh-model", type=int, default=0,
+                   help="model (tensor-parallel) axis size")
+    p.add_argument("--pp", type=int, default=0,
+                   help="pipeline stages for the encoder's LSTM tail")
+    p.add_argument("--pp-micro", type=int, default=4,
+                   help="GPipe microbatches per --pp step")
+    p.add_argument("--dist-coordinator", default="",
+                   help="host:port (or an init URL) of a multi-process run")
+    p.add_argument("--dist-procs", type=int, default=0)
+    p.add_argument("--dist-pid", type=int, default=0)
     args = p.parse_args(argv)
-    for name, default in _UNPORTED.items():
-        if getattr(args, name) != default:
-            raise NotImplementedError(
-                f"libreasr_tpu_torch.train: --{name.replace('_', '-')} is not "
-                "ported (ROADMAP)")
     if args.platform:
         if args.platform.lower() not in _PLATFORMS:
             raise ValueError(f"libreasr_tpu_torch.train: --platform "
@@ -87,8 +106,23 @@ def main(argv=None):
                                       save_train_state)
     from .training.learner import Learner
 
+    from .parallel import distributed as dist
+
     device = resolve_device(args.device)
+    if args.dist_coordinator or "WORLD_SIZE" in os.environ:
+        dist.initialize(args.dist_coordinator or None, args.dist_procs,
+                        args.dist_pid, device=device.type)
+        device = dist.local_device(device)
+    multiproc, rank0 = dist.process_count() > 1, dist.process_index() == 0
     conf = parse_and_apply_config(lang=args.lang, path=args.config)
+    if args.mesh_model:
+        conf.setdefault("mesh", {})["model"] = args.mesh_model
+    if args.pp > 1:
+        conf.setdefault("mesh", {})["pipe"] = args.pp
+        # what the pipeline can express exactly (PPConfig)
+        conf["model"]["encoder"]["norm"] = "none"
+        conf["model"]["encoder"]["use_tmp_state_pcent"] = 0.0
+        conf.setdefault("loss", {})["fused"] = True
     family = conf["model"].get("name", "Transducer")
     if family not in ("Transducer", "CTCModel"):
         raise ValueError(f"libreasr_tpu_torch.train: unknown model.name {family!r}")
@@ -100,31 +134,64 @@ def main(argv=None):
     lang, vocab_sz = get_language(model_file=tok_file if use_bpe else None)
     conf["model"]["vocab_sz"] = max(conf["model"]["vocab_sz"], vocab_sz)
 
+    # the mesh first: batch sizes must divide its data axis
+    mesh = None
+    if multiproc and family != "CTCModel":
+        from .parallel.mesh import mesh_from_config
+
+        mesh = mesh_from_config(conf)
+        data_ax = mesh.size("data")
+        for b in conf.get("buckets", []) or []:
+            if b["bs"] % data_ax:
+                b["bs"] = -(-b["bs"] // data_ax) * data_ax
+                _say(rank0, f"[train] bucket bs rounded to {b['bs']} "
+                     f"(data axis {data_ax})")
+        conf["drop_last"] = True  # ragged leftovers don't split
+        _say(rank0, f"[train] mesh: {dict(mesh.shape)}")
+
     train_ds = ASRDataset.from_config(conf, lang, "train")
     valid_ds = ASRDataset.from_config({**conf, "drop_last": False}, lang, "valid")
-    print(f"[train] train={train_ds.builder.stats()} valid={len(valid_ds.builder)}")
+    _say(rank0, f"[train] train={train_ds.builder.stats()} "
+         f"valid={len(valid_ds.builder)}")
     if family == "CTCModel":
         return _train_ctc(args, conf, lang, train_ds, valid_ds, device)
 
     tconf = conf.get("training", {}) or {}
     run_conf = {**conf, "training": {
         **tconf, "total_steps": args.steps or tconf.get("total_steps", 100_000)}}
-    learner = Learner.from_config(run_conf, device=device)
+    learner = Learner.from_config(run_conf, device=device, mesh=mesh,
+                                  pp_micro=args.pp_micro)
+    if learner.pp is not None:
+        _say(rank0, f"[train] pipeline parallelism: {args.pp} stages x "
+             f"{args.pp_micro} microbatches")
+    if multiproc:
+        _say(rank0, f"[train] multi-host: {dist.process_count()} processes, "
+             f"mesh {dict(mesh.shape)}")
 
     start_step = 0
     if os.path.exists(os.path.join(args.ckpt, STATE_FILE)):
         start_step = restore_train_state(args.ckpt, learner)
-        print(f"[train] resumed from {args.ckpt} at step {start_step}")
-    logger = TrainLogger(args.logdir)
-    _restore_best_wer_bar(logger, args.ckpt, start_step)
+        _say(rank0, f"[train] resumed from {args.ckpt} at step {start_step}")
+    logger = TrainLogger(args.logdir) if rank0 else None
+    if rank0:
+        _restore_best_wer_bar(logger, args.ckpt, start_step)
 
     def run_eval(step):
         return _run_eval(learner, lang, valid_ds, logger, step,
                          args.eval_batches, args.ckpt)
 
+    last: dict = {}
     step = _train_loop(args, conf, learner, train_ds, logger, start_step,
-                       run_eval)
+                       run_eval, mesh, last)
     save_train_state(os.path.abspath(args.ckpt), learner)
+    if multiproc:
+        # eval decodes in one program: leave WER to a single-process run
+        # on the checkpoint, as the JAX CLI does
+        if rank0:
+            logger.close()
+            loss = float(last["metrics"]["loss"]) if last else float("nan")
+            print(f"[train] done (multi-host): step={step} loss={loss:.3f}")
+        return
     result = run_eval(step)
     if args.bundle_out:
         save_bundle(args.bundle_out, args.lang or "en",
@@ -135,24 +202,35 @@ def main(argv=None):
     print(f"[train] done: step={step} wer={result.wer:.3f} cer={result.cer:.3f}")
 
 
-def _train_loop(args, conf, learner, train_ds, logger, step, run_eval) -> int:
+def _say(rank0: bool, msg: str) -> None:
+    if rank0:
+        print(msg, flush=True)
+
+
+def _train_loop(args, conf, learner, train_ds, logger, step, run_eval,
+                mesh=None, last=None) -> int:
     """Epochs over the training set until --steps (or the config's
     epochs); evaluates every --eval-every steps (default: tests_per_epoch
     times an epoch, counted on the first epoch) and checkpoints at epoch
     ends at most every --ckpt-every-s seconds. With --chain-steps K,
     batches wait in one buffer per (audio, label) shape, across epochs,
     until K of them run as one chain; what is left after the last epoch
-    steps singly. Returns the last step."""
+    steps singly. On a mesh each process steps on its rows of every
+    batch, singly, with no eval; rank 0 logs and decides when to
+    checkpoint. Returns the last step; `last` (a dict) gets its metrics."""
+    from .parallel import distributed as dist
+    from .parallel.mesh import shard_batch
     from .training.checkpoint import save_train_state
 
+    metrics = None
     if args.steps and step >= args.steps:
         return step
     epochs = 10**9 if args.steps else (conf.get("training") or {}).get("epochs", 20)
     eval_every = args.eval_every if args.eval_every > 0 else None
-    chain_k = max(args.chain_steps, 1)
+    chain_k = max(args.chain_steps, 1) if mesh is None else 1
+    rank0 = dist.process_index() == 0
     pending: dict = {}
     t0 = last_save = time.time()
-    metrics = None
 
     def run_chunk(chunk) -> bool:
         """Step through `chunk` (cut at --steps): chained when it is K
@@ -164,10 +242,14 @@ def _train_loop(args, conf, learner, train_ds, logger, step, run_eval) -> int:
             metrics = learner.step_chained(chunk)
         else:
             for b in chunk:
-                metrics = learner.step(b)
+                metrics = learner.step(b if mesh is None else dist.global_batch(
+                    mesh, shard_batch(mesh, b), learner.device))
+        if last is not None:
+            last["metrics"] = metrics
         prev, step = step, step + len(chunk)
-        logger.log_step(step, metrics, chunk[-1], prev_step=prev)
-        if step // eval_every > prev // eval_every:
+        if logger is not None:
+            logger.log_step(step, metrics, chunk[-1], prev_step=prev)
+        if mesh is None and step // eval_every > prev // eval_every:
             run_eval(step)
         return bool(args.steps) and step >= args.steps
 
@@ -195,9 +277,12 @@ def _train_loop(args, conf, learner, train_ds, logger, step, run_eval) -> int:
                 "paths, the bucket ladder and the limits")
         loss = "n/a (no chain filled yet)" if metrics is None else \
             f"{float(metrics['loss']):.3f}"
-        print(f"[train] epoch {epoch} done step={step} loss={loss} "
-              f"({time.time() - t0:.0f}s)", flush=True)
-        if time.time() - last_save >= args.ckpt_every_s:
+        _say(rank0, f"[train] epoch {epoch} done step={step} loss={loss} "
+             f"({time.time() - t0:.0f}s)")
+        due = time.time() - last_save >= args.ckpt_every_s
+        if mesh is not None:  # every rank joins the collective save or none
+            due = dist.rank0_says(due, learner.device)
+        if due:
             save_train_state(os.path.abspath(args.ckpt), learner)
             last_save = time.time()
     for buf in pending.values():

@@ -25,6 +25,13 @@ containers of them, held by the caller (the Learner).
 - warmup_cosine_decay_schedule, optax's, and make_lr_schedule, the
   training config's use of it.
 
+On a mesh a rank may hold a column block of a tensor (the model axis)
+or only its pipe stage's tensors. The Learner then passes `spread`
+(a Spread) among the extra arguments, and every reduction over a whole
+tensor or over all tensors (the global norm of clipping, LAMB's trust
+ratio, apollo's secant sums) sums its parts over the ranks that hold
+them; elementwise updates need nothing.
+
 Scalars (bias corrections, the radam rectifier, the schedule) are
 computed in float64 on the host; optax computes them in float32 on the
 device, so updates agree to float32 rounding, not bit for bit.
@@ -49,13 +56,61 @@ def _lr_at(lr, count: int) -> float:
     return float(lr(count)) if callable(lr) else float(lr)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+@dataclass(frozen=True)
+class Spread:
+    """Where the parts of a rank's tensors (by index in the parameter
+    list) live: the `sharded` ones are column blocks over `model_group`;
+    the `staged` ones belong to this rank's pipe stage, and the other
+    stages of `pipe_group` hold the rest of the model's."""
+
+    model_group: Any = None
+    sharded: frozenset = frozenset()
+    pipe_group: Any = None
+    staged: frozenset = frozenset()
+
+    @torch.no_grad()
+    def tensor_sum(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """A sum over tensor i's elements, given this rank's part's."""
+        if i in self.sharded and self.model_group is not None:
+            return self._sum(x, self.model_group)
+        return x
+
+    @torch.no_grad()
+    def total(self, sums: list) -> torch.Tensor:
+        """The sum over every tensor of the model, given each of this
+        rank's tensors' (part's) sum: replicated tensors once, column
+        blocks over the model group, stage tensors over the pipe group."""
+        zero = torch.zeros((), device=sums[0].device) if sums else torch.zeros(())
+        rep = sum((s for i, s in enumerate(sums)
+                   if i not in self.sharded and i not in self.staged), zero)
+        parts = torch.stack([
+            sum((s for i, s in enumerate(sums) if i in self.sharded), zero),
+            sum((s for i, s in enumerate(sums) if i in self.staged), zero)])
+        if self.model_group is not None:
+            parts[0] = self._sum(parts[0], self.model_group)
+        if self.pipe_group is not None:
+            parts[1] = self._sum(parts[1], self.pipe_group)
+        return rep + parts[0] + parts[1]
+
+    @staticmethod
+    def _sum(x, group):
+        import torch.distributed as dist
+
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+
+def global_norm(tensors, spread: Spread | None = None) -> torch.Tensor:
+    if spread is None:
+        return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    return torch.sqrt(spread.total([torch.sum(t.float() * t.float())
+                                    for t in tensors]))
 
 
 def clip_by_global_norm(max_norm: float) -> Transform:
-    def update(grads, state, params=None, **extra):
-        norm = global_norm(grads)
+    def update(grads, state, params=None, *, spread=None, **extra):
+        norm = global_norm(grads, spread)
         # optax: (t / norm) * max_norm past the limit, t itself below it
         clipped = [torch.where(norm < max_norm, g, (g / norm) * max_norm)
                    for g in grads]
@@ -209,10 +264,14 @@ def adabelief(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-16,
     return Transform(_zeros_state, update)
 
 
-def _trust_ratio(u, p):
+def _trust_ratio(u, p, i: int = 0, spread: Spread | None = None):
     """optax.scale_by_trust_ratio: u * |p| / |u|, or u where either norm
-    is 0."""
-    pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+    is 0 (the norms of the whole tensors under a `spread`)."""
+    if spread is None:
+        pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+    else:
+        pn, un = (torch.sqrt(spread.tensor_sum(i, torch.sum(t * t)))
+                  for t in (p, u))
     ratio = torch.where((pn == 0.0) | (un == 0.0), torch.ones_like(pn), pn / un)
     return u * ratio
 
@@ -223,10 +282,10 @@ def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
     scaled per tensor by the trust ratio, then by the learning rate."""
     direction = adam(-1.0, b1=b1, b2=b2, eps=eps)  # rate -1: m_hat / (sqrt(v_hat) + eps)
 
-    def update(grads, state, params, **extra):
+    def update(grads, state, params, *, spread=None, **extra):
         ups, new = direction.update(grads, state, params)
-        ups = [_trust_ratio(u + weight_decay * p, p)
-               for u, p in zip(ups, params)]
+        ups = [_trust_ratio(u + weight_decay * p, p, i, spread)
+               for i, (u, p) in enumerate(zip(ups, params))]
         step = -_lr_at(lr, state["count"])
         return [step * u for u in ups], new
 
@@ -255,16 +314,22 @@ def apollo(lr, beta: float = 0.9, eps: float = 1e-4, rebound: float = 0.01,
                 **{k: [torch.zeros_like(p) for p in params]
                    for k in ("exp_avg_grad", "approx_hessian", "update_prev")}}
 
-    def update(grads, state, params=None, **extra):
+    def update(grads, state, params=None, *, spread=None, **extra):
         count = state["count"] + 1
         bc = 1.0 - beta ** count
         ms, bs, ds = [], [], []
-        for g, m, b, d in zip(grads, state["exp_avg_grad"],
-                              state["approx_hessian"], state["update_prev"]):
+
+        def tsum(i, x):
+            s = torch.sum(x)
+            return s if spread is None else spread.tensor_sum(i, s)
+
+        for i, (g, m, b, d) in enumerate(zip(
+                grads, state["exp_avg_grad"], state["approx_hessian"],
+                state["update_prev"])):
             delta_m = (g - m) * (1.0 - beta) / bc
             m_new = m + delta_m
-            denom4 = torch.sum(d ** 4) + eps
-            alpha = (torch.sum(d * delta_m) - torch.sum(d * b * d)) / denom4
+            denom4 = tsum(i, d ** 4) + eps
+            alpha = (tsum(i, d * delta_m) - tsum(i, d * b * d)) / denom4
             b_new = b - alpha * d * d
             ms.append(m_new)
             bs.append(b_new)

@@ -10,7 +10,8 @@ transcribe_batch and one encode with torch.profiler. Prints one JSON
 line per traced call: host wall time, summed device kernel time, the
 device's idle share (1 - kernel time / wall time; the port runs on one
 stream, so kernels do not overlap), kernel launches, and the kernels
-with the most device time. Labelled with the card's name and power
+with the most device time, and the host operators with the most self
+time. Labelled with the card's name and power
 limit. Needs CUDA.
 """
 
@@ -49,6 +50,9 @@ def trace(fn, label: str, card: str) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
     print(json.dumps({
         "call": label, "card": card, "wall_ms": wall_ms,
         "device_kernel_ms": dev_ms,
@@ -56,6 +60,9 @@ def trace(fn, label: str, card: str) -> None:
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels": [{"name": e.key[:80], "count": e.count,
                          "ms": _device_us(e) / 1e3} for e in top],
+        "top_host_ops": [{"name": e.key[:80], "count": e.count,
+                          "self_ms": e.self_cpu_time_total / 1e3}
+                         for e in host[:8]],
     }), flush=True)
 
 

@@ -64,7 +64,7 @@ def test_importing_every_module_loads_no_jax():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'libreasr_tpu', 'pandas', 'tensorboardX'))\n"
-        "assert len(mods) >= 49, mods\n"
+        "assert len(mods) >= 58, mods\n"
         "assert {'libreasr_tpu_torch.ops.quant', 'libreasr_tpu_torch.data.bpe',"
         " 'libreasr_tpu_torch.ops.rnnt_loss', 'libreasr_tpu_torch.ops.fused_loss',"
         " 'libreasr_tpu_torch.ops.kernels.joint_lp',"
@@ -83,7 +83,12 @@ def test_importing_every_module_loads_no_jax():
         " 'libreasr_tpu_torch.data.synth', 'libreasr_tpu_torch.scripts',"
         " 'libreasr_tpu_torch.scripts.train_tone_stream',"
         " 'libreasr_tpu_torch.scripts.make_tone_corpus',"
-        " 'libreasr_tpu_torch.scripts.evaluate_wer'}"
+        " 'libreasr_tpu_torch.scripts.evaluate_wer',"
+        " 'libreasr_tpu_torch.parallel.mesh', 'libreasr_tpu_torch.parallel.distributed',"
+        " 'libreasr_tpu_torch.parallel.pipeline', 'libreasr_tpu_torch.parallel.rows',"
+        " 'libreasr_tpu_torch.parallel.collectives',"
+        " 'libreasr_tpu_torch.compat.torch_import', 'libreasr_tpu_torch.compat.yttm_import',"
+        " 'libreasr_tpu_torch.scripts.import_reference'}"
         " <= set(mods), mods\n"
         "print('OK', len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -127,6 +132,61 @@ def test_streaming_and_serving_entry_points_default_to_cuda(monkeypatch, tmp_pat
         server.serve(bundle_path=GOLDEN)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         server.main(["--bundle", GOLDEN])
+
+
+def test_no_module_calls_torch_distributed_at_import():
+    """Importing every module of the port (and chip_smoke) starts no
+    process group and runs no collective: each is a function call."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import torch.distributed as d\n"
+        "def trap(name):\n"
+        "    def f(*a, **k):\n"
+        "        raise SystemExit(f'torch.distributed.{name} called at import')\n"
+        "    return f\n"
+        "for name in ('init_process_group', 'new_group', 'all_reduce', 'all_gather',"
+        " 'broadcast', 'send', 'recv', 'barrier', 'get_rank', 'get_world_size'):\n"
+        "    setattr(d, name, trap(name))\n"
+        "import libreasr_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "print('OK', d.is_initialized())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "OK False"
+
+
+def test_multi_gpu_and_import_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """initialize() on cuda asks for NCCL and raises without it (never
+    gloo, never the CPU); the import script and the training CLI's
+    multi-process start default to cuda; a mesh engine of cuda devices
+    never builds on the CPU."""
+    from libreasr_tpu_torch import train
+    from libreasr_tpu_torch.models.streaming import StreamingEngine
+    from libreasr_tpu_torch.parallel import distributed as dist
+    from libreasr_tpu_torch.parallel.mesh import make_mesh
+    from libreasr_tpu_torch.scripts import import_reference
+
+    store = f"file://{tmp_path / 'store'}"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a card"):
+        dist.initialize(store, 1, 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        import_reference.main(["--archive", str(tmp_path / "none.tar.gz")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--dist-coordinator", store, "--dist-procs", "1"])
+    bundle = ASRBundle.from_bundle(GOLDEN, extract_to=str(tmp_path), device="cpu")
+    mesh = make_mesh(data=2, devices=["cuda:0", "cuda:0"])
+    with pytest.raises((RuntimeError, AssertionError)):
+        StreamingEngine(bundle, n_streams=2, mesh=mesh)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.distributed, "is_nccl_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no NCCL"):
+        dist.initialize(store, 1, 0)
+    assert not torch.distributed.is_initialized()
 
 
 def test_wrapper_has_no_fallback_off_the_cpu():

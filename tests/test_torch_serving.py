@@ -27,6 +27,7 @@ from libreasr_tpu_torch.data.audio import read_wav
 from libreasr_tpu_torch.data.language import get_language
 from libreasr_tpu_torch.models.streaming import StreamingConfig, StreamingEngine
 from libreasr_tpu_torch.serving import proto
+from libreasr_tpu_torch.parallel.mesh import make_mesh
 from libreasr_tpu_torch.serving.server import ASRServicer, make_server
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
@@ -206,6 +207,39 @@ def test_servicer_takes_beam_and_lm_settings(golden):
             bundle.conf["stream"] = stream
         for s in made:
             s.stepper.shutdown()
+
+
+def test_grpc_server_on_mesh(golden):
+    """tests/test_serving.py:141 through the port: the server's engine
+    sharded over a data-8 mesh of CPU devices (one sub-engine a stream)
+    delivers the exact golden transcripts over the wire, two streams at
+    once, each on its own device."""
+    bundle, audio = golden
+    port = _free_port()
+    engine = StreamingEngine(bundle, n_streams=8,
+                             mesh=make_mesh(data=8, devices=["cpu"] * 8))
+    server, servicer = make_server(bundle, port, engine=engine)
+    server.start()
+    try:
+        channel, stream = _stream_call(port)
+        results = {}
+
+        def run(name, i, delay):
+            results[name] = "".join(t.data for t in stream(_chunks(audio[i], delay)))
+
+        threads = [threading.Thread(target=run, args=("a", 2, 0.0)),
+                   threading.Thread(target=run, args=("b", 3, 0.02))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert results == {"a": "hello world", "b": "stop now"}
+        assert all(sh.steps == engine.steps for sh in engine._shards)
+        channel.close()
+    finally:
+        server.stop(0)
+        servicer.stepper.shutdown()
 
 
 def test_grpc_wire_beam_flush_exact(golden):

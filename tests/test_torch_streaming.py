@@ -43,6 +43,7 @@ from libreasr_tpu_torch.models.streaming import (
     CHAIN_DEPTHS, StreamingConfig, StreamingEngine, _leaves,
 )
 from libreasr_tpu_torch.models.transducer import Transducer, TransducerConfig
+from libreasr_tpu_torch.parallel.mesh import make_mesh
 from libreasr_tpu_torch.ops.frontend import features_batch
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
@@ -304,21 +305,97 @@ def test_reset_restores_fresh_state(tiny):
 def test_engine_refuses_deltas_and_mesh_and_takes_beam_lm(tiny):
     """The engine refuses delta features (offline decoding takes them;
     the delta filter reads future frames, as JAX's engine says) and a
-    mesh; it takes beam search and LM fusion: a beam engine is built, and
-    a bundle without an LM decodes without, as in JAX."""
+    mesh whose data axis does not divide the streams (JAX's assert); it
+    takes beam search and LM fusion: a beam engine is built, and a bundle
+    without an LM decodes without, as in JAX."""
     _, tb = tiny
     with_deltas = copy.copy(tb)
     with_deltas.frontend = dataclasses.replace(tb.frontend, deltas=1)
     with pytest.raises(NotImplementedError, match="deltas"):
         StreamingEngine(with_deltas, n_streams=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        StreamingEngine(tb, n_streams=8, mesh=object())
+    with pytest.raises(AssertionError, match="n_streams must divide"):
+        StreamingEngine(tb, n_streams=6, mesh=make_mesh(data=4, devices=["cpu"] * 4))
     eng = StreamingEngine(tb, n_streams=1, scfg=StreamingConfig(beam_width=4),
                           use_lm=True)
     assert eng.beam and eng.fns.lm_step is None
     assert eng._packed.shape == (1, eng.scfg.beam_buf_tokens + 1)
     assert next(tb.transcribe_stream([np.zeros(CHUNK, np.float32)],
                                      use_lm=True))[1] == ""
+
+
+def _mesh_vs_single(tb, scfg, steps, seed):
+    """tests/test_streaming.py:136 and :154 through the port: 8 streams on
+    a data-8 mesh of CPU devices (one sub-engine, with its own weights,
+    a stream) against the single engine, step by step."""
+    mesh = make_mesh(data=8, model=1, devices=["cpu"] * 8)
+    e1 = StreamingEngine(tb, n_streams=8, scfg=scfg)
+    e2 = StreamingEngine(tb, n_streams=8, scfg=scfg, mesh=mesh)
+    assert len(e2._shards) == 8
+    assert all(sh.model is not tb.model for sh in e2._shards)
+    emitted = 0
+    for k in range(steps):
+        chunks = _noise(seed + k, (8, 1, CHUNK))
+        t1, l1 = e1.step_batch(chunks)
+        t2, l2 = e2.step_batch(chunks)
+        np.testing.assert_array_equal(l1, l2)
+        np.testing.assert_array_equal(t1, t2)
+        emitted += int(l1.sum())
+    assert e2.steps == steps
+    return emitted
+
+
+def test_engine_on_mesh_matches_single(tiny_emitting):
+    _, tb = tiny_emitting
+    assert _mesh_vs_single(tb, None, 3, 30) > 0
+
+
+def test_beam_engine_on_mesh_matches_single(tiny_emitting):
+    _, tb = tiny_emitting
+    scfg = StreamingConfig(beam_width=2, max_iters=3, beam_buf_tokens=8)
+    assert _mesh_vs_single(tb, scfg, 4, 40) > 0
+
+
+def test_mesh_engine_enqueues_each_shard_on_its_own_device(tiny_emitting,
+                                                          monkeypatch):
+    """A mesh engine's sub-engine builds its state (and, on the card, its
+    graph) and runs its steps while its own device is current, so that
+    the streams, events and graph capture of that work belong to the
+    card holding its tensors (streaming._on_device, watched here)."""
+    import contextlib
+
+    from libreasr_tpu_torch.models import streaming
+
+    current = []
+
+    @contextlib.contextmanager
+    def on_device(device):
+        current.append(device)
+        try:
+            yield
+        finally:
+            current.pop()
+
+    seen = []
+
+    def watch(fn):
+        def run(self):
+            seen.append((fn.__name__, current[-1] if current else None,
+                         self.device))
+            return fn(self)
+        return run
+
+    monkeypatch.setattr(streaming, "_on_device", on_device)
+    monkeypatch.setattr(StreamingEngine, "_init_device",
+                        watch(StreamingEngine._init_device))
+    monkeypatch.setattr(StreamingEngine, "_step_in_place",
+                        watch(StreamingEngine._step_in_place))
+    _, tb = tiny_emitting
+    eng = StreamingEngine(tb, n_streams=4,
+                          mesh=make_mesh(data=2, devices=["cpu"] * 2))
+    eng.step_batch(_noise(5, (4, 1, CHUNK)))
+    assert [name for name, _, _ in seen] == ["_init_device"] * 2 + [
+        "_step_in_place"] * 2
+    assert all(cur is not None and cur == dev for _, cur, dev in seen)
 
 
 def test_chained_dispatch_matches_sequential(tiny):
@@ -758,6 +835,38 @@ def test_graph_replay_matches_uncaptured_step_on_cuda(tmp_path):
         return list(e.emitted[s]), e.replays
 
     assert run(True) == run(False)
+
+
+@pytest.mark.cuda
+def test_mesh_engine_over_distinct_cards_matches_single_on_cuda(tmp_path):
+    """A mesh engine over every visible card (at least two: one
+    sub-engine, weights copy and CUDA graph a card) against engines of
+    one card's share of the streams on cuda:0 (the same shapes, so the
+    same kernels), 12 steps of ragged valid masks and resets: equal
+    tokens and counts, one replay a card a step."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    bundle = ASRBundle.from_bundle(os.path.join(FIXTURES, "model.tar.gz"),
+                                   extract_to=str(tmp_path), device="cuda:0")
+    n = 4 * len(cards)
+    parts = [StreamingEngine(bundle, n_streams=4) for _ in cards]
+    meshed = StreamingEngine(bundle, n_streams=n,
+                             mesh=make_mesh(data=len(cards), devices=cards))
+    assert [str(sh.device) for sh in meshed._shards] == cards
+    rng = np.random.default_rng(1)
+    for k in range(12):
+        chunks = _noise(200 + k, (n, 1, CHUNK))
+        valid = rng.random(n) > 0.2
+        reset = rng.random(n) > 0.8
+        got = [e.step_batch(chunks[i * 4:(i + 1) * 4], valid[i * 4:(i + 1) * 4],
+                            reset[i * 4:(i + 1) * 4])
+               for i, e in enumerate(parts)]
+        t1, l1 = (np.concatenate([g[j] for g in got]) for j in (0, 1))
+        t2, l2 = meshed.step_batch(chunks, valid, reset)
+        np.testing.assert_array_equal(l1, l2)
+        np.testing.assert_array_equal(t1, t2)
+    assert meshed.replays == 12 * len(cards)
 
 
 @pytest.mark.cuda

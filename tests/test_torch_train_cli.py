@@ -134,13 +134,16 @@ def test_restored_learner_continues_the_run(conf_path, tmp_path):
 
 
 def test_unported_flags_and_missing_cuda_raise(conf_path, monkeypatch):
-    """The multi-device flags raise (--chain-steps and --platform are
-    ported: tests below); so do an unknown --platform and, without a
-    card, the default device and --platform gpu."""
-    for flag in (["--pp", "2"], ["--mesh-model", "2"],
-                 ["--dist-coordinator", "h:1"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            cli.main(["--config", conf_path, "--device", "cpu", *flag])
+    """Every flag of the JAX CLI parses (the multi-device ones run in
+    tests/test_torch_pp_train.py and on the card); an unknown --platform
+    raises, and so do, without a card, the default device and --platform
+    gpu."""
+    args = cli.parse_args(["--mesh-model", "2", "--pp", "2", "--pp-micro", "2",
+                           "--dist-coordinator", "h:1", "--dist-procs", "2",
+                           "--dist-pid", "1"])
+    assert (args.mesh_model, args.pp, args.pp_micro, args.dist_coordinator,
+            args.dist_procs, args.dist_pid) == (2, 2, 2, "h:1", 2, 1)
+    assert not hasattr(cli, "_UNPORTED")
     with pytest.raises(ValueError, match="--platform 'tpu'"):
         cli.main(["--config", conf_path, "--platform", "tpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
