@@ -132,6 +132,14 @@ Phases, one line each (any failure raises and exits non-zero):
      step's host ms (median of the passes' medians, p90), the device ms
      of a replay (CUDA events), the real-time share (step ms / 80),
      tokens per chunk and peak memory;
+ 18a. flops: no timed run of its own: the MFU of 12's step median
+     (libreasr_tpu_torch/flops.py's train_step_flops at N 16, T 49, U 40,
+     over the card's bf16 peak) beside train_step_ceiling's speed of
+     light and its breakdown, and of 18's replays at N 64 and N 512
+     (decode_step_flops, 1 + the tokens a chunk evaluations a frame; the
+     FLOPs of the graph's max_iters rounds beside); the table gives the
+     card 989e12 bf16 FLOP/s, and every bound helper of the kernels line
+     reads that table (each halves with its peaks doubled);
  19. serving: ASRServicer in this process (no gRPC socket) with the golden
      bundle: unary Transcribe exact on a clip padded to 3 s, kernel B in
      2 launches (C for the port-quantized bundle), and two concurrent
@@ -195,6 +203,15 @@ Phases, one line each (any failure raises and exits non-zero):
      silent slot (at most 12 tokens), a slot closed mid-utterance, the
      sample buffers under a chunk and the slots recycled; chunks,
      seconds and host ms a step.
+ 28a. recipe_960: the port's LibriSpeech-960 recipe
+     (libreasr_tpu_torch.scripts.train_960) at full width (base.yaml as
+     written) on a FLAC tree in LibriSpeech's layout written here (48
+     train, 8 dev and 8 test clips of 2-2.8 and 4.4-5.4 s noise): CSVs, a BPE tokenizer
+     of 64, a 2-bucket ladder, 8 steps with an eval every 4, the first
+     launch of the training CLI ending at step 4 and raising, the
+     recipe's relaunch resuming there; D, E 6 and F, G, H 1 launches a
+     step, B in the evals, the bundle reloads on cuda and transcribes,
+     the test split's WER printed; step ms, the run's seconds;
  29. dist_train_full_width: an NCCL group of one rank (tcp://127.0.0.1,
      a free port) and Learner(mesh=make_mesh(data=1)) at base.yaml's
      width on train_full_width's batches (accumulation 1), 3 steps
@@ -233,7 +250,7 @@ Phases, one line each (any failure raises and exits non-zero):
      output is within ENC_TOL of the same bundle on the CPU, and the
      bundle reloaded transcribes the same.
 Then the script's own wall seconds (every phase, the build included;
-and those of 15a-15b, of 25-28 and of 29-32),
+and those of 15a-15b, of 25-28, of 28a and of 29-32),
 one JSON line with every kernel's numbers (B and C also with their
 launches a transcribe_beam), and as the last line
 {"ok": true, "device": {...}}.
@@ -316,10 +333,6 @@ TRAIN_BWD_SLICED_CASE = (300, 13, 1024)
 # D alone: a batch above one launch's epilogue owners (2 slices), and an
 # H whose slice of R does not fit shared memory (read from L2)
 TRAIN_FWD_EXTRA_CASES = [(600, 9, 1024), (8, 9, 2048)]
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
 
 
 def log(phase: str, **kw) -> None:
@@ -356,15 +369,25 @@ def wall_ms(fn, reps: int) -> list[float]:
     return out
 
 
+def roofline_ms(nbytes: float, ops: float, dtype: str = "bfloat16") -> tuple[float, str]:
+    """Least time on the card for `nbytes` moved and `ops` done: the larger
+    of the two over the card's published peaks (its memory rate and
+    `dtype`'s tensor rate, from libreasr_tpu_torch/flops.py's table), and
+    which of the two bounds it."""
+    from libreasr_tpu_torch import flops
+
+    tb = nbytes / flops.device_hbm_bw("cuda") * 1e3
+    to = ops / flops.device_peak_flops("cuda", dtype) * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
 def lstm_bound_ms(n: int, t: int, h: int, stream_c: bool) -> tuple[float, str]:
     """Least time for one sequence call: inputs read once (wx f32, R
     bf16, h0, c0), outputs written once (y, and yc or cT), against the
     bf16 tensor rate for the 2*N*T*H*4H recurrent flops."""
     nbytes = 4 * n * t * 4 * h + 2 * h * 4 * h + 2 * 4 * n * h + 4 * n * t * h
     nbytes += 4 * n * t * h if stream_c else 4 * n * h
-    flops = 2.0 * n * t * h * 4 * h
-    tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    return max(tb, tf), ("bytes" if tb >= tf else "operations")
+    return roofline_ms(nbytes, 2.0 * n * t * h * 4 * h)
 
 
 def lstm_int8_bound_ms(n: int, t: int, h: int) -> tuple[float, str]:
@@ -373,9 +396,7 @@ def lstm_int8_bound_ms(n: int, t: int, h: int) -> tuple[float, str]:
     tensor rate for the 2*N*T*H*4H recurrent operations."""
     nbytes = (4 * n * t * 4 * h + h * 4 * h + 4 * 4 * h + 2 * 4 * n * h
               + 2 * 4 * n * t * h)
-    ops = 2.0 * n * t * h * 4 * h
-    tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
-    return max(tb, to), ("bytes" if tb >= to else "operations")
+    return roofline_ms(nbytes, 2.0 * n * t * h * 4 * h, "int8")
 
 
 def phase_device() -> str:
@@ -1166,9 +1187,7 @@ def joint_bound_ms(kind: str, n, t, u1, j, v, w_bytes: int = 2):
     nbytes = {"fwd": inputs + 8 * r + 4 * n * t * u,
               "dx": inputs + cot + 4 * n * t * j + 4 * n * u1 * j + 4 * r,
               "dw": inputs + cot + 4 * r + 4 * j * v + 4 * v}[kind]
-    flops = (2.0 if kind == "fwd" else 4.0) * r * j * v
-    tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    return max(tb, tf), ("bytes" if tb >= tf else "operations")
+    return roofline_ms(nbytes, (2.0 if kind == "fwd" else 4.0) * r * j * v)
 
 
 def joint_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
@@ -1328,7 +1347,8 @@ def _keep_first_grads(learner) -> list:
 def phase_train_full_width(seed: int, card: str) -> dict:
     """The main path: 4 Learner steps of the base.yaml model. Returns
     the launch counts of that run, the first step's loss and gradients,
-    and the step's median time."""
+    the step's median time, its shape (N, T frames, U labels) and the
+    model's config."""
     import math
 
     import torch
@@ -1392,7 +1412,8 @@ def phase_train_full_width(seed: int, card: str) -> dict:
         raise AssertionError(f"parameters changed at steps {changed}, "
                              "expected on accumulation boundaries only")
     return {"launches": {**joint_launches, **train_launches},
-            "loss0": losses[0], "grads0": grads, "step_ms": step_ms}
+            "loss0": losses[0], "grads0": grads, "step_ms": step_ms,
+            "shape": {"n": 16, "t": t_enc, "u": 40}, "cfg": cfg}
 
 
 # the scan route against the D/E route, one step from the same weights,
@@ -1651,9 +1672,7 @@ def train_kernel_bound_ms(kind: str, n: int, t: int, h: int, r_bytes: int = 2):
     r = r_bytes * h * 4 * h
     nbytes = {"fwd": gseq + r + 2 * state + 2 * seq + gseq,
               "bwd": 4 * seq + gseq + r + gseq + 2 * state}[kind]
-    flops = 2.0 * n * t * h * 4 * h
-    tb, tf = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    return max(tb, tf), ("bytes" if tb >= tf else "operations")
+    return roofline_ms(nbytes, 2.0 * n * t * h * 4 * h)
 
 
 def train_kernel_rows(seed: int, worst: dict, launches: dict) -> list[dict]:
@@ -2465,7 +2484,9 @@ def _pipelined_pass(eng, clips) -> tuple[list[float], int, int, int]:
     return host_ms, sum(len(x) // c for x in clips), tokens, flushed
 
 
-def phase_streaming_full_width(seed: int, card: str) -> None:
+def phase_streaming_full_width(seed: int, card: str) -> dict:
+    """Returns, a width, the replay's device ms and the tokens a chunk,
+    and the model's and frontend's configs (the flops phase reads them)."""
     import numpy as np
     import torch
 
@@ -2477,6 +2498,7 @@ def phase_streaming_full_width(seed: int, card: str) -> None:
     bundle = ASRBundle.from_config(conf, seed=seed, device="cuda")
     scfg = StreamingConfig(sr=bundle.frontend.sr, transfer_dtype="int16",
                            max_iters=conf["stream"]["max_iters"])
+    readings = {"cfg": bundle.cfg, "frontend": bundle.frontend, "scfg": scfg}
     for n in STREAM_WIDTHS:
         clips = _stream_clips(n, seed + n)
         torch.cuda.synchronize()
@@ -2515,8 +2537,11 @@ def phase_streaming_full_width(seed: int, card: str) -> None:
         if eng.replays != eng.steps or launches or not np.isfinite(step_ms):
             raise AssertionError(f"streaming_full_width N {n}: {eng.steps} steps, "
                                  f"{eng.replays} replays, launches {launches}")
+        readings[n] = {"replay_device_ms": replay_ms,
+                       "tokens_per_chunk": row["tokens_per_chunk"]}
         del eng
         torch.cuda.empty_cache()
+    return readings
 
 
 def _stream_through(servicer, clips, sr: int = 16000, paced: bool = False):
@@ -3132,37 +3157,57 @@ LM_SMALL = dict(vocab_sz=64, embed_sz=32, hidden_sz=32, num_layers=2, p=0.0)
 SOAK_REPS = 8
 
 
-def _flac_tree(root: str, rng) -> list:
-    """LibriSpeech layout (<spk>/<chapter>/<id>.flac + .trans.txt) of
-    DATA_FLAC seeded 2.5-3.75 s noise clips, 16-bit, mono and (every
-    third) stereo, written with the tests' FLAC writer: LPC and FIXED
-    subframes, every stereo mode. Returns (path, int16 samples)."""
-    import numpy as np
-
+def _write_flac_file(job: tuple) -> None:
+    """One file of _flac_tree (a process pool's task)."""
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from helpers.flac_writer import write_flac
 
+    path, x, method, stereo = job
+    write_flac(path, x, 16000, method=method, blocksize=4096, stereo=stereo)
+
+
+def _flac_tree(root: str, rng, count: int = DATA_FLAC,
+               samples: tuple = (40000, 60001), workers: int = 1) -> list:
+    """LibriSpeech layout (<spk>/<chapter>/<id>.flac + .trans.txt) of
+    `count` seeded noise clips of two speakers, of samples[0] to
+    samples[1] - 1 samples at 16 kHz (2.5-3.75 s), or, where `samples`
+    is a list, of samples[k]'s for speaker k; 16-bit, mono and (every
+    third) stereo, written with the tests' FLAC writer: LPC and FIXED
+    subframes, every stereo mode. The writer is pure Python (~0.5 s a 4 s
+    clip): with `workers` > 1 the files are written by a spawned process
+    pool. Returns (path, int16 samples)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    import numpy as np
+
     words = ["yes", "no", "stop", "go", "up", "down", "left", "right"]
     modes = ["left_side", "right_side", "mid_side", "independent"]
-    out = []
+    out, jobs = [], []
+    spans = samples if isinstance(samples, list) else [samples, samples]
     for spk in range(2):
         d = os.path.join(root, str(100 + spk), "10")
         os.makedirs(d)
         lines = []
-        for i in range(DATA_FLAC // 2):
+        for i in range(count // 2):
             utt = f"{100 + spk}-10-{i:04d}"
-            n = int(rng.integers(40000, 60001))
+            n = int(rng.integers(*spans[spk]))
             ch = 2 if i % 3 == 0 else 1
             x = np.clip(np.round(rng.standard_normal((ch, n)) * 3000),
                         -32768, 32767).astype(np.int64)
             method = "lpc" if i % 4 == 0 else f"fixed{i % 5}"
             path = os.path.join(d, f"{utt}.flac")
-            write_flac(path, x, 16000, method=method, blocksize=4096,
-                       stereo=modes[i % 4] if ch == 2 else "independent")
+            jobs.append((path, x, method, modes[i % 4] if ch == 2 else "independent"))
             out.append((path, x))
             lines.append(f"{utt} {' '.join(rng.choice(words, 2)).upper()}")
         with open(os.path.join(d, f"{100 + spk}-10.trans.txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
+    if workers > 1:
+        with cf.ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn")) as ex:
+            list(ex.map(_write_flac_file, jobs))
+    else:
+        for job in jobs:
+            _write_flac_file(job)
     return out
 
 
@@ -3576,6 +3621,255 @@ def phase_soak(card: str) -> None:
         if eng.replays != eng.steps or not eng.steps or launches:
             raise AssertionError(f"soak: {eng.steps} steps, {eng.replays} "
                                  f"replays, launches {launches}")
+
+
+# --- FLOP accounting, and the LibriSpeech-960 recipe ------------------------
+
+# the recipe's mock LibriSpeech tree: {split: utterances} of FLAC, one
+# speaker's clips 2-2.8 s, the other's 4.4-5.4 s. With drop_last and the
+# 2-bucket ladder (bs 24, the population of a bucket), an epoch must
+# fill a bucket or the CLI ends the run; the gap keeps all 24 short clips
+# in the first bucket under speed perturbation (+-10%), however the
+# filesystem orders the speakers' directories. Clips spread evenly over
+# 2-6 s left some epochs on the H100 with no full bucket.
+RECIPE_SPLITS = {"train-clean-100": 48, "dev-clean": 8, "test-clean": 8}
+RECIPE_SAMPLES = [(32000, 44801), (70400, 86401)]
+RECIPE_WRITERS = 8  # the card machine's cores
+RECIPE_STEPS = 8
+RECIPE_CRASH_AT = 4
+
+
+def _bounds_follow_the_table(peaks: dict) -> dict:
+    """Every bound helper at the main path's shapes, then again with the
+    card's entry of libreasr_tpu_torch/flops.py's table doubled in place
+    (restored after): each bound must halve, so it reads that table and
+    no peak of its own."""
+    calls = {
+        "lstm_seq_cseq": lambda: lstm_bound_ms(16, 49, 1024, True)[0],
+        "lstm_seq_int8": lambda: lstm_int8_bound_ms(16, 49, 1024)[0],
+        "joint_lp_fwd": lambda: joint_bound_ms("fwd", 16, 49, 41, 1024, 2048)[0],
+        "joint_lp_dx": lambda: joint_bound_ms("dx", 16, 49, 41, 1024, 2048)[0],
+        "joint_lp_dw": lambda: joint_bound_ms("dw", 16, 49, 41, 1024, 2048)[0],
+        "lstm_train_fwd": lambda: train_kernel_bound_ms("fwd", 16, 49, 1024)[0],
+        "lstm_train_bwd": lambda: train_kernel_bound_ms("bwd", 16, 49, 1024)[0],
+    }
+    before = {k: f() for k, f in calls.items()}
+    saved = dict(peaks)
+    try:
+        for k in peaks:
+            peaks[k] = 2 * peaks[k]
+        after = {k: f() for k, f in calls.items()}
+    finally:
+        peaks.update(saved)
+    return {k: {"bound_ms": before[k], "with_doubled_peaks_ms": after[k]}
+            for k in calls}
+
+
+def phase_flops(card: str, train: dict, stream: dict) -> None:
+    """MFU of medians that earlier phases measured (no timed run of its
+    own), from libreasr_tpu_torch/flops.py: train_full_width's step median
+    (N 16, T 49, U 40) against train_step_flops and the bf16 peak, beside
+    train_step_ceiling's speed of light; streaming_full_width's replay at
+    N 64 and N 512 against decode_step_flops with iters_per_frame = 1 +
+    the tokens a chunk that phase counted (the model's work; the graph
+    runs max_iters rounds a frame, whose FLOPs are logged beside). Checks
+    that the table gives this card 989e12 bf16 FLOP/s, that the shares lie
+    in (0, 1), that the step is no faster than its speed of light, and
+    that every bound helper reads the table's peaks."""
+    from libreasr_tpu_torch import flops
+
+    peaks = flops.device_peaks("cuda")
+    bf16 = flops.device_peak_flops("cuda")
+    cfg, sh = train["cfg"], train["shape"]
+    n, t, u = sh["n"], sh["t"], sh["u"]
+    step_s = train["step_ms"] / 1e3
+    fl = flops.train_step_flops(cfg, n, t, u)
+    m = flops.mfu(fl, step_s, "cuda")
+    ceil = flops.train_step_ceiling(cfg, n, t, u)
+    train_row = {
+        **sh, "step_ms": train["step_ms"], "flops": fl, "mfu": m.mfu,
+        "achieved_tflops": m.achieved / 1e12, "sol_ms": ceil["sol_s"] * 1e3,
+        "compute_sol_ms": ceil["compute_sol_s"] * 1e3,
+        "bandwidth_sol_ms": ceil["bandwidth_sol_s"] * 1e3,
+        "compute_breakdown_ms": {k: v * 1e3 for k, v in
+                                 ceil["compute_breakdown_s"].items()},
+        "traffic_bytes": ceil["traffic_bytes"],
+        "step_over_sol": step_s / ceil["sol_s"],
+        "mfu_at_sol": fl / (ceil["sol_s"] * bf16),
+    }
+    scfg, streams = stream["scfg"], {}
+    for w in STREAM_WIDTHS:
+        r = stream[w]
+        iters = 1.0 + r["tokens_per_chunk"]
+        args = (stream["cfg"], stream["frontend"], w, scfg.n_buffer, STREAM_CHUNK)
+        fl_w = flops.decode_step_flops(*args, iters_per_frame=iters)
+        executed = flops.decode_step_flops(*args, iters_per_frame=scfg.max_iters)
+        mw = flops.mfu(fl_w, r["replay_device_ms"] / 1e3, "cuda")
+        streams[w] = {"replay_device_ms": r["replay_device_ms"],
+                      "iters_per_frame": iters, "flops": fl_w, "mfu": mw.mfu,
+                      "achieved_tflops": mw.achieved / 1e12,
+                      "flops_at_max_iters": executed,
+                      "share_at_max_iters": executed / (r["replay_device_ms"] / 1e3) / bf16}
+    bounds = _bounds_follow_the_table(peaks)
+    log("flops", card=card, peaks=peaks, train_step=train_row,
+        streaming=streams, bounds=bounds)
+    shares = [train_row["mfu"]] + [v["mfu"] for v in streams.values()]
+    checks = {
+        "the table gives this card the H100 SXM's bf16 peak": bf16 == 989e12,
+        "every share in (0, 1)": all(0.0 < x < 1.0 for x in shares),
+        "the step is no faster than its speed of light": step_s >= ceil["sol_s"],
+        "every bound halves with the table's peaks doubled": all(
+            math.isclose(b["with_doubled_peaks_ms"], b["bound_ms"] / 2, rel_tol=1e-12)
+            for b in bounds.values()),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"flops: {failed}")
+
+
+def phase_recipe_960(seed: int, card: str, root: str) -> None:
+    """The port's LibriSpeech-960 recipe (libreasr_tpu_torch.scripts.
+    train_960) in this process at full width: config/base.yaml as written,
+    on a LibriSpeech-shaped FLAC tree written here (RECIPE_SPLITS, 2-5.4 s
+    noise clips with two-word labels; data_tools' writer): create_dataset
+    per split, the merged CSVs, a BPE tokenizer of 64, the ladder from the
+    histogram (2 buckets), RECIPE_STEPS steps with an eval every 4, the
+    export and the test split's WER. The first launch of the training CLI
+    ends at step RECIPE_CRASH_AT and then raises; the recipe launches it
+    again, and it resumes there. Checks the resume, D and E 6 launches and
+    F, G, H one a train step, B in the evals, and the bundle reloading on
+    cuda and transcribing; the WER of noise is printed, not held."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from libreasr_tpu_torch import train
+    from libreasr_tpu_torch.api import ASRBundle
+    from libreasr_tpu_torch.scripts import evaluate_wer
+    from libreasr_tpu_torch.scripts import train_960 as recipe
+    from libreasr_tpu_torch.training import learner as lmod
+
+    rng = np.random.default_rng(seed + 960)
+    t0 = time.perf_counter()
+    corpus = os.path.join(root, "LibriSpeech")
+    for split, count in RECIPE_SPLITS.items():
+        _flac_tree(os.path.join(corpus, split), rng, count=count,
+                   samples=RECIPE_SAMPLES, workers=RECIPE_WRITERS)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(root, "work")
+    steps_ms, launches_at_step, calls, secs = [], [], [], {}
+    real_step, real_main = lmod.Learner.step, train.main
+    real_csvs, real_eval = recipe.build_csvs, evaluate_wer.main
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t1 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                secs.setdefault(name, []).append(time.perf_counter() - t1)
+        return run
+
+    def timed_step(self, batch):
+        t1 = time.perf_counter()
+        metrics = real_step(self, batch)
+        float(metrics["loss"])  # syncs the step
+        steps_ms.append((time.perf_counter() - t1) * 1e3)
+        launches_at_step.append(_kernel_launches())
+        return metrics
+
+    def crash_once(argv):
+        calls.append(list(argv))
+        if len(calls) > 1:
+            return real_main(argv)
+        i = argv.index("--steps")
+        real_main(argv[: i + 1] + [str(RECIPE_CRASH_AT)] + argv[i + 2:])
+        raise RuntimeError(f"injected crash at step {RECIPE_CRASH_AT}")
+
+    argv = ["--root", corpus, "--out", out,
+            "--config", os.path.join(HERE, "config", "base.yaml"),
+            "--vocab-sz", "64", "--accumulate", "1", "--n-buckets", "2",
+            "--steps", str(RECIPE_STEPS), "--eval-every", "4",
+            "--eval-batches", "1", "--chain-steps", "1", "--workers", "2",
+            "--retries", "2", "--device", "cuda"]
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_launches()
+    lmod.Learner.step, train.main = timed_step, timed("train_cli", crash_once)
+    recipe.build_csvs = timed("build_csvs", real_csvs)
+    evaluate_wer.main = timed("final_eval", real_eval)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            recipe.main(argv)
+    except BaseException:
+        print(buf.getvalue()[-8000:], file=sys.stderr)
+        raise
+    finally:
+        lmod.Learner.step, train.main = real_step, real_main
+        recipe.build_csvs, evaluate_wer.main = real_csvs, real_eval
+    run_s = time.perf_counter() - t0
+    launches = _kernel_launches()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    text = buf.getvalue()
+
+    _reset_kernel_launches()
+    t0 = time.perf_counter()
+    bundle = ASRBundle.from_bundle(os.path.join(out, "model.tar.gz"), device="cuda",
+                                   extract_to=os.path.join(out, "x"))
+    clip = (rng.standard_normal(48000) * 0.1).astype(np.float32)
+    texts, _ = bundle.transcribe_batch(clip[None], np.array([48000]))
+    reload_b = _kernel_launches()["lstm_seq_cseq"]
+    reload_s = time.perf_counter() - t0
+    # train-kernel launches of each step alone (evals launch none of them)
+    per_step, prev = [], {k: 0 for k in launches}
+    for cur in launches_at_step:
+        per_step.append({k: cur[k] - prev[k] for k in
+                         ("lstm_train_fwd", "lstm_train_bwd", "joint_lp_fwd",
+                          "joint_lp_dx", "joint_lp_dw")})
+        prev = cur
+    layers = bundle.cfg.enc_num_layers
+    want_step = {"lstm_train_fwd": layers, "lstm_train_bwd": layers,
+                 "joint_lp_fwd": 1, "joint_lp_dx": 1, "joint_lp_dw": 1}
+    keep = ("[train-960]", "[train] resumed", "[train] done", "[eval] step",
+            "[eval] n=", "  max ")
+    lines = [ln for ln in text.splitlines() if ln.startswith(keep)]
+    log("recipe_960", card=card, splits=RECIPE_SPLITS, steps=len(steps_ms),
+        step_ms=steps_ms, step_ms_median=statistics.median(steps_ms[1:]),
+        launches=launches, reload_b_launches=reload_b, peak_memory_mib=peak_mib,
+        write_corpus_s=write_s, run_s=run_s, run_split_s=secs,
+        reload_and_transcribe_s=reload_s, lines=lines,
+        artifacts=sorted(os.listdir(out)), bundle_texts=texts,
+        bundle_hidden=bundle.cfg.hidden_sz, bundle_vocab=len(bundle.lang))
+    ckpt = os.path.join(out, "ckpt")
+    checks = {
+        "two launches of the CLI, the same arguments": len(calls) == 2
+        and calls[0] == calls[1],
+        "the crash was caught and resumed":
+        f"[train-960] run crashed (RuntimeError: injected crash at step "
+        f"{RECIPE_CRASH_AT}); resuming from {ckpt} (1/2)" in text
+        and f"[train] resumed from {ckpt} at step {RECIPE_CRASH_AT}" in text,
+        "the first launch ended at the crash step, the second at the last":
+        f"[train] done: step={RECIPE_CRASH_AT} " in text
+        and f"[train] done: step={RECIPE_STEPS} " in text,
+        "every step ran": len(steps_ms) == RECIPE_STEPS,
+        "D, E 6 and F, G, H 1 launches a step":
+        all(s == want_step for s in per_step),
+        "B launched in the evals": launches["lstm_seq_cseq"] > 0,
+        "the final WER line": "[train-960] final test-split WER:" in text
+        and "[eval] n=8 WER=" in text,
+        "every artifact": all(os.path.exists(os.path.join(out, f)) for f in (
+            "asr-dataset-train.csv", "asr-dataset-valid.csv", "asr-dataset-test.csv",
+            "tokenizer.bpe-model", "train960.yaml", "model.tar.gz")),
+        "the bundle reloads on cuda at full width and transcribes":
+        bundle.device.type == "cuda" and bundle.cfg.hidden_sz == 1024
+        and len(texts) == 1 and reload_b == layers,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"recipe_960: {failed}\n" + "\n".join(lines))
 
 
 # --- multi-GPU training and serving, and the reference importer -------------
@@ -4089,6 +4383,7 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_train_scan_route(args.seed, card, main_train)
     launches = main_train.pop("launches")
+    train_flops = {k: main_train[k] for k in ("step_ms", "shape", "cfg")}
     del main_train
     torch.cuda.synchronize()
     phase_train_small_cuda_vs_cpu(args.seed)
@@ -4106,7 +4401,9 @@ def main() -> int:
     tone_s = time.perf_counter() - t_tone
     torch.cuda.synchronize()
     phase_streaming_golden()
-    phase_streaming_full_width(args.seed, card)
+    stream = phase_streaming_full_width(args.seed, card)
+    phase_flops(card, train_flops, stream)
+    del stream, train_flops
     phase_serving(args.seed, card)
     torch.cuda.synchronize()
     phase_golden_beam()
@@ -4131,6 +4428,11 @@ def main() -> int:
     phase_soak(card)
     torch.cuda.synchronize()
     new_s = time.perf_counter() - t_new
+    t_recipe = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_recipe_960(args.seed, card, tmp)
+    torch.cuda.synchronize()
+    recipe_s = time.perf_counter() - t_recipe
     t_dist = time.perf_counter()
     phase_dist_train_full_width(args.seed, card)
     torch.cuda.synchronize()
@@ -4145,9 +4447,10 @@ def main() -> int:
     rows += joint_rows(args.seed, worst_joint, launches)
     rows += train_kernel_rows(args.seed, worst_train, launches)
     torch.cuda.synchronize()
-    # every phase, the build included, and the two tone phases' share
+    # every phase, the build included, and the shares of some groups
     log("wall", seconds=time.perf_counter() - t_start, tone_phases_seconds=tone_s,
-        data_ctc_lm_soak_seconds=new_s, dist_mesh_import_seconds=dist_s)
+        data_ctc_lm_soak_seconds=new_s, recipe_960_seconds=recipe_s,
+        dist_mesh_import_seconds=dist_s)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import copy
 import os
+from typing import Any
 
 DEFAULT_CONFIG = os.path.join(
     os.path.dirname(__file__), "..", "config", "base.yaml"
@@ -54,3 +55,14 @@ def parse_and_apply_config(
     if inference:
         blocks.append("inference")
     return apply_overrides(conf, blocks)
+
+
+def conf_get(conf: dict, dotted: str, default: Any = None) -> Any:
+    """`conf_get(conf, "model.encoder.num_layers")`: the value at a dotted
+    path, or `default` where the path does not exist."""
+    node = conf
+    for part in dotted.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return default
+        node = node[part]
+    return node

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import csv
 import os
+import re
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -22,8 +23,42 @@ import numpy as np
 CSV_COLUMNS = ["file", "xstart", "xlen", "label", "ylen", "sr", "bad"]
 
 
+_POW10 = [float(f"1e{k}") for k in range(309)]
+_DECIMAL = re.compile(r"([+-]?)(\d*)(?:\.(\d*))?(?:[eE]([+-]?\d+))?")
+
+
+def pandas_float(s: str) -> float:
+    """A float cell as pandas' C parser reads it by default (its
+    precise_xstrtod): at most 17 significant digits accumulated in a
+    double, then one multiplication or division by a power of ten. That
+    is not always the nearest double, which float() gives: pandas reads
+    "1015.9374999999999" as 1015.9375, and writes it back so."""
+    v = float(s)  # raises on what is no number
+    m = _DECIMAL.fullmatch(s.strip())
+    if m is None or not (m.group(2) or m.group(3)):
+        return v  # nan, inf
+    number, digits, exponent = 0.0, 0, 0
+    for ch in m.group(2):
+        if digits < 17:
+            number, digits = number * 10.0 + int(ch), digits + 1
+        else:
+            exponent += 1
+    for ch in (m.group(3) or "")[: max(17 - digits, 0)]:
+        number, exponent = number * 10.0 + int(ch), exponent - 1
+    if m.group(1) == "-":
+        number = -number
+    exponent += int(m.group(4) or 0)
+    if exponent > 308:
+        return v  # beyond a double's range: float()'s inf
+    if exponent > 0:
+        return number * _POW10[exponent]
+    if exponent < -308:
+        return 0.0 if exponent < -616 else number / _POW10[-308 - exponent] / _POW10[308]
+    return number / _POW10[-exponent]
+
+
 def _number(s: str):
-    v = float(s)
+    v = pandas_float(s)
     return int(v) if v.is_integer() and "." not in s else v
 
 
@@ -39,20 +74,28 @@ def _parse_row(row: dict) -> dict:
     return out
 
 
-def resolve_audio_path(p: str, root: str) -> str:
-    """A CSV `file` entry against its dataset directory: joined unless it
-    is absolute or already resolves (the JAX package's rule)."""
-    if not (os.path.isabs(p) or os.path.exists(p)):
-        p = os.path.join(root, p)
-    return p
+def resolve_audio_paths(rows: list[dict], root: str, absolute: bool = False):
+    """Resolve each row's `file` against the dataset directory `root`
+    (the JAX package's rule, on row dicts in place of a DataFrame).
+
+    A relative path is joined unless it already resolves: create_dataset
+    writes root-prefixed relative paths when given a relative root, and
+    joining those again would double the prefix. `absolute=True` also
+    pins every path with abspath (the 960 recipe merges per-split CSVs
+    into one directory, where relative paths must not survive). Returns
+    `rows`, changed in place."""
+    for r in rows:
+        p = str(r["file"])
+        if not (os.path.isabs(p) or os.path.exists(p)):
+            p = os.path.join(root, p)
+        r["file"] = os.path.abspath(p) if absolute else p
+    return rows
 
 
 def read_dataset_csv(path: str, root: str) -> list[dict]:
     with open(path, newline="") as f:
         rows = [_parse_row(r) for r in csv.DictReader(f)]
-    for r in rows:
-        r["file"] = resolve_audio_path(str(r["file"]), root)
-    return rows
+    return resolve_audio_paths(rows, root)
 
 
 @dataclass

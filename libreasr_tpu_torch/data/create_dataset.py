@@ -34,6 +34,7 @@ import sys
 
 from ..utils import sanitize_str
 from . import audio as audio_io
+from .builder import pandas_float
 
 AUDIO_EXTS = (".flac", ".wav", ".mp3", ".ogg", ".oga")
 COLUMNS = ["file", "xstart", "xlen", "label", "ylen", "sr", "bad"]
@@ -73,7 +74,7 @@ def _number(s: str):
     try:
         return int(s)
     except ValueError:
-        return float(s)
+        return pandas_float(s)
 
 
 def _column_values(cells: list) -> list:

@@ -9,7 +9,9 @@ package's scripts/evaluate_wer.py).
 `--bundle`, a seeded random model of `--config`. Runs on the card unless
 `--device cpu` is given. A bundle's own corpus settings (a tone
 recipe's `synth_tone` block) are dropped, so `--dataset` is what is
-scored.
+scored, and every row of it: a bundle's `drop_last` (the 960 recipe
+trains with it) would drop the last partial batch, which the JAX
+package's script does.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ def main(argv=None):
         datasets=["eval"],
         dataset_paths={"eval": a.dataset},
         apply_limits=False,
+        drop_last=False,
         shuffle=False,
         shuffle_builder={a.split: False},
         pcent={a.split: 1.0},
