@@ -249,8 +249,24 @@ Phases, one line each (any failure raises and exits non-zero):
      transcribe_batch on the clips of 5 launches B 6 times, the encoder
      output is within ENC_TOL of the same bundle on the CPU, and the
      bundle reloaded transcribes the same.
+ 33. bench: the port's benchmark harness (libreasr_tpu_torch/bench.py and
+     libreasr_tpu_torch/scripts/bench_*.py) at full width, with fewer
+     repetitions: the golden BPE bundle's latched emission rate on the
+     card; the bisection (calibrate_blank_bias) of the proxy (base.yaml
+     in bf16, seed 0) landing on the pinned BLANK_BIAS at a rate at or
+     above it; a fresh engine's rate at that bias, and biases set after
+     its capture (0, 8, 0) changing its replays' emissions; time_engine at N 64 and
+     512, device_resident_rate at N 512, device_step_time at N 256 and
+     at N 512 at the pinned bias and at 0, alternated, the two equal
+     within BENCH_BIAS_REL_TOL (time_engine's step over the replay at
+     N 512);
+     bench_serving --transport inproc, 64 streams of 6 s at its default
+     blank bias 0 (flooding: at the pinned bias fresh streams emit no
+     text, so there would be no partial to time); bench_train_step (D, E 6 and F, G, H 1 launches a step, none
+     of A-C), bench_step_parts and bench_loss_parts at k 4, reps 3; and
+     bench_pallas --quick and --train --quick: every reading finite.
 Then the script's own wall seconds (every phase, the build included;
-and those of 15a-15b, of 25-28, of 28a and of 29-32),
+and those of 15a-15b, of 25-28, of 28a, of 29-32 and of 33),
 one JSON line with every kernel's numbers (B and C also with their
 launches a transcribe_beam), and as the last line
 {"ok": true, "device": {...}}.
@@ -4345,6 +4361,146 @@ def phase_import_reference(seed: int, card: str) -> None:
                                  f"encoder {enc_err}, reloaded {texts2 == texts}")
 
 
+BENCH_K, BENCH_REPS = 4, 3      # chained steps and repetitions of the step scripts
+BENCH_PALLAS_K = 2              # chained calls of bench_pallas (the scans are slow)
+BENCH_SERVING_STREAMS, BENCH_SERVING_SECONDS = 64, 6
+# the N 512 replay timed at each of two blank biases, alternated; the two
+# medians must agree within the larger of either bias's range and 2% of
+# the pinned one: an early exit from the masked decode rounds would save
+# most of the step, far more than the 2% that the CUDA-event times of
+# one step on fresh engines may differ by
+BENCH_BIAS_RUNS, BENCH_BIAS_REL_TOL = 3, 0.02
+
+
+def _finite(phase: str, readings: dict) -> None:
+    bad = {k: v for k, v in readings.items()
+           if not (isinstance(v, (int, float)) and math.isfinite(v))}
+    if bad:
+        raise AssertionError(f"{phase}: readings not finite: {bad}")
+
+
+def phase_bench(card: str) -> None:
+    """The benchmark harness at full width, fewer repetitions (33)."""
+    import io
+
+    import torch
+
+    from libreasr_tpu_torch import bench
+    from libreasr_tpu_torch.models.streaming import StreamingEngine
+    from libreasr_tpu_torch.scripts import (bench_loss_parts, bench_pallas,
+                                            bench_serving, bench_step_parts,
+                                            bench_train_step)
+
+    golden = bench.golden_emission_rate()
+    bundle = bench.build_bundle()
+    base = bundle.model.joint.out.bias[0].clone()
+    # the pinned bias is the bisection's result, at its rate
+    bias, proxy = bench.calibrate_blank_bias(bundle, golden)
+    # a fresh engine at that bias, then biases set after its capture:
+    # flooding, pure blank, flooding again
+    eng = StreamingEngine(bundle, n_streams=16)
+    rates = {"fresh_at_pinned": bench.measure_rate(eng, bundle, 16)}
+    for name, b in (("at_0", 0.0), ("at_8", 8.0), ("at_0_again", 0.0)):
+        bench.set_blank_bias(bundle, b, base=base)
+        rates[name] = bench.measure_rate(eng, bundle, 16)
+    bench.set_blank_bias(bundle, bench.BLANK_BIAS, base=base)
+    replays, steps = eng.replays, eng.steps
+    del eng
+    log("bench_rates", card=card, golden_latched_rate=golden,
+        calibrated_bias=bias, calibrated_rate=proxy,
+        pinned_bias=bench.BLANK_BIAS, rates_n16=rates, graph_replays=replays,
+        steps=steps)
+    if bias != bench.BLANK_BIAS or not proxy >= golden:
+        raise AssertionError(f"bench: the bisection gave {bias} at {proxy} "
+                             f"tokens a chunk (pinned {bench.BLANK_BIAS}, "
+                             f"golden {golden})")
+    if not (rates["at_8"] < min(rates["at_0"], rates["at_0_again"])
+            and replays == steps):
+        raise AssertionError(f"bench: a bias set after the capture did not "
+                             f"reach the replays: {rates}")
+    cache: dict = {}
+    steps_ms = {}
+    for n in (64, 512):
+        steps_ms[n] = bench.time_engine(bundle, n, cache=cache) * 1e3
+        log("bench_time_engine", card=card, n_streams=n, step_ms=steps_ms[n],
+            streams=n * 80 / steps_ms[n])
+    _finite("bench_time_engine", steps_ms)
+    del cache
+    rate, spread = bench.device_resident_rate(bundle, 512)
+    log("bench_device_resident", card=card, n_streams=512, streams=rate,
+        spread_pct=spread)
+    # the replay at N 512 at the pinned bias and at 0 (flooding),
+    # alternated: the captured step runs all max_iters rounds masked, so
+    # the bias the sweep runs at must not move its device time
+    by_bias = {"pinned": [], "0": []}
+    for _ in range(BENCH_BIAS_RUNS):
+        for name, b in (("pinned", bench.BLANK_BIAS), ("0", 0.0)):
+            bench.set_blank_bias(bundle, b, base=base)
+            by_bias[name].append(bench.device_step_time(bundle, 512) * 1e3)
+    bench.set_blank_bias(bundle, bench.BLANK_BIAS, base=base)
+    med = {name: statistics.median(v) for name, v in by_bias.items()}
+    tol = max([max(v) - min(v) for v in by_bias.values()]
+              + [BENCH_BIAS_REL_TOL * med["pinned"]])
+    replay = {256: bench.device_step_time(bundle, 256) * 1e3,
+              512: med["pinned"]}
+    log("bench_device_step", card=card, replay_ms=replay,
+        replay_ms_n512_by_bias=by_bias, bias_gap_ms=med["0"] - med["pinned"],
+        bias_tol_ms=tol,
+        time_engine_over_replay_n512=steps_ms[512] / replay[512])
+    if not abs(med["0"] - med["pinned"]) <= tol:
+        raise AssertionError(f"bench: the replay at N 512 takes {med['0']} ms "
+                             f"at bias 0 and {med['pinned']} at "
+                             f"{bench.BLANK_BIAS} (tolerance {tol})")
+    _finite("bench_device", {"streams": rate, "spread": spread,
+                             **{f"replay_{n}": v for n, v in replay.items()}})
+    del bundle
+    torch.cuda.empty_cache()
+
+    def quiet(fn, argv):
+        """A script's main, its printed lines kept for the log."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(argv)
+        return out, buf.getvalue().splitlines()
+
+    serving, _ = quiet(bench_serving.main, [
+        "--transport", "inproc", "--streams", str(BENCH_SERVING_STREAMS),
+        "--duration", str(BENCH_SERVING_SECONDS)])
+    log("bench_serving", card=card, **serving)
+    _finite("bench_serving", {k: serving[k] for k in
+                              ("value", "p90_ms", "overrun_p50_ms")})
+    torch.cuda.empty_cache()
+
+    k = ["--k", str(BENCH_K), "--reps", str(BENCH_REPS)]
+    _reset_kernel_launches()
+    train, lines = quiet(bench_train_step.main, k)
+    launches = {n: v for n, v in _kernel_launches().items() if v}
+    per_step = {n: v / train["steps"] for n, v in launches.items()}
+    log("bench_train_step", card=card, **train, launches=launches,
+        launches_a_step=per_step, lines=lines)
+    want = {"lstm_train_fwd": 6, "lstm_train_bwd": 6, "joint_lp_fwd": 1,
+            "joint_lp_dx": 1, "joint_lp_dw": 1}
+    if per_step != want:
+        raise AssertionError(f"bench_train_step launched {per_step} a step, "
+                             f"expected {want}")
+    _finite("bench_train_step", {"ms": train["ms"], "mfu": train["mfu"]})
+    torch.cuda.empty_cache()
+    for name, main in (("bench_step_parts", bench_step_parts.main),
+                       ("bench_loss_parts", bench_loss_parts.main)):
+        parts, _ = quiet(main, k)
+        log(name, card=card, ms=parts)
+        _finite(name, parts)
+        torch.cuda.empty_cache()
+    pk = ["--quick", "--k", str(BENCH_PALLAS_K), "--reps", str(BENCH_REPS)]
+    for name, argv in (("bench_pallas", pk),
+                       ("bench_pallas_train", pk + ["--train"])):
+        out, lines = quiet(bench_pallas.main, argv)
+        log(name, card=card, max_err=out["max_err"], table=lines)
+        _finite(name, {"max_err": out["max_err"],
+                       **{f"row{i}_{j}": x for i, r in enumerate(out["rows"])
+                          for j, x in enumerate(r)}})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4444,13 +4600,17 @@ def main() -> int:
     phase_import_reference(args.seed, card)
     torch.cuda.synchronize()
     dist_s = time.perf_counter() - t_dist
+    t_bench = time.perf_counter()
+    phase_bench(card)
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t_bench
     rows += joint_rows(args.seed, worst_joint, launches)
     rows += train_kernel_rows(args.seed, worst_train, launches)
     torch.cuda.synchronize()
     # every phase, the build included, and the shares of some groups
     log("wall", seconds=time.perf_counter() - t_start, tone_phases_seconds=tone_s,
         data_ctc_lm_soak_seconds=new_s, recipe_960_seconds=recipe_s,
-        dist_mesh_import_seconds=dist_s)
+        dist_mesh_import_seconds=dist_s, bench_seconds=bench_s)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

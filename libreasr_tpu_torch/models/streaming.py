@@ -577,6 +577,19 @@ class StreamingEngine:
                 done.record(torch.cuda.current_stream(self.device))
         return _Outputs(host, done, (ch, fl))
 
+    def replay_captured(self, k: int) -> None:
+        """Replay the captured step k times on the inputs the last step
+        loaded: the device side of k steps, without their input and
+        output copies. Nothing waits for the device. Only on the card."""
+        if self._shards is not None or self._graph is None:
+            raise RuntimeError("libreasr_tpu_torch: replay_captured needs the "
+                               "engine's CUDA graph (one card, a bundle on cuda)")
+        with torch.no_grad(), _on_device(self.device):
+            for _ in range(k):
+                self._graph.replay()
+                self.replays += 1
+                self.steps += 1
+
     def _step_device(self, chunks, valid=None, reset=None) -> _Outputs:
         """Launch one step; returns its outputs ([1, N, K+1] once done).
         No host sync. chunks: [N, n_buffer, chunk_samples]."""

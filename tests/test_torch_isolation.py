@@ -64,7 +64,7 @@ def test_importing_every_module_loads_no_jax():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'libreasr_tpu', 'pandas', 'tensorboardX'))\n"
-        "assert len(mods) >= 62, mods\n"
+        "assert len(mods) >= 68, mods\n"
         "assert {'libreasr_tpu_torch.ops.quant', 'libreasr_tpu_torch.data.bpe',"
         " 'libreasr_tpu_torch.ops.rnnt_loss', 'libreasr_tpu_torch.ops.fused_loss',"
         " 'libreasr_tpu_torch.ops.kernels.joint_lp',"
@@ -91,7 +91,12 @@ def test_importing_every_module_loads_no_jax():
         " 'libreasr_tpu_torch.scripts.import_reference',"
         " 'libreasr_tpu_torch.flops', 'libreasr_tpu_torch.scripts.train_960',"
         " 'libreasr_tpu_torch.scripts.convert',"
-        " 'libreasr_tpu_torch.scripts.download_corpora'}"
+        " 'libreasr_tpu_torch.scripts.download_corpora',"
+        " 'libreasr_tpu_torch.bench', 'libreasr_tpu_torch.scripts.bench_serving',"
+        " 'libreasr_tpu_torch.scripts.bench_train_step',"
+        " 'libreasr_tpu_torch.scripts.bench_step_parts',"
+        " 'libreasr_tpu_torch.scripts.bench_loss_parts',"
+        " 'libreasr_tpu_torch.scripts.bench_pallas'}"
         " <= set(mods), mods\n"
         "print('OK', len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -117,6 +122,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
     assert libreasr_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("bench", None),
+    ("scripts.bench_serving", []),
+    ("scripts.bench_serving", ["--transport", "inproc"]),
+    ("scripts.bench_serving", ["--role", "server"]),
+    ("scripts.bench_train_step", []),
+    ("scripts.bench_step_parts", []),
+    ("scripts.bench_loss_parts", []),
+    ("scripts.bench_pallas", []),
+    ("scripts.bench_pallas", ["--train"]),
+])
+def test_bench_entry_points_raise_without_a_card(monkeypatch, module, argv):
+    """The benchmark harness has no CPU path: every main raises, naming
+    cuda, before it builds or times anything."""
+    import importlib
+
+    mod = importlib.import_module(f"libreasr_tpu_torch.{module}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main() if argv is None else mod.main(argv)
 
 
 def test_streaming_and_serving_entry_points_default_to_cuda(monkeypatch, tmp_path):
