@@ -2607,6 +2607,10 @@ def _stream_through(servicer, clips, sr: int = 16000, paced: bool = False):
     return texts, [x for li in lat for x in li], over, errors
 
 
+# the stages ASRServicer.timings reports once a unary call and a stream ran
+SERVING_STAGES = {"preprocess", "transcribe", "stream_step"}
+
+
 def phase_serving(seed: int, card: str) -> None:
     import numpy as np
     import torch
@@ -2675,7 +2679,7 @@ def phase_serving(seed: int, card: str) -> None:
         memory_before_mib=before_mib, errors=errors[:3])
     if launches != want or stream_launches != want or errors \
             or len(over_ms) != len(clips) or not len(lat_ms) \
-            or any(t is None for t in texts):
+            or any(t is None for t in texts) or set(timings) != SERVING_STAGES:
         raise AssertionError("serving at full width failed")
 
 
@@ -3140,7 +3144,7 @@ def phase_serving_beam(seed: int, card: str, bundle) -> None:
         memory_before_mib=before_mib, errors=errors[:3])
     if launches != want or stream_launches or errors or p50 is None \
             or len(over_ms) != len(clips) or any(t is None for t in texts) \
-            or eng.replays != eng.steps:
+            or eng.replays != eng.steps or set(timings) != SERVING_STAGES:
         raise AssertionError("serving_beam at full width failed")
 
 

@@ -36,12 +36,19 @@ one sub-engine a device, with its own copy of the weights, its own
 state and, on the card, its own CUDA graph; slot s lives on device
 s // (N / D). A step dispatches every device's replay before it
 collects any. The host side (slots, buffers, outboxes) stays one.
+
+While tracing is on (libreasr_tpu_torch.telemetry) the engine records
+spans of its dispatch's parts, its collect and its slot churn, counts
+its sub-steps and rows (valid and masked, by cause), and on the card
+times each chain with CUDA events for the card's idle gap before it.
+Off, each costs a flag test.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from dataclasses import dataclass
 from typing import Any
 
@@ -49,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .. import telemetry as tel
 from ..ops.frontend import FrontendConfig, dft_mel_matrices
 from .beam import (BeamState, beam_frame, collapse_to_best, init_beam_state,
                    repeat_rows)
@@ -205,13 +213,24 @@ class _Joined:
     """The outputs of every device of a mesh engine, joined along the
     streams in slot order once each has landed."""
 
-    __slots__ = ("parts",)
+    __slots__ = ("parts", "seq")
 
-    def __init__(self, parts):
-        self.parts = parts
+    def __init__(self, parts, seq):
+        self.parts, self.seq = parts, seq
+
+    def wait(self) -> None:
+        for p in self.parts:
+            p.wait()
 
     def numpy(self) -> np.ndarray:
-        return np.concatenate([p.numpy() for p in self.parts], axis=1)
+        self.wait()
+        gaps = [g for p in self.parts if (g := p.take_gap()) is not None]
+        if gaps:
+            # one gap a chain, as `engine.steps` counts it once: the mean
+            # of the cards' idle gaps, ending at the mean enqueue time
+            sec, t_enq, tid = zip(*gaps)
+            tel.gap(sum(sec) / len(gaps), sum(t_enq) // len(gaps), tid[0])
+        return np.concatenate([p.host.numpy() for p in self.parts], axis=1)
 
 
 def _bundle_on(bundle, device):
@@ -235,16 +254,42 @@ def _on_device(device: torch.device):
 class _Outputs:
     """The packed outputs [k, N, K+1] int32 of k sub-steps, in host
     memory (pinned on the card) once `done` has passed; `staging` keeps
-    the pinned inputs alive until then."""
+    the pinned inputs alive until then.
 
-    __slots__ = ("host", "done", "staging")
+    A chain enqueued on the card while tracing was on holds a timed
+    event recorded before its first input copy (`start`, enqueued at
+    host time `t_enq` by thread `tid`) and, if the chain before it was
+    traced too, that chain's timed end event (`prev`): the first read of
+    its outputs adds the card's idle gap between the two to the
+    telemetry (a mesh engine's `_Joined`, the mean over its cards)."""
 
-    def __init__(self, host, done, staging):
-        self.host, self.done, self.staging = host, done, staging
+    __slots__ = ("host", "done", "staging", "seq", "start", "prev", "t_enq",
+                 "tid")
 
-    def numpy(self) -> np.ndarray:
+    def __init__(self, host, done, staging, seq, start=None, prev=None,
+                 t_enq=0, tid=0):
+        self.host, self.done, self.staging, self.seq = host, done, staging, seq
+        self.start, self.prev, self.t_enq, self.tid = start, prev, t_enq, tid
+
+    def wait(self) -> None:
         if self.done is not None:
             self.done.synchronize()
+
+    def take_gap(self):
+        """The card's idle gap before this chain, once it has landed and
+        only once: (seconds, host ns its start was enqueued, thread), or
+        None."""
+        gap = None
+        if self.start is not None and self.prev is not None:
+            gap = (self.prev.elapsed_time(self.start) / 1e3, self.t_enq,
+                   self.tid)
+        self.start = self.prev = None
+        return gap
+
+    def numpy(self) -> np.ndarray:
+        self.wait()
+        if (gap := self.take_gap()) is not None:
+            tel.gap(*gap)
         return self.host.numpy()
 
 
@@ -288,6 +333,9 @@ class StreamingEngine:
         self.mesh = mesh
         self.replays = 0  # CUDA graph replays (every step on the card)
         self.steps = 0    # device steps run
+        self._seq = 0     # chains enqueued: the dispatch spans' ids
+        self._prev_done = None  # the last chain's end event, if traced
+        self._shard = False  # a mesh engine's part: the outer one counts
         self._shards = None
         if mesh is None:
             with _on_device(self.device):
@@ -299,6 +347,8 @@ class StreamingEngine:
                 StreamingEngine(_bundle_on(bundle, grid[i, 0, 0]), per,
                                 self.scfg, use_lm)
                 for i in range(mesh.size("data"))]
+            for sh in self._shards:
+                sh._shard = True
         self._init_host()
 
     def _init_device(self) -> None:
@@ -528,15 +578,35 @@ class StreamingEngine:
         return np.ascontiguousarray(chunks, dtype=np.int16 if
                                     self._wire == torch.int16 else np.float32)
 
-    def _run_chain(self, k: int, chunks, valid, reset) -> _Outputs:
+    def _count_chain(self, k: int, valid, masked) -> None:
+        """Telemetry of one chain: its sub-steps, valid rows and the
+        masked rows by cause (rows + masked = N * k); masked None: a
+        caller's own mask (warm-up, step_batch), closed slots counted as
+        inactive and open ones as empty."""
+        valid = np.asarray(valid, bool)
+        if masked is None:
+            off = ~valid
+            masked = {"inactive": int((off & ~self.active).sum()),
+                      "empty": int((off & self.active).sum())}
+        tel.count("engine.steps", k)
+        tel.count("engine.rows", int(valid.sum()))
+        for why in ("inactive", "empty", "short", "gated"):
+            tel.count("engine.rows_masked." + why, masked.get(why, 0))
+
+    def _run_chain(self, k: int, chunks, valid, reset,
+                   masked: dict | None = None):
         """Run k steps in order, one graph replay each on the card.
-        chunks: [k, N, n_buffer, C]; valid/reset: [k, N] bool. Nothing
-        waits for the device: the returned outputs land on the host when
-        their event passes."""
+        chunks: [k, N, n_buffer, C]; valid/reset: [k, N] bool; masked:
+        the masked rows by cause, for the telemetry. Nothing waits for
+        the device: the returned outputs land on the host when their
+        event passes."""
         if self.bundle.model is not self.model:
             raise RuntimeError(
                 "libreasr_tpu_torch: the bundle's model changed (quantize?) "
                 "after this StreamingEngine was built; build a new engine")
+        self._seq += 1
+        if not self._shard and tel.on():
+            self._count_chain(k, valid, masked)
         if self._shards is not None:
             # every device's replays are enqueued before any is collected
             per = self.n // len(self._shards)
@@ -549,16 +619,31 @@ class StreamingEngine:
                                            reset[:, rows]))
             self.replays = sum(sh.replays for sh in self._shards)
             self.steps += k
-            return _Joined(parts)
+            return _Joined(parts, self._seq)
         cuda = self.device.type == "cuda"
-        ch = torch.from_numpy(self._encode_chunks(chunks))
-        fl = torch.from_numpy(np.stack([np.asarray(valid, bool),
-                                        np.asarray(reset, bool)], axis=1))
-        if cuda:
-            ch, fl = ch.pin_memory(), fl.pin_memory()
-        host = torch.empty((k, self.n, self._packed.shape[1]), dtype=torch.int32,
-                           pin_memory=cuda)
-        with torch.no_grad(), _on_device(self.device):
+        seq = self._seq
+        with tel.span("engine.dispatch.encode", seq):
+            wire = self._encode_chunks(chunks)
+        with tel.span("engine.dispatch.stage", seq):
+            ch = torch.from_numpy(wire)
+            fl = torch.from_numpy(np.stack([np.asarray(valid, bool),
+                                            np.asarray(reset, bool)], axis=1))
+            if cuda:
+                ch, fl = ch.pin_memory(), fl.pin_memory()
+            host = torch.empty((k, self.n, self._packed.shape[1]),
+                               dtype=torch.int32, pin_memory=cuda)
+        # traced on the card: timed events around the chain, for the
+        # card's idle gap before it
+        timed = cuda and tel.on()
+        start = prev = None
+        t_enq = tid = 0
+        with tel.span("engine.dispatch.enqueue", seq), torch.no_grad(), \
+                _on_device(self.device):
+            if timed:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(torch.cuda.current_stream(self.device))
+                t_enq, tid = tel.now(), threading.get_ident()
+                prev = self._prev_done
             for j in range(k):
                 # sub-step j's inputs into the step's static buffers; on
                 # the card these are stream-ordered async copies
@@ -573,9 +658,10 @@ class StreamingEngine:
                 host[j].copy_(self._packed, non_blocking=True)
             done = None
             if cuda:
-                done = torch.cuda.Event()
+                done = torch.cuda.Event(enable_timing=timed)
                 done.record(torch.cuda.current_stream(self.device))
-        return _Outputs(host, done, (ch, fl))
+        self._prev_done = done if timed else None
+        return _Outputs(host, done, (ch, fl), seq, start, prev, t_enq, tid)
 
     def replay_captured(self, k: int) -> None:
         """Replay the captured step k times on the inputs the last step
@@ -584,6 +670,7 @@ class StreamingEngine:
         if self._shards is not None or self._graph is None:
             raise RuntimeError("libreasr_tpu_torch: replay_captured needs the "
                                "engine's CUDA graph (one card, a bundle on cuda)")
+        self._prev_done = None  # no idle gap across these replays
         with torch.no_grad(), _on_device(self.device):
             for _ in range(k):
                 self._graph.replay()
@@ -603,30 +690,44 @@ class StreamingEngine:
         """Advance all streams. chunks: [N, n_buffer, chunk_samples].
         Returns (tokens [N, K], token counts [N]): this step's emissions
         per stream."""
-        packed = self._step_device(chunks, valid, reset).numpy()[0]
+        with tel.span("engine.dispatch", self._seq + 1):
+            out = self._step_device(chunks, valid, reset)
+        packed = self._collected(out)[0]
         return packed[:, :-1], packed[:, -1]
+
+    def _collected(self, out) -> np.ndarray:
+        """A chain's outputs once landed, for the callers that wait at
+        once (step_batch, warm-up), under the collect spans."""
+        with tel.span("engine.collect", out.seq):
+            with tel.span("engine.collect.wait"):
+                out.wait()
+            return out.numpy()
 
     # ---- serving-facing slot API -----------------------------------------
 
     def open_slot(self) -> int:
-        for i in range(self.n):
-            if not self.active[i]:
-                self.active[i] = True
-                self._head[i] = self._tail[i] = 0
-                self.emitted[i] = []
-                self.outbox[i] = []
-                self.silence_ms[i] = 0
-                self._eos_done[i] = False
-                self._flushed[i] = False
-                self._pending_reset_arr[i] = True
-                self._reset_epoch[i] += 1  # invalidate in-flight collects
-                self._inflight[i] = 0  # fresh stream: old steps are stale
-                return i
+        with tel.span("engine.open_slot") as sp:
+            for i in range(self.n):
+                if not self.active[i]:
+                    if sp is not None:
+                        sp.id = i
+                    self.active[i] = True
+                    self._head[i] = self._tail[i] = 0
+                    self.emitted[i] = []
+                    self.outbox[i] = []
+                    self.silence_ms[i] = 0
+                    self._eos_done[i] = False
+                    self._flushed[i] = False
+                    self._pending_reset_arr[i] = True
+                    self._reset_epoch[i] += 1  # invalidate in-flight collects
+                    self._inflight[i] = 0  # fresh stream: old steps are stale
+                    return i
         raise RuntimeError("no free stream slots")
 
     def close_slot(self, slot: int):
-        self.flush_slot(slot)
-        self.active[slot] = False
+        with tel.span("engine.close_slot", slot):
+            self.flush_slot(slot)
+            self.active[slot] = False
 
     def flush_slot(self, slot: int):
         """Beam mode: commit the best beam's uncommitted tail when the
@@ -640,6 +741,10 @@ class StreamingEngine:
         but the slot's own dispatched steps must have been collected
         first, or their committed tokens would land after the tail:
         with any in flight this raises."""
+        with tel.span("engine.flush_slot", slot):
+            self._flush(slot)
+
+    def _flush(self, slot: int):
         if not self.beam or self._eos_done[slot] or self._flushed[slot]:
             return
         if self._inflight[slot]:
@@ -652,10 +757,11 @@ class StreamingEngine:
             owner, row = divmod(slot, self.n // len(self._shards))
             owner = self._shards[owner]
         beam = owner.state.decode
-        best = int(torch.argmax(beam.scores[row]))
-        n_rest = int(beam.y_len[row, best])
+        with tel.span("engine.flush_slot.read", slot):
+            best = int(torch.argmax(beam.scores[row]))
+            n_rest = int(beam.y_len[row, best])
+            ids = beam.y_buf[row, best, :n_rest].tolist() if n_rest > 0 else []
         if n_rest > 0:
-            ids = beam.y_buf[row, best, :n_rest].tolist()
             eos = getattr(self.bundle.lang, "eos", None)
             if eos is not None and eos in ids:
                 ids = ids[: ids.index(eos)]
@@ -686,26 +792,28 @@ class StreamingEngine:
                            np.int64, self.n)
 
     def append_samples(self, slot: int, pcm: np.ndarray):
-        t, n = self._tail[slot], len(pcm)
-        if t + n > self._buf.shape[1]:
-            h = int(self._head[slot])
-            if t - h + n <= self._buf.shape[1]:
-                # compact: slide the unread tail to the front (.copy():
-                # the ranges may overlap)
-                self._buf[slot, : t - h] = self._buf[slot, h:t].copy()
-            else:
-                # a slot outran the consumer: grow every row
-                cap = self._buf.shape[1]
-                while t - h + n > cap:
-                    cap *= 2
-                nb = np.zeros((self.n, cap), np.float32)
-                nb[:, : self._buf.shape[1]] = self._buf
-                self._buf = nb
-                self._buf[slot, : t - h] = self._buf[slot, h:t].copy()
-            self._tail[slot] = t = t - h
-            self._head[slot] = 0
-        self._buf[slot, t : t + n] = pcm
-        self._tail[slot] = t + n
+        with tel.span("engine.append", slot):
+            t, n = self._tail[slot], len(pcm)
+            if t + n > self._buf.shape[1]:
+                h = int(self._head[slot])
+                if t - h + n <= self._buf.shape[1]:
+                    # compact: slide the unread tail to the front (.copy():
+                    # the ranges may overlap)
+                    self._buf[slot, : t - h] = self._buf[slot, h:t].copy()
+                else:
+                    # a slot outran the consumer: grow every row
+                    tel.count("engine.ring_grows")
+                    cap = self._buf.shape[1]
+                    while t - h + n > cap:
+                        cap *= 2
+                    nb = np.zeros((self.n, cap), np.float32)
+                    nb[:, : self._buf.shape[1]] = self._buf
+                    self._buf = nb
+                    self._buf[slot, : t - h] = self._buf[slot, h:t].copy()
+                self._tail[slot] = t = t - h
+                self._head[slot] = 0
+            self._buf[slot, t : t + n] = pcm
+            self._tail[slot] = t + n
 
     def ready_slots(self):
         need = self.samples_per_step
@@ -718,31 +826,42 @@ class StreamingEngine:
         dispatch the next step before collecting this one."""
         scfg = self.scfg
         c, need = scfg.chunk_samples, self.samples_per_step
-        # a slot whose in-flight steps may cross its silence threshold
-        # waits for their collect: the auto-reset they would set has to
-        # apply before the slot steps again
-        step_ms = scfg.chunk_ms * scfg.n_buffer
-        gated = (self._inflight > 0) & (
-            self.silence_ms + self._inflight * step_ms >= scfg.reset_thresh_ms)
-        valid = self.active & (self._fill() >= need) & ~gated
-        if not valid.any():
-            return None
-        rows = np.nonzero(valid)[0]
-        chunks = np.zeros((self.n, scfg.n_buffer, c), np.float32)
-        cv = chunks.reshape(self.n, need)
-        buf, head = self._buf, self._head
-        for i in rows:
-            h = head[i]
-            cv[i] = buf[i, h : h + need]
-            head[i] = h + need
-        reset = self._pending_reset & valid
-        out = self._step_device(chunks, valid, reset)
-        self._eos_done[reset] = False
-        # a reset invalidates any step dispatched before it
-        self._reset_epoch[reset] += 1
-        self._pending_reset_arr[valid] = False
-        self._inflight[valid] += 1
-        return (out, valid, self._reset_epoch.copy())
+        with tel.span("engine.dispatch", self._seq + 1):
+            with tel.span("engine.dispatch.gather"):
+                # a slot whose in-flight steps may cross its silence
+                # threshold waits for their collect: the auto-reset they
+                # would set has to apply before the slot steps again
+                step_ms = scfg.chunk_ms * scfg.n_buffer
+                gated = (self._inflight > 0) & (
+                    self.silence_ms + self._inflight * step_ms
+                    >= scfg.reset_thresh_ms)
+                has = self._fill() >= need
+                valid = self.active & has & ~gated
+                if not valid.any():
+                    return None
+                rows = np.nonzero(valid)[0]
+                chunks = np.zeros((self.n, scfg.n_buffer, c), np.float32)
+                cv = chunks.reshape(self.n, need)
+                buf, head = self._buf, self._head
+                for i in rows:
+                    h = head[i]
+                    cv[i] = buf[i, h : h + need]
+                    head[i] = h + need
+                reset = self._pending_reset & valid
+            masked = None
+            if tel.on():
+                act = self.active
+                masked = {"inactive": int((~act).sum()),
+                          "empty": int((act & ~has).sum()),
+                          "gated": int((act & has & gated).sum())}
+            out = self._run_chain(1, chunks[None], valid[None], reset[None],
+                                  masked)
+            self._eos_done[reset] = False
+            # a reset invalidates any step dispatched before it
+            self._reset_epoch[reset] += 1
+            self._pending_reset_arr[valid] = False
+            self._inflight[valid] += 1
+            return (out, valid, self._reset_epoch.copy())
 
     def _silence_gated(self, i: int) -> bool:
         """True when slot i's worst-case silence, counting every in-flight
@@ -768,39 +887,50 @@ class StreamingEngine:
         when nothing is ready."""
         scfg = self.scfg
         c, need = scfg.chunk_samples, self.samples_per_step
-        avail = np.where(self.active, np.minimum(self._fill() // need, k),
-                         0).astype(np.int64)
-        # resets apply only at a chain's first sub-step, so each slot's
-        # depth is capped at the steps until its silence threshold could
-        # cross (in-flight sub-steps counted as silent): the crossing then
-        # falls on the chain's last sub-step at the earliest, and its
-        # reset applies at the next dispatch, the sequential cadence
-        step_ms = scfg.chunk_ms * scfg.n_buffer
-        sil = self.silence_ms + self._inflight * step_ms
-        m = -(-(scfg.reset_thresh_ms - sil) // step_ms)
-        avail = np.minimum(avail, np.maximum(m, 0))
-        if not avail.any():
-            return None
-        chunks = np.zeros((k, self.n, scfg.n_buffer, c), np.float32)
-        valid = np.arange(k)[:, None] < avail[None, :]       # [k, N]
-        cv = chunks.reshape(k, self.n, need)
-        buf, head = self._buf, self._head
-        for i in np.nonzero(avail)[0]:
-            a, h = int(avail[i]), head[i]
-            cv[:a, i] = buf[i, h : h + a * need].reshape(a, need)
-            head[i] = h + a * need
-        # a slot's backlog is contiguous, so its first sub-step is j=0:
-        # pending resets apply there only
-        v0 = valid[0]
-        reset = np.zeros((k, self.n), bool)
-        reset[0] = self._pending_reset & v0
-        out = self._run_chain(k, chunks, valid, reset)
-        r0 = reset[0]
-        self._eos_done[r0] = False
-        self._reset_epoch[r0] += 1
-        self._pending_reset_arr[v0] = False
-        self._inflight += avail
-        return (out, valid, self._reset_epoch.copy())
+        with tel.span("engine.dispatch", self._seq + 1):
+            with tel.span("engine.dispatch.gather"):
+                depth = self._fill() // need
+                ahead = np.where(self.active, np.minimum(depth, k),
+                                 0).astype(np.int64)
+                # resets apply only at a chain's first sub-step, so each
+                # slot's depth is capped at the steps until its silence
+                # threshold could cross (in-flight sub-steps counted as
+                # silent): the crossing then falls on the chain's last
+                # sub-step at the earliest, and its reset applies at the
+                # next dispatch, the sequential cadence
+                step_ms = scfg.chunk_ms * scfg.n_buffer
+                sil = self.silence_ms + self._inflight * step_ms
+                m = -(-(scfg.reset_thresh_ms - sil) // step_ms)
+                avail = np.minimum(ahead, np.maximum(m, 0))
+                if not avail.any():
+                    return None
+                chunks = np.zeros((k, self.n, scfg.n_buffer, c), np.float32)
+                valid = np.arange(k)[:, None] < avail[None, :]       # [k, N]
+                cv = chunks.reshape(k, self.n, need)
+                buf, head = self._buf, self._head
+                for i in np.nonzero(avail)[0]:
+                    a, h = int(avail[i]), head[i]
+                    cv[:a, i] = buf[i, h : h + a * need].reshape(a, need)
+                    head[i] = h + a * need
+                # a slot's backlog is contiguous, so its first sub-step is
+                # j=0: pending resets apply there only
+                v0 = valid[0]
+                reset = np.zeros((k, self.n), bool)
+                reset[0] = self._pending_reset & v0
+            masked = None
+            if tel.on():
+                act, some = self.active, self.active & (depth > 0)
+                masked = {"inactive": k * int((~act).sum()),
+                          "empty": k * int((act & (depth == 0)).sum()),
+                          "short": int((k - ahead)[some].sum()),
+                          "gated": int((ahead - avail).sum())}
+            out = self._run_chain(k, chunks, valid, reset, masked)
+            r0 = reset[0]
+            self._eos_done[r0] = False
+            self._reset_epoch[r0] += 1
+            self._pending_reset_arr[v0] = False
+            self._inflight += avail
+            return (out, valid, self._reset_epoch.copy())
 
     def step_collect(self, pending) -> None:
         """Phase 2: wait for a dispatched step's outputs and distribute
@@ -808,18 +938,23 @@ class StreamingEngine:
         ([N] valid) and chained ([k, N] valid) records; chained sub-steps
         distribute in order."""
         out, valid, epochs = pending
-        packed = out.numpy()
-        sub = valid.sum(axis=0) if valid.ndim == 2 else valid.astype(np.int64)
-        # a reopened slot's new occupant owns the zeroed in-flight count:
-        # an old occupant's collect must not decrement it
-        sub = np.where(epochs == self._reset_epoch, sub, 0)
-        self._inflight = np.maximum(self._inflight - sub, 0)
-        if valid.ndim == 2:
-            for j in range(valid.shape[0]):
-                if valid[j].any():
-                    self._distribute(packed[j], valid[j], epochs)
-            return
-        self._distribute(packed[0], valid, epochs)
+        with tel.span("engine.collect", out.seq):
+            with tel.span("engine.collect.wait"):
+                out.wait()
+            packed = out.numpy()
+            with tel.span("engine.collect.distribute"):
+                sub = (valid.sum(axis=0) if valid.ndim == 2
+                       else valid.astype(np.int64))
+                # a reopened slot's new occupant owns the zeroed in-flight
+                # count: an old occupant's collect must not decrement it
+                sub = np.where(epochs == self._reset_epoch, sub, 0)
+                self._inflight = np.maximum(self._inflight - sub, 0)
+                if valid.ndim == 2:
+                    for j in range(valid.shape[0]):
+                        if valid[j].any():
+                            self._distribute(packed[j], valid[j], epochs)
+                    return
+                self._distribute(packed[0], valid, epochs)
 
     def _distribute(self, packed, valid, epochs) -> None:
         toks, lens = packed[:, :-1], packed[:, -1]
@@ -867,9 +1002,11 @@ class StreamingEngine:
             self.step_batch(np.zeros((self.n, nb, c), np.float32))
         for k in chain_depths:
             k = int(k)
-            self._run_chain(k, np.zeros((k, self.n, nb, c), np.float32),
-                            np.zeros((k, self.n), bool),
-                            np.zeros((k, self.n), bool)).numpy()
+            with tel.span("engine.dispatch", self._seq + 1):
+                out = self._run_chain(k, np.zeros((k, self.n, nb, c), np.float32),
+                                      np.zeros((k, self.n), bool),
+                                      np.zeros((k, self.n), bool))
+            self._collected(out)
 
     def drain(self, slot: int) -> str:
         """Pop this slot's undelivered text."""
@@ -889,16 +1026,18 @@ class StreamingEngine:
     def finish_slot(self, slot: int) -> str:
         """Stream end: zero-pad the sub-chunk sample remainder, run the
         final step(s) and return everything undelivered."""
-        if not self.active[slot]:
+        with tel.span("engine.finish_slot", slot):
+            if not self.active[slot]:
+                return self.drain(slot)
+            need = self.samples_per_step
+            rem = self._tail[slot] - self._head[slot]
+            if rem > 0 and rem % need:
+                self.append_samples(slot, np.zeros(need - rem % need,
+                                                   np.float32))
+            while self._tail[slot] - self._head[slot] >= need:
+                self.step_ready()
+            self.flush_slot(slot)
             return self.drain(slot)
-        need = self.samples_per_step
-        rem = self._tail[slot] - self._head[slot]
-        if rem > 0 and rem % need:
-            self.append_samples(slot, np.zeros(need - rem % need, np.float32))
-        while self._tail[slot] - self._head[slot] >= need:
-            self.step_ready()
-        self.flush_slot(slot)
-        return self.drain(slot)
 
     def transcript(self, slot: int) -> str:
         return self.bundle.lang.denumericalize(self.emitted[slot])

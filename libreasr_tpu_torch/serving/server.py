@@ -21,35 +21,39 @@ import argparse
 import os
 import threading
 import time
-from collections import defaultdict
 from concurrent import futures
 
+from .. import telemetry as tel
 from ..utils import tensorize
 from . import proto
 
 LANG_PORTS = {"en": 50051, "de": 50052, "fr": 50053}
 
+# the serving stages ASRServicer.timings reports, by the telemetry stage
+# that times each
+STAGES = {"preprocess": "server.preprocess",
+          "transcribe": "server.transcribe",
+          "stream_step": "stepper.step"}
 
-class StageTimings:
-    """Per-stage latency counters served as metrics."""
+
+class Timings:
+    """Per-stage latency (mean ms and count) of the serving stages since
+    this object was made, from the telemetry's stage totals: timed
+    always, tracing or not, and left alone by `telemetry.reset()`."""
 
     def __init__(self):
-        self._sum = defaultdict(float)
-        self._count = defaultdict(int)
-        self._lock = threading.Lock()
-
-    def record(self, stage: str, seconds: float):
-        with self._lock:
-            self._sum[stage] += seconds
-            self._count[stage] += 1
+        self._base = tel.stages()
 
     def snapshot(self) -> dict[str, dict]:
-        with self._lock:
-            return {
-                k: {"avg_ms": 1e3 * self._sum[k] / max(self._count[k], 1),
-                    "count": self._count[k]}
-                for k in self._sum
-            }
+        now = tel.stages()
+        out = {}
+        for stage, name in STAGES.items():
+            n0, s0 = self._base.get(name, (0, 0.0))
+            n, s = now.get(name, (0, 0.0))
+            if n > n0:
+                out[stage] = {"avg_ms": 1e3 * (s - s0) / (n - n0),
+                              "count": n - n0}
+        return out
 
 
 class StreamHandle:
@@ -86,11 +90,17 @@ class BatchStepper:
     per-slot delivery queues; they never touch the engine, so a slow
     step cannot head-of-line-block other connections' feeds, and N
     concurrent streams cost about one step per chunk interval. All
-    engine access happens on this thread."""
+    engine access happens on this thread.
 
-    def __init__(self, engine, timings: StageTimings | None = None):
+    Spans (while tracing is on): `stepper.queue_wait` (a pcm item's
+    enqueue to its append into the engine), `stepper.dispatch`,
+    `stepper.collect`, `stepper.deliver`, `stepper.step` (a wake-up that
+    stepped: the `stream_step` stage, timed always) and `stepper.final`
+    (a stream's finish to its tail's delivery); queue waits and finals
+    carry the slot and generation."""
+
+    def __init__(self, engine):
         self.engine = engine
-        self.timings = timings
         self.cv = threading.Condition()
         self._staging: list[tuple] = []
         self._delivery: list[list[str]] = [[] for _ in range(engine.n)]
@@ -119,8 +129,9 @@ class BatchStepper:
     # -- internal ----------------------------------------------------------
 
     def _enqueue(self, kind, slot, gen, payload):
+        t = tel.now()
         with self.cv:
-            self._staging.append((kind, slot, gen, payload))
+            self._staging.append((kind, slot, gen, payload, t))
             self.cv.notify_all()
 
     def _poll(self, slot, timeout):
@@ -138,18 +149,44 @@ class BatchStepper:
             return self._run_sync()
         return self._run_pipelined()
 
+    def _append(self, live):
+        for kind, slot, gen, pcm, t in live:
+            if kind == "pcm":
+                self.engine.append_samples(slot, pcm)
+                tel.record("stepper.queue_wait", t, (slot, gen))
+
+    def _finish(self, live, finished_now) -> bool:
+        """This wake-up's finishes and closes, in order: a finish runs
+        the final pad and steps and queues its tail. Returns whether one
+        ran."""
+        eng = self.engine
+        stepped = False
+        for kind, slot, gen, _, t in live:
+            if kind == "finish":
+                tail = eng.finish_slot(slot)
+                stepped = True
+                finished_now.append((slot, gen, tail, t))
+            elif kind == "close":
+                eng.close_slot(slot)
+        return stepped
+
     def _deliver(self, finished_now):
         eng = self.engine
-        with self.cv:
+        with tel.span("stepper.deliver"), self.cv:
             for i in range(eng.n):
                 t = eng.drain(i)
                 if t:
                     self._delivery[i].append(t)
-            for s, tail in finished_now:
+            for s, gen, tail, t_fin in finished_now:
                 if tail:
                     self._delivery[s].append(tail)
                 self._finished[s] = True
+                tel.record("stepper.final", t_fin, (s, gen))
             self.cv.notify_all()
+
+    def _collect(self, pending):
+        with tel.span("stepper.collect"):
+            self.engine.step_collect(pending)
 
     def _run_sync(self):
         """Synchronous step-per-wakeup (no pipeline, no pacing): an A/B
@@ -164,23 +201,15 @@ class BatchStepper:
             if not staging:
                 continue
             live = [it for it in staging if it[2] == self._gen[it[1]]]
-            for kind, slot, _, pcm in live:
-                if kind == "pcm":
-                    eng.append_samples(slot, pcm)
-            t0 = time.perf_counter()
+            self._append(live)
+            t0 = time.perf_counter_ns()
             stepped = False
             while eng.step_ready():
                 stepped = True
             finished_now = []
-            for kind, slot, _, _ in live:
-                if kind == "finish":
-                    tail = eng.finish_slot(slot)
-                    stepped = True
-                    finished_now.append((slot, tail))
-                elif kind == "close":
-                    eng.close_slot(slot)
-            if stepped and self.timings is not None:
-                self.timings.record("stream_step", time.perf_counter() - t0)
+            stepped |= self._finish(live, finished_now)
+            if stepped:
+                tel.stage_since("stepper.step", t0)
             self._deliver(finished_now)
 
     def _dispatch(self):
@@ -189,16 +218,16 @@ class BatchStepper:
         from ..models.streaming import CHAIN_DEPTHS
 
         eng = self.engine
-        depth = eng.backlog_depth()
-        if depth >= 2:
-            kk = 2
-            while kk * 2 <= min(depth, CHAIN_DEPTHS[-1]):
-                kk *= 2
-            return eng.step_dispatch_chained(kk)
-        return eng.step_dispatch()
+        with tel.span("stepper.dispatch"):
+            depth = eng.backlog_depth()
+            if depth >= 2:
+                kk = 2
+                while kk * 2 <= min(depth, CHAIN_DEPTHS[-1]):
+                    kk *= 2
+                return eng.step_dispatch_chained(kk)
+            return eng.step_dispatch()
 
     def _run_pipelined(self):
-        dbg = bool(os.environ.get("LIBREASR_STEP_DEBUG"))
         eng = self.engine
         pending = None  # depth-1 step pipeline (StreamingEngine.step_dispatch)
         # dispatch pacing: without it the loop steps at its own (fast)
@@ -225,26 +254,18 @@ class BatchStepper:
             # current-generation items only (per-slot order is kept: a
             # connection's pcm precedes its finish precedes its close)
             live = [it for it in staging if it[2] == self._gen[it[1]]]
-            for kind, slot, _, pcm in live:
-                if kind == "pcm":
-                    eng.append_samples(slot, pcm)
+            self._append(live)
             has_finish = any(it[0] in ("finish", "close") for it in live)
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             stepped = False
-            if has_finish or t0 >= next_dispatch:
+            if has_finish or time.perf_counter() >= next_dispatch:
                 # dispatch step k+1 before collecting step k, so the
                 # host's bookkeeping of k overlaps k+1's device work
                 while (p := self._dispatch()) is not None:
-                    td = time.perf_counter()
                     stepped = True
                     if pending is not None:
-                        eng.step_collect(pending)
+                        self._collect(pending)
                     pending = p
-                    if dbg:
-                        print(f"[stepper] dispatch n={int(p[1].sum())} "
-                              f"disp={1e3 * (td - t0):.1f}ms "
-                              f"coll={1e3 * (time.perf_counter() - td):.1f}ms",
-                              flush=True)
                 if stepped:
                     next_dispatch = time.perf_counter() + coalesce_s
             if pending is not None and (
@@ -253,26 +274,15 @@ class BatchStepper:
             ):
                 # collect before finish/close (ordering), or once the
                 # pacing window passed with nothing new to overlap
-                tc = time.perf_counter()
-                eng.step_collect(pending)
+                self._collect(pending)
                 pending = None
-                if dbg:
-                    print(f"[stepper] tail-collect "
-                          f"{1e3 * (time.perf_counter() - tc):.1f}ms", flush=True)
             finished_now = []
-            for kind, slot, _, _ in live:
-                if kind == "finish":
-                    # final pad + steps; returns the tail text
-                    tail = eng.finish_slot(slot)
-                    stepped = True
-                    finished_now.append((slot, tail))
-                elif kind == "close":
-                    eng.close_slot(slot)
+            stepped |= self._finish(live, finished_now)
             # anything still buffered was deferred by pacing: the next
             # wait wakes at the pacing deadline to dispatch it
             deferred = bool(eng.ready_slots())
-            if stepped and self.timings is not None:
-                self.timings.record("stream_step", time.perf_counter() - t0)
+            if stepped:
+                tel.stage_since("stepper.step", t0)
             self._deliver(finished_now)
 
 
@@ -312,8 +322,8 @@ class ASRServicer:
                 bundle, n_streams=sc.get("max_streams", max_streams), scfg=scfg,
                 use_lm=use_lm and bundle.lm is not None)
         self.engine = engine
-        self.timings = StageTimings()
-        self.stepper = BatchStepper(engine, self.timings)
+        self.timings = Timings()
+        self.stepper = BatchStepper(engine)
 
     def _pcm(self, msg):
         """An Audio message's float32 pcm at the bundle's rate."""
@@ -327,19 +337,17 @@ class ASRServicer:
     # -- unary -------------------------------------------------------------
 
     def Transcribe(self, request: proto.Audio, context=None) -> proto.Transcript:
-        t0 = time.perf_counter()
-        pcm = self._pcm(request)
-        self.timings.record("preprocess", time.perf_counter() - t0)
-        t1 = time.perf_counter()
-        if self.beam_width > 1:
-            text, _ = self.bundle.transcribe_beam(
-                pcm, beam_width=self.beam_width, use_lm=self.use_lm,
-                lm_alpha=self.lm_alpha, lm_beta=self.lm_beta)
-        else:
-            # greedy unary decodes without the LM, as in JAX (use_lm
-            # reaches the unary call through beam search only)
-            text, _ = self.bundle.transcribe(pcm)
-        self.timings.record("transcribe", time.perf_counter() - t1)
+        with tel.stage("server.preprocess"):
+            pcm = self._pcm(request)
+        with tel.stage("server.transcribe"):
+            if self.beam_width > 1:
+                text, _ = self.bundle.transcribe_beam(
+                    pcm, beam_width=self.beam_width, use_lm=self.use_lm,
+                    lm_alpha=self.lm_alpha, lm_beta=self.lm_beta)
+            else:
+                # greedy unary decodes without the LM, as in JAX (use_lm
+                # reaches the unary call through beam search only)
+                text, _ = self.bundle.transcribe(pcm)
         return proto.Transcript(data=text)
 
     # -- streaming -----------------------------------------------------------

@@ -8,7 +8,8 @@
 - `param_stats`: shape, mean and std of every floating parameter, keyed
   by its torch name (the flax path with dots, convert.py).
 - `perf_trace`: a torch.profiler trace of a region, written as a Chrome
-  trace into a log directory.
+  trace into a log directory; the program's telemetry spans
+  (libreasr_tpu_torch.telemetry) record while it runs, as ranges in it.
 - `enable_nan_debugging`: the first NaN a module outputs raises, and
   autograd's anomaly mode names the backward op that made one.
 

@@ -31,6 +31,8 @@ RENAMED = {
     "training/checkpoint.py:load_bundle": "checkpoint.py:load_bundle",
     "training/checkpoint.py:read_bundle_conf": "checkpoint.py:read_bundle_conf",
     "training/checkpoint.py:save_bundle": "checkpoint.py:save_bundle",
+    # the serving stages' latency, read from the port's telemetry registry
+    "serving/server.py:StageTimings": "serving/server.py:Timings",
     # the host libraries (audio codecs, BPE) are built from csrc/ by g++
     # at first use, through one loader
     "native/__init__.py:audio_lib": "ops/kernels/build.py:load_host",
