@@ -13,7 +13,7 @@ reported against 64.
 
 Timing on the card: a step time is a host clock around steps that end
 in one wait for the device (the engine's pipelined dispatch/collect, or
-one chained pass of `StreamingEngine._run_chain`); a replay's device
+one chained pass of `StreamingEngine._launch`); a replay's device
 time comes from CUDA events around k replays of the captured step.
 
     python -m libreasr_tpu_torch.bench
@@ -205,9 +205,10 @@ def device_resident_rate(bundle, n_streams: int, n_buffer: int = 1,
                          steps: int = 24, workload: np.ndarray | None = None,
                          repeats: int = 3):
     """Real-time streams the card sustains on a staged workload: the PCM
-    for `steps` engine steps is staged once, in pinned host memory in the
-    wire dtype, before the timed region; each repeat is ONE chained pass
-    (`StreamingEngine._run_chain`: `steps` graph replays enqueued, each
+    for `steps` engine steps is encoded once into one of the engine's
+    staging buffers (pinned host memory, the wire dtype) before the timed
+    region; each repeat is ONE chained pass over it
+    (`StreamingEngine._launch`: `steps` graph replays enqueued, each
     with its input copy and output copy, then one wait). Returns (audio
     seconds over wall seconds, the median of `repeats` passes after a
     warm one; the spread across them in %).
@@ -223,18 +224,17 @@ def device_resident_rate(bundle, n_streams: int, n_buffer: int = 1,
         workload = rng.standard_normal(
             (steps, n_streams, n_buffer, scfg.chunk_samples)
         ).astype(np.float32) * 0.1
-    staged = torch.from_numpy(eng._encode_chunks(workload)).pin_memory()
-    view = staged.numpy()  # _run_chain takes it as it is: pinned already
-    if not torch.from_numpy(view).is_pinned():
-        raise AssertionError("device_resident_rate: the staged PCM is not "
-                             "pinned; the pass would copy it")
+    # the stage is free again once a pass's outputs were read, and no
+    # other dispatch writes into it
+    st = eng._stage(steps)
+    st.wire[:steps] = eng._encode_chunks(workload)
     valid = np.ones((steps, n_streams), bool)
     reset = np.zeros((steps, n_streams), bool)
-    eng._run_chain(steps, view, valid, reset).numpy()  # warm
+    eng._launch(steps, st, valid, reset).numpy()  # warm
     walls = []
     for _ in range(repeats):
         t0 = time.perf_counter()
-        eng._run_chain(steps, view, valid, reset).numpy()
+        eng._launch(steps, st, valid, reset).numpy()
         walls.append(time.perf_counter() - t0)
     wall = float(np.median(walls))
     spread = (max(walls) - min(walls)) / max(walls) * 100.0

@@ -21,6 +21,18 @@ every step is one replay of it; a k-deep chained dispatch is k replays.
 On the CPU the same function runs eagerly. A capture that fails raises:
 there is no eager path on the card.
 
+A model that computes in bf16 is stepped through a copy whose tower
+matrices (the cells' kernels and recurrent kernels, the joint's Dense
+kernels) the engine casts to bf16 once, at build: the step reads them
+without a cast, and on the card their products run on the tensor cores
+with float32 sums and outputs (ops/rnn.py:_mm). A float32 model is
+stepped as it is.
+
+Host side, the wire codec runs once per sample: with the int16 wire the
+PCM ring holds int16, encoded as the samples are appended, and a
+dispatch gathers the ready rows straight into pooled staging buffers
+(pinned on the card) that the next chains reuse.
+
 Greedy mode decodes up to `max_iters` rounds a frame (decode_frame, LM
 fusion inside the same step when `use_lm`) and emits every token at
 once. Beam mode (`beam_width` > 1) runs `max_iters` masked expansion
@@ -47,13 +59,17 @@ Off, each costs a flag test.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import itertools
 import threading
+import weakref
 from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
 from .. import resolve_device
 from .. import telemetry as tel
@@ -61,6 +77,7 @@ from ..ops.frontend import FrontendConfig, dft_mel_matrices
 from .beam import (BeamState, beam_frame, collapse_to_best, init_beam_state,
                    repeat_rows)
 from .decode import DecodeState, decode_frame, init_decode_state
+from .modules import Cell, Dense
 from .transducer import learnable_states
 
 # backlog-recovery chain depths the serving stepper escalates through
@@ -230,7 +247,7 @@ class _Joined:
             # of the cards' idle gaps, ending at the mean enqueue time
             sec, t_enq, tid = zip(*gaps)
             tel.gap(sum(sec) / len(gaps), sum(t_enq) // len(gaps), tid[0])
-        return np.concatenate([p.host.numpy() for p in self.parts], axis=1)
+        return np.concatenate([p.array() for p in self.parts], axis=1)
 
 
 def _bundle_on(bundle, device):
@@ -242,6 +259,36 @@ def _bundle_on(bundle, device):
     return type(bundle)(bundle.conf, model, bundle.lang, device, lm)
 
 
+def _tensor_core_copy(model):
+    """The model the engine steps, and the number of matrices cast for
+    it. A model that computes in a narrow type (bf16) gets a copy whose
+    towers' matrices are held in that type, cast once here: each float
+    cell's kernel and recurrent kernel (encoder, predictor) and the
+    joint's Dense kernels. Every other tensor, the biases included, is
+    the model's own, shared: a bias set in place reaches the step. A
+    float32 model is stepped as it is."""
+    dt = model.cfg.compute_dtype
+    if dt is None:
+        return model, 0
+    memo = {id(t): t for t in itertools.chain(model.parameters(),
+                                               model.buffers())}
+    net = copy.deepcopy(model, memo)
+    cast = 0
+    for mod in net.modules():
+        if isinstance(mod, Cell):
+            names = [k for k in ("kernel", "recurrent_kernel")
+                     if isinstance(getattr(mod, k), nn.Parameter)]
+        elif isinstance(mod, Dense) and mod.dtype == dt:
+            names = ["kernel"]
+        else:
+            continue
+        for k in names:
+            w = getattr(mod, k).detach().to(dt)
+            setattr(mod, k, nn.Parameter(w, requires_grad=False))
+            cast += 1
+    return net, cast
+
+
 def _on_device(device: torch.device):
     """Make `device` the current card while a sub-engine enqueues work
     (a no-op on the CPU), so that the streams, events and graph captures
@@ -251,10 +298,38 @@ def _on_device(device: torch.device):
     return torch.cuda.device(device)
 
 
+class _Stage:
+    """Pooled host buffers of one chain, pinned on the card: the wire PCM
+    [cap, N, n_buffer, C] (a dispatch gathers into it), the flags [cap,
+    2, N] (valid, reset) and the packed outputs [cap, N, W+1]. A chain
+    holds its stage until its outputs were read off it or, left unread,
+    until they are dropped and the chain's end event has passed."""
+
+    __slots__ = ("cap", "chunks", "wire", "flags", "host", "user", "done")
+
+    def __init__(self, cap, n, n_buffer, c, width, dtype, pin):
+        self.cap = cap
+        self.chunks = torch.zeros((cap, n, n_buffer, c), dtype=dtype,
+                                  pin_memory=pin)
+        self.wire = self.chunks.numpy()
+        self.flags = torch.zeros((cap, 2, n), dtype=torch.bool,
+                                 pin_memory=pin)
+        self.host = torch.zeros((cap, n, width), dtype=torch.int32,
+                                pin_memory=pin)
+        self.user = self.done = None
+
+    def free(self) -> bool:
+        out = None if self.user is None else self.user()
+        if out is not None:
+            return out.taken()
+        return self.done is None or self.done.query()
+
+
 class _Outputs:
-    """The packed outputs [k, N, K+1] int32 of k sub-steps, in host
-    memory (pinned on the card) once `done` has passed; `staging` keeps
-    the pinned inputs alive until then.
+    """The packed outputs [k, N, K+1] int32 of k sub-steps, in the
+    chain's staging buffers (pinned on the card) once `done` has passed;
+    read off them once, into an array of their own, which frees the
+    stage for another chain.
 
     A chain enqueued on the card while tracing was on holds a timed
     event recorded before its first input copy (`start`, enqueued at
@@ -263,13 +338,14 @@ class _Outputs:
     its outputs adds the card's idle gap between the two to the
     telemetry (a mesh engine's `_Joined`, the mean over its cards)."""
 
-    __slots__ = ("host", "done", "staging", "seq", "start", "prev", "t_enq",
-                 "tid")
+    __slots__ = ("host", "done", "seq", "start", "prev", "t_enq", "tid",
+                 "_array", "__weakref__")
 
-    def __init__(self, host, done, staging, seq, start=None, prev=None,
-                 t_enq=0, tid=0):
-        self.host, self.done, self.staging, self.seq = host, done, staging, seq
+    def __init__(self, host, done, seq, start=None, prev=None, t_enq=0,
+                 tid=0):
+        self.host, self.done, self.seq = host, done, seq
         self.start, self.prev, self.t_enq, self.tid = start, prev, t_enq, tid
+        self._array = None
 
     def wait(self) -> None:
         if self.done is not None:
@@ -286,16 +362,33 @@ class _Outputs:
         self.start = self.prev = None
         return gap
 
+    def taken(self) -> bool:
+        return self._array is not None
+
+    def array(self) -> np.ndarray:
+        """The outputs, copied off the staging buffer at the first call;
+        only once `done` has passed."""
+        if self._array is None:
+            self._array = self.host.numpy().copy()
+            self.host = None
+        return self._array
+
     def numpy(self) -> np.ndarray:
         self.wait()
         if (gap := self.take_gap()) is not None:
             tel.gap(*gap)
-        return self.host.numpy()
+        return self.array()
 
 
 class StreamingEngine:
     """Owns the stream state on the device, the step (a CUDA graph on
-    the card) and the per-slot host buffers."""
+    the card) and the per-slot host buffers.
+
+    `tensor_core_weights`: the matrices cast to the compute type at
+    build (0 for a float32 model); the step reads those copies, so a
+    matrix changed in place after the build is not seen by a bf16
+    engine (a bias is: the step reads the model's own), and a bundle
+    whose model was swapped is refused."""
 
     def __init__(self, bundle, n_streams: int = 64,
                  scfg: StreamingConfig | None = None, use_lm: bool = False,
@@ -330,7 +423,11 @@ class StreamingEngine:
         # (quantize) is refused, never served the old weights
         self.model = bundle.model
         self.fns = bundle.decoder_fns(use_lm=use_lm)
+        self.tensor_core_weights = 0
         self.mesh = mesh
+        self._wire = torch.int16 if self.scfg.transfer_dtype == "int16" \
+            else torch.float32
+        self._pin = self.device.type == "cuda" and mesh is None
         self.replays = 0  # CUDA graph replays (every step on the card)
         self.steps = 0    # device steps run
         self._seq = 0     # chains enqueued: the dispatch spans' ids
@@ -338,6 +435,11 @@ class StreamingEngine:
         self._shard = False  # a mesh engine's part: the outer one counts
         self._shards = None
         if mesh is None:
+            # the step's model: tower matrices cast once, in a bf16 model
+            self._net, self.tensor_core_weights = _tensor_core_copy(self.model)
+            self.fns = dataclasses.replace(
+                self.fns, predict_step=self._net.predict,
+                joint_step=self._net.joint_step)
             with _on_device(self.device):
                 self._init_device()
         else:
@@ -349,6 +451,8 @@ class StreamingEngine:
                 for i in range(mesh.size("data"))]
             for sh in self._shards:
                 sh._shard = True
+            self.tensor_core_weights = sum(sh.tensor_core_weights
+                                           for sh in self._shards)
         self._init_host()
 
     def _init_device(self) -> None:
@@ -365,8 +469,6 @@ class StreamingEngine:
         self._frame_idx = (torch.arange(self._frames_per_chunk)[:, None] * fe.hop
                            + torch.arange(fe.n_fft)[None, :]).to(self.device)
         # the step's static inputs (the graph holds their addresses)
-        self._wire = torch.int16 if self.scfg.transfer_dtype == "int16" \
-            else torch.float32
         self._chunks = torch.zeros(
             (self.n, self.scfg.n_buffer, self.scfg.chunk_samples),
             dtype=self._wire, device=self.device)
@@ -377,21 +479,29 @@ class StreamingEngine:
             self.state = self._init_state()
             # BOS-primed decode state: the reset template (read only)
             self._fresh_dec = self._init_decode()
-            width = (self.scfg.beam_buf_tokens if self.beam
-                     else self.scfg.max_tokens_per_step)
-            self._packed = torch.zeros((self.n, width + 1), dtype=torch.int32,
+            self._packed = torch.zeros((self.n, self._width), dtype=torch.int32,
                                        device=self.device)
         self._graph = self._capture() if self.device.type == "cuda" else None
 
+    @property
+    def _width(self) -> int:
+        """Columns of the packed output: the tokens, then their count."""
+        return 1 + (self.scfg.beam_buf_tokens if self.beam
+                    else self.scfg.max_tokens_per_step)
+
     def _init_host(self) -> None:
         # host-side slot bookkeeping. PCM lives in ONE [N, cap] ring
-        # matrix with per-slot head/tail offsets: dispatch copies every
-        # ready slot's chunk with one slice per slot, append is an
-        # in-place row write
+        # matrix in the wire dtype with per-slot head/tail offsets:
+        # append encodes the new samples into their row in place, a
+        # dispatch gathers every ready slot's samples into a staging
+        # buffer in one indexed copy per sub-step
         self._buf_cap = 4 * self.scfg.chunk_samples * self.scfg.n_buffer
-        self._buf = np.zeros((self.n, self._buf_cap), np.float32)
-        self._head = [0] * self.n
-        self._tail = [0] * self.n
+        self._buf = np.zeros((self.n, self._buf_cap),
+                             np.int16 if self._wire == torch.int16 else np.float32)
+        self._head = np.zeros(self.n, np.int64)
+        self._tail = np.zeros(self.n, np.int64)
+        # two staging buffers: one chain in flight while the next gathers
+        self._stages = [self._new_stage(CHAIN_DEPTHS[-1]) for _ in range(2)]
         self.emitted = [[] for _ in range(self.n)]
         # per-slot undelivered text: every step distributes every stepped
         # slot's new text here, so text decoded while another slot drove
@@ -431,7 +541,7 @@ class StreamingEngine:
         Leaves are cloned so that none shares storage with another (the
         step copies into each in place)."""
         n, fe = self.n, self.frontend
-        h0 = learnable_states(self.model, "encoder", n)
+        h0 = learnable_states(self._net, "encoder", n)
         return StreamState(
             enc_state=_tree_map(lambda x: x.new_zeros(x.shape), h0),
             decode=_tree_map(torch.clone, self._init_decode()),
@@ -479,7 +589,7 @@ class StreamingEngine:
         # --- per-stream reset (masked state swap) ----------------------
         do_reset = reset | ~state.started
         dec = _select(do_reset, self._fresh_dec, state.decode)
-        enc_state = _select(do_reset, learnable_states(self.model, "encoder", n),
+        enc_state = _select(do_reset, learnable_states(self._net, "encoder", n),
                             state.enc_state)
         # on reset the sample carry is the reflect padding of the
         # incoming chunk's head: the prefix batch framing (center=True,
@@ -506,7 +616,7 @@ class StreamingEngine:
             sample_carry = torch.where(valid[:, None], sc_new, sample_carry)
             mel_carry = torch.where(valid[:, None, None], mc_new, mel_carry)
             real = primed & valid
-            enc_out, enc_new = self.model.encode(stacked, state=enc_state)
+            enc_out, enc_new = self._net.encode(stacked, state=enc_state)
             enc_state = _tree_map(
                 lambda a, b_: torch.where(real[:, None], a, b_),
                 enc_new, enc_state)
@@ -578,6 +688,22 @@ class StreamingEngine:
         return np.ascontiguousarray(chunks, dtype=np.int16 if
                                     self._wire == torch.int16 else np.float32)
 
+    def _new_stage(self, cap: int) -> _Stage:
+        scfg = self.scfg
+        return _Stage(cap, self.n, scfg.n_buffer, scfg.chunk_samples,
+                      self._width, self._wire, self._pin)
+
+    def _stage(self, k: int) -> _Stage:
+        """A free staging buffer for a chain of k sub-steps; a new one,
+        counted (`engine.stage.fresh`), when none is."""
+        for st in self._stages:
+            if st.cap >= k and st.free():
+                return st
+        tel.count("engine.stage.fresh")
+        st = self._new_stage(max(k, CHAIN_DEPTHS[-1]))
+        self._stages.append(st)
+        return st
+
     def _count_chain(self, k: int, valid, masked) -> None:
         """Telemetry of one chain: its sub-steps, valid rows and the
         masked rows by cause (rows + masked = N * k); masked None: a
@@ -596,10 +722,20 @@ class StreamingEngine:
     def _run_chain(self, k: int, chunks, valid, reset,
                    masked: dict | None = None):
         """Run k steps in order, one graph replay each on the card.
-        chunks: [k, N, n_buffer, C]; valid/reset: [k, N] bool; masked:
-        the masked rows by cause, for the telemetry. Nothing waits for
-        the device: the returned outputs land on the host when their
-        event passes."""
+        chunks: [k, N, n_buffer, C] PCM, encoded here into a staging
+        buffer; valid/reset: [k, N] bool; masked: the masked rows by
+        cause, for the telemetry. Nothing waits for the device: the
+        returned outputs land on the host when their event passes."""
+        with tel.span("engine.dispatch.encode", self._seq + 1):
+            st = self._stage(k)
+            st.wire[:k] = self._encode_chunks(chunks)
+        return self._launch(k, st, np.asarray(valid, bool),
+                            np.asarray(reset, bool), masked)
+
+    def _launch(self, k: int, st: _Stage, valid, reset, masked=None):
+        """Enqueue a chain of k steps whose wire PCM is in `st`: the flags
+        into `st`, then per sub-step the input copies, the replay and the
+        output copy into `st`."""
         if self.bundle.model is not self.model:
             raise RuntimeError(
                 "libreasr_tpu_torch: the bundle's model changed (quantize?) "
@@ -610,8 +746,7 @@ class StreamingEngine:
         if self._shards is not None:
             # every device's replays are enqueued before any is collected
             per = self.n // len(self._shards)
-            chunks = np.asarray(chunks)
-            valid, reset = np.asarray(valid, bool), np.asarray(reset, bool)
+            chunks = st.wire[:k]
             parts = []
             for i, sh in enumerate(self._shards):
                 rows = slice(i * per, (i + 1) * per)
@@ -622,16 +757,13 @@ class StreamingEngine:
             return _Joined(parts, self._seq)
         cuda = self.device.type == "cuda"
         seq = self._seq
-        with tel.span("engine.dispatch.encode", seq):
-            wire = self._encode_chunks(chunks)
         with tel.span("engine.dispatch.stage", seq):
-            ch = torch.from_numpy(wire)
-            fl = torch.from_numpy(np.stack([np.asarray(valid, bool),
-                                            np.asarray(reset, bool)], axis=1))
-            if cuda:
-                ch, fl = ch.pin_memory(), fl.pin_memory()
-            host = torch.empty((k, self.n, self._packed.shape[1]),
-                               dtype=torch.int32, pin_memory=cuda)
+            fl = st.flags[:k]
+            flags = fl.numpy()
+            flags[:, 0] = valid
+            flags[:, 1] = reset
+            ch = st.chunks[:k]
+            host = st.host[:k]
         # traced on the card: timed events around the chain, for the
         # card's idle gap before it
         timed = cuda and tel.on()
@@ -661,7 +793,9 @@ class StreamingEngine:
                 done = torch.cuda.Event(enable_timing=timed)
                 done.record(torch.cuda.current_stream(self.device))
         self._prev_done = done if timed else None
-        return _Outputs(host, done, (ch, fl), seq, start, prev, t_enq, tid)
+        out = _Outputs(host, done, seq, start, prev, t_enq, tid)
+        st.user, st.done = weakref.ref(out), done
+        return out
 
     def replay_captured(self, k: int) -> None:
         """Replay the captured step k times on the inputs the last step
@@ -788,12 +922,23 @@ class StreamingEngine:
                 for i in range(self.n)]
 
     def _fill(self):
-        return np.fromiter((t - h for t, h in zip(self._tail, self._head)),
-                           np.int64, self.n)
+        return self._tail - self._head
+
+    def _windows(self) -> np.ndarray:
+        """[N, cap - need + 1, need] view of the ring: [i, h] is the step
+        of samples slot i holds from offset h on."""
+        b, need = self._buf, self.samples_per_step
+        return np.lib.stride_tricks.as_strided(
+            b, (b.shape[0], b.shape[1] - need + 1, need),
+            (b.strides[0], b.strides[1], b.strides[1]), writeable=False)
 
     def append_samples(self, slot: int, pcm: np.ndarray):
+        """Buffer float32 PCM for a slot: with the int16 wire the codec
+        (StreamingConfig.transfer_dtype, as `_encode_chunks` applies it)
+        runs here, on these samples, into the ring."""
         with tel.span("engine.append", slot):
-            t, n = self._tail[slot], len(pcm)
+            pcm = np.asarray(pcm, np.float32)
+            t, n = int(self._tail[slot]), len(pcm)
             if t + n > self._buf.shape[1]:
                 h = int(self._head[slot])
                 if t - h + n <= self._buf.shape[1]:
@@ -806,13 +951,19 @@ class StreamingEngine:
                     cap = self._buf.shape[1]
                     while t - h + n > cap:
                         cap *= 2
-                    nb = np.zeros((self.n, cap), np.float32)
+                    nb = np.zeros((self.n, cap), self._buf.dtype)
                     nb[:, : self._buf.shape[1]] = self._buf
                     self._buf = nb
                     self._buf[slot, : t - h] = self._buf[slot, h:t].copy()
                 self._tail[slot] = t = t - h
                 self._head[slot] = 0
-            self._buf[slot, t : t + n] = pcm
+            dst = self._buf[slot, t : t + n]
+            if dst.dtype == np.int16:
+                x = pcm * np.float32(32768.0)
+                np.clip(x, -32768.0, 32767.0, out=x)
+                np.copyto(dst, x, casting="unsafe")  # truncates, as astype
+            else:
+                dst[...] = pcm
             self._tail[slot] = t + n
 
     def ready_slots(self):
@@ -825,7 +976,7 @@ class StreamingEngine:
         pending record (or None if nothing is ready); the caller may
         dispatch the next step before collecting this one."""
         scfg = self.scfg
-        c, need = scfg.chunk_samples, self.samples_per_step
+        need = self.samples_per_step
         with tel.span("engine.dispatch", self._seq + 1):
             with tel.span("engine.dispatch.gather"):
                 # a slot whose in-flight steps may cross its silence
@@ -840,13 +991,12 @@ class StreamingEngine:
                 if not valid.any():
                     return None
                 rows = np.nonzero(valid)[0]
-                chunks = np.zeros((self.n, scfg.n_buffer, c), np.float32)
-                cv = chunks.reshape(self.n, need)
-                buf, head = self._buf, self._head
-                for i in rows:
-                    h = head[i]
-                    cv[i] = buf[i, h : h + need]
-                    head[i] = h + need
+                st = self._stage(1)
+                cv = st.wire[0].reshape(self.n, need)
+                head = self._head[rows]
+                cv[rows] = self._windows()[rows, head]
+                cv[~valid] = 0
+                self._head[rows] = head + need
                 reset = self._pending_reset & valid
             masked = None
             if tel.on():
@@ -854,8 +1004,7 @@ class StreamingEngine:
                 masked = {"inactive": int((~act).sum()),
                           "empty": int((act & ~has).sum()),
                           "gated": int((act & has & gated).sum())}
-            out = self._run_chain(1, chunks[None], valid[None], reset[None],
-                                  masked)
+            out = self._launch(1, st, valid[None], reset[None], masked)
             self._eos_done[reset] = False
             # a reset invalidates any step dispatched before it
             self._reset_epoch[reset] += 1
@@ -886,7 +1035,7 @@ class StreamingEngine:
         steps exactly. Returns a pending record for step_collect, or None
         when nothing is ready."""
         scfg = self.scfg
-        c, need = scfg.chunk_samples, self.samples_per_step
+        need = self.samples_per_step
         with tel.span("engine.dispatch", self._seq + 1):
             with tel.span("engine.dispatch.gather"):
                 depth = self._fill() // need
@@ -904,14 +1053,15 @@ class StreamingEngine:
                 avail = np.minimum(ahead, np.maximum(m, 0))
                 if not avail.any():
                     return None
-                chunks = np.zeros((k, self.n, scfg.n_buffer, c), np.float32)
                 valid = np.arange(k)[:, None] < avail[None, :]       # [k, N]
-                cv = chunks.reshape(k, self.n, need)
-                buf, head = self._buf, self._head
-                for i in np.nonzero(avail)[0]:
-                    a, h = int(avail[i]), head[i]
-                    cv[:a, i] = buf[i, h : h + a * need].reshape(a, need)
-                    head[i] = h + a * need
+                st = self._stage(k)
+                cv = st.wire[:k].reshape(k, self.n, need)
+                win, head = self._windows(), self._head
+                for j in range(k):
+                    rows = np.nonzero(valid[j])[0]
+                    cv[j, rows] = win[rows, head[rows] + j * need]
+                cv[~valid] = 0
+                self._head += avail * need
                 # a slot's backlog is contiguous, so its first sub-step is
                 # j=0: pending resets apply there only
                 v0 = valid[0]
@@ -924,7 +1074,7 @@ class StreamingEngine:
                           "empty": k * int((act & (depth == 0)).sum()),
                           "short": int((k - ahead)[some].sum()),
                           "gated": int((ahead - avail).sum())}
-            out = self._run_chain(k, chunks, valid, reset, masked)
+            out = self._launch(k, st, valid, reset, masked)
             r0 = reset[0]
             self._eos_done[r0] = False
             self._reset_epoch[r0] += 1

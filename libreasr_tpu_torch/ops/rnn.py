@@ -29,9 +29,15 @@ feeds the ones jax.random draws).
 `compute_dtype` (e.g. torch.bfloat16) rounds both matmul operands to
 that type and accumulates in float32, as the JAX `_mm` does with
 preferred_element_type=float32: the rounded values are widened back to
-float32 before the product, which is exact for bf16 operands. An
-int8-quantized weight (ops.quant.QuantizedTensor) runs the dynamic int8
-product `int8_matmul` instead and ignores `compute_dtype`, as in JAX.
+float32 before the product, which is exact for bf16 operands. A weight
+that its owner already holds in the compute type (the streaming
+engine's, cast once at build) is taken as it is: on the card its
+product runs on the tensor cores, operands in that type with float32
+sums and a float32 output (aten::mm.dtype), which is the rounded
+product up to the order of the float32 sums; on the CPU it is the
+rounded product itself. An int8-quantized weight (ops.quant.
+QuantizedTensor) runs the dynamic int8 product `int8_matmul` instead
+and ignores `compute_dtype`, as in JAX.
 """
 
 from __future__ import annotations
@@ -73,16 +79,28 @@ def round_to(x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _weight(w, compute_dtype):
-    """A weight as `_mm` takes it: rounded to the compute type once, or
-    quantized as it is."""
-    return w if isinstance(w, QuantizedTensor) else round_to(w, compute_dtype)
+    """A weight as `_mm` takes it: rounded to the compute type once a
+    call; quantized, or already in the compute type, as it is (no
+    copy)."""
+    if isinstance(w, QuantizedTensor) or w.dtype == compute_dtype:
+        return w
+    return round_to(w, compute_dtype)
 
 
 def _mm(a, b, compute_dtype):
-    """a @ b for a weight `b` already passed through `_weight`."""
+    """a @ b for a weight `b` already passed through `_weight`: float32
+    `b` (rounded or not) takes a float32 product of the rounded `a`; a
+    `b` in the compute type a tensor-core product on the card, float32
+    sums and output, and the same rounded product elsewhere."""
     if isinstance(b, QuantizedTensor):
         return int8_matmul(a, b)
-    return round_to(a, compute_dtype) @ b
+    if b.dtype == torch.float32:
+        return round_to(a, compute_dtype) @ b
+    if b.is_cuda:
+        y = torch.mm(a.reshape(-1, a.shape[-1]).to(b.dtype), b,
+                     out_dtype=torch.float32)
+        return y.reshape(a.shape[:-1] + b.shape[-1:])
+    return round_to(a, b.dtype) @ b.float()
 
 
 def _ln(x, gamma, beta=None, eps: float = 1e-5):

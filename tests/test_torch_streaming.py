@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from helpers.tiny_decoder import assert_state_equal
+from libreasr_tpu_torch import telemetry as tel
 from libreasr_tpu_torch.api import ASRBundle
 from libreasr_tpu_torch.config import apply_overrides, open_config
 from libreasr_tpu_torch.convert import load_jax_variables
@@ -568,6 +569,219 @@ def test_int16_transfer_matches_float32(tiny):
     assert out["int16"] == out["float32"] and out["int16"][0]
 
 
+
+# ---- input staging: the wire codec at append, pooled staging buffers -------
+
+
+def _bf16_bundle(seed=0):
+    """The tiny model computing in bf16 (random weights, no JAX)."""
+    conf = _tiny_conf()
+    conf["dtypes"]["compute"] = "bfloat16"
+    model = Transducer(TransducerConfig.from_config(conf), seed=seed)
+    lang, _ = get_language()
+    return ASRBundle(conf, model, lang, torch.device("cpu"))
+
+
+def _staged(eng):
+    """Record the wire array every chain of `eng` enqueues."""
+    seen = []
+    launch = eng._launch
+
+    def spy(k, st, valid, reset, masked=None):
+        seen.append((st.wire[:k].copy(), np.array(valid, bool)))
+        return launch(k, st, valid, reset, masked)
+
+    eng._launch = spy
+    return seen
+
+
+@pytest.mark.parametrize("n_buffer", [1, 2])
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_staged_wire_equals_encode_of_float32_gather(tiny, dtype, n_buffer):
+    """Every chain's staged wire array, from step_dispatch and from
+    step_dispatch_chained, pipelined so that the pooled buffers are
+    reused, equals bit for bit `_encode_chunks` of the float32 gather of
+    the same appended PCM (masked rows zero), across ring compactions and
+    a ring growth; the ring holds the wire dtype."""
+    _, tb = tiny
+    n = 3
+    eng = StreamingEngine(tb, n_streams=n, scfg=StreamingConfig(
+        n_buffer=n_buffer, transfer_dtype=dtype))
+    assert eng._buf.dtype == np.dtype(dtype)
+    assert all(st.wire.dtype == np.dtype(dtype) for st in eng._stages)
+    need = eng.samples_per_step
+    cap0 = eng._buf.shape[1]
+    seen = _staged(eng)
+    rng = np.random.default_rng(21)
+    queue = [np.zeros(0, np.float32) for _ in range(n)]
+    slots = [eng.open_slot(), eng.open_slot()]  # slot 2 stays closed
+    expect, pending, compacted = [], None, 0
+    # sizes in steps (and odd samples): clipping, truncation toward zero,
+    # compactions, and one append past the ring's capacity (growth)
+    plan = [(3, 1.5), (1.3, 0.7), (2, 1.2), (0, 0), (2.6, 0.9), (1, 2.0),
+            (6.5, 0.8), (0.5, 0.3), (2, 1.0), (0, 0), (1.7, 1.1), (3, 0.6)]
+    for it, (steps, scale) in enumerate(plan):
+        for j, s in enumerate(slots):
+            m = int(steps * need) + (17 if j else 0)
+            if not m or (it + j) % 3 == 2:
+                continue
+            pcm = (rng.standard_normal(m) * scale).astype(np.float32)
+            heads = int(eng._head[s])
+            eng.append_samples(s, pcm)
+            compacted += heads > 0 and int(eng._head[s]) == 0
+            queue[s] = np.concatenate([queue[s], pcm])
+        k = (1, 4, 2, 8)[it % 4]
+        p = eng.step_dispatch_chained(k) if k > 1 else eng.step_dispatch()
+        if p is not None:
+            valid = seen[-1][1]
+            chunks = np.zeros((valid.shape[0], n, need), np.float32)
+            for j in range(valid.shape[0]):
+                for i in np.nonzero(valid[j])[0]:
+                    chunks[j, i], queue[i] = queue[i][:need], queue[i][need:]
+            expect.append(eng._encode_chunks(
+                chunks.reshape(len(valid), n, n_buffer, -1)))
+        if pending is not None:
+            eng.step_collect(pending)
+        pending = p
+    eng.step_collect(pending)
+    assert eng._buf.shape[1] > cap0 and compacted
+    assert len(seen) == len(expect) >= 10
+    for (got, _), want in zip(seen, expect):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_chains_in_flight_hold_distinct_staging_buffers(tiny):
+    """Two chains in flight hold the pool's two buffers; a third, with
+    both still unread, gets a fresh one (counted); once read, the
+    buffers serve the next chains again."""
+    _, tb = tiny
+    eng = StreamingEngine(tb, n_streams=2)
+    s = eng.open_slot()
+    eng.append_samples(s, _noise(22, CHUNK * 12))
+    pool = list(eng._stages)
+    with tel.tracing():
+        tel.reset()
+        p1 = eng.step_dispatch_chained(2)
+        p2 = eng.step_dispatch()
+        users = [st.user() for st in pool]
+        assert {id(u) for u in users} == {id(p1[0]), id(p2[0])}
+        assert "engine.stage.fresh" not in tel.snapshot()["counters"]
+        p3 = eng.step_dispatch_chained(4)
+        assert tel.snapshot()["counters"]["engine.stage.fresh"] == 1
+        assert len(eng._stages) == 3 and eng._stages[2].user() is p3[0]
+        for p in (p1, p2, p3):
+            eng.step_collect(p)
+        p4 = eng.step_dispatch()
+        assert any(st.user() is p4[0] for st in pool)
+        eng.step_collect(p4)
+        assert tel.snapshot()["counters"]["engine.stage.fresh"] == 1
+    tel.reset()
+
+
+def test_stage_fresh_stays_zero_in_a_steady_loop(tiny):
+    """After warm-up a pipelined loop (one chain in flight while the
+    next is gathered, chained and single steps) allocates no staging."""
+    _, tb = tiny
+    eng = StreamingEngine(tb, n_streams=3)
+    eng.warmup(1, chain_depths=CHAIN_DEPTHS)
+    slots = [eng.open_slot() for _ in range(3)]
+    rng = np.random.default_rng(23)
+    with tel.tracing():
+        tel.reset()
+        pending = None
+        for it in range(16):
+            for j, s in enumerate(slots):
+                if (it + j) % 2 == 0:
+                    eng.append_samples(s, (rng.standard_normal(
+                        CHUNK * (1 + (it + j) % 5)) * 0.1).astype(np.float32))
+            depth = eng.backlog_depth()
+            p = (eng.step_dispatch_chained(min(8, 1 << (depth.bit_length() - 1)))
+                 if depth >= 2 else eng.step_dispatch())
+            if pending is not None:
+                eng.step_collect(pending)
+            pending = p
+        eng.step_collect(pending)
+        c = tel.snapshot()["counters"]
+    tel.reset()
+    assert c["engine.steps"] > 16
+    assert c.get("engine.stage.fresh", 0) == 0 and len(eng._stages) == 2
+
+
+def test_engine_casts_tower_matrices_once(tiny):
+    """A bf16 model's engine steps a copy whose cell kernels, recurrent
+    kernels and joint kernels are bf16, cast at build; every other
+    tensor, the biases included, is the bundle's own, and the bundle's
+    model keeps float32. A float32 (beam) engine casts nothing."""
+    bundle = _bf16_bundle()
+    eng = StreamingEngine(bundle, n_streams=2)
+    # encoder 1 layer, predictor 1 layer: 2 matrices each; joint 3
+    assert eng.tensor_core_weights == 7
+    net, model = eng._net, bundle.model
+    assert net is not model
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    for cell in (net.encoder.rnn_stack.layer0.cell,
+                 net.predictor.rnn_stack.layer0.cell):
+        assert cell.kernel.dtype == cell.recurrent_kernel.dtype == torch.bfloat16
+    for d in (net.joint.pred_proj, net.joint.enc_proj, net.joint.out):
+        assert d.kernel.dtype == torch.bfloat16
+    assert net.joint.out.bias is model.joint.out.bias
+    assert net.encoder.rnn_stack.layer0.cell.bias is \
+        model.encoder.rnn_stack.layer0.cell.bias
+    assert net.predictor.embed.embedding is model.predictor.embed.embedding
+    assert eng.fns.joint_step.__self__ is net
+    _, tb = tiny
+    beam = StreamingEngine(tb, n_streams=2, scfg=StreamingConfig(beam_width=4))
+    assert beam.tensor_core_weights == 0 and beam._net is tb.model
+
+
+def test_bf16_engine_sees_a_blank_bias_set_after_build():
+    """The bias calibration (bench.set_blank_bias) moves the joint's blank
+    bias in place under a built engine: a bf16 engine steps the model's
+    own bias, so its emission follows without a new build."""
+    from libreasr_tpu_torch import bench
+
+    bundle = _bf16_bundle(seed=5)
+    eng = StreamingEngine(bundle, n_streams=4)
+    base = bundle.model.joint.out.bias[0].clone()
+    chunks = _noise(77, (4, 1, CHUNK), 0.3)
+
+    def tokens(bias):
+        bench.set_blank_bias(bundle, bias, base=base)
+        first = np.ones(4, bool)
+        return sum(int(eng.step_batch(chunks, reset=first if j == 0 else None)
+                       [1].sum()) for j in range(4))
+
+    flood, mute, again = tokens(-30.0), tokens(30.0), tokens(-30.0)
+    assert mute == 0 < flood == again
+
+
+def test_bf16_engine_equals_the_uncast_step_on_cpu(monkeypatch):
+    """On the CPU a product of a weight held in bf16 is the rounded
+    float32 product, so the engine's tokens and state equal those of
+    the step that rounds its float32 weights every call, exactly."""
+    import libreasr_tpu_torch.models.streaming as streaming
+
+    bundle = _bf16_bundle(seed=3)
+    cast = StreamingEngine(bundle, n_streams=3)
+    monkeypatch.setattr(streaming, "_tensor_core_copy", lambda m: (m, 0))
+    plain = StreamingEngine(bundle, n_streams=3)
+    assert cast.tensor_core_weights == 7 and plain._net is bundle.model
+    rng = np.random.default_rng(24)
+    total = 0
+    for k in range(6):
+        chunks = _noise(300 + k, (3, 1, CHUNK), 0.3)
+        valid, reset = rng.random(3) > 0.2, rng.random(3) > 0.8
+        t1, l1 = cast.step_batch(chunks, valid, reset)
+        t2, l2 = plain.step_batch(chunks, valid, reset)
+        np.testing.assert_array_equal(l1, l2)
+        np.testing.assert_array_equal(t1, t2)
+        total += int(l1.sum())
+    for a, b in zip(_leaves(cast.state), _leaves(plain.state)):
+        assert torch.equal(a, b)
+    assert total > 0
+
+
 @pytest.mark.parametrize("seed", range(20))
 def test_decode_frame_without_early_exit_is_identical(tiny, seed):
     """All max_iters rounds masked give the same tokens, counts and
@@ -835,6 +1049,46 @@ def test_graph_replay_matches_uncaptured_step_on_cuda(tmp_path):
         return list(e.emitted[s]), e.replays
 
     assert run(True) == run(False)
+
+
+@pytest.mark.cuda
+def test_bf16_graph_replay_matches_uncaptured_step_on_cuda(tmp_path):
+    """The golden char model computing in bf16: its tower matrices cast
+    at build, their products on the tensor cores inside the captured
+    graph. 20 steps with ragged valid masks and resets, every step one
+    replay whose tokens equal the uncaptured step function's on a copy
+    of the state, and the state within 1e-6, as the float32 case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    golden = ASRBundle.from_bundle(os.path.join(FIXTURES, "model.tar.gz"),
+                                   extract_to=str(tmp_path), device="cuda")
+    conf = copy.deepcopy(golden.conf)
+    conf["dtypes"]["compute"] = "bfloat16"
+    model = Transducer(TransducerConfig.from_config(conf), device="cuda")
+    model.load_state_dict(golden.model.state_dict())
+    bundle = ASRBundle(conf, model, golden.lang, torch.device("cuda"))
+    n = 8
+    eng = StreamingEngine(bundle, n_streams=n)
+    assert eng.tensor_core_weights == 2 * 2 + 2 + 3
+    rng = np.random.default_rng(2)
+    ref = eng.state.clone()
+    total = 0
+    for k in range(20):
+        chunks = _noise(400 + k, (n, 1, CHUNK))
+        valid = rng.random(n) > 0.2
+        reset = rng.random(n) > 0.8
+        toks, lens = eng.step_batch(chunks, valid, reset)
+        with torch.no_grad():
+            ref, packed = eng.step_fn(
+                ref, torch.from_numpy(chunks).cuda(),
+                torch.from_numpy(valid).cuda(), torch.from_numpy(reset).cuda())
+        packed = packed.cpu().numpy()
+        np.testing.assert_array_equal(lens, packed[:, -1])
+        np.testing.assert_array_equal(toks, packed[:, :-1])
+        for a, b in zip(_leaves(eng.state), _leaves(ref)):
+            assert float((a.double() - b.double()).abs().max()) <= 1e-6
+        total += int(lens.sum())
+    assert eng.replays == eng.steps == 20 and total > 0
 
 
 @pytest.mark.cuda

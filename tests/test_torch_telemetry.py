@@ -132,9 +132,11 @@ def _check_rules(eng, steps0):
             under[parent] = under.get(parent, 0.0) + s
     for parent, s in under.items():
         assert s <= spans[parent]["total_s"] + 1e-9, parent
-    for name in ("engine.dispatch.gather", "engine.dispatch.encode",
-                 "engine.dispatch.stage", "engine.dispatch.enqueue"):
+    for name in ("engine.dispatch.gather", "engine.dispatch.stage",
+                 "engine.dispatch.enqueue"):
         assert spans[name]["parents"].keys() == {"engine.dispatch"}, name
+    # the dispatches gather the ring's wire samples: the codec ran at append
+    assert "engine.dispatch.encode" not in spans
     for name in ("engine.collect.wait", "engine.collect.distribute"):
         assert spans[name]["parents"].keys() == {"engine.collect"}, name
     for name in ("engine.append", "engine.finish_slot", "engine.flush_slot",
@@ -380,7 +382,7 @@ def test_mesh_chain_records_one_gap_the_mean_of_its_cards():
 
     tid = threading.get_ident()
     parts = [_Outputs(torch.full((1, 2, 3), i, dtype=torch.int32),
-                      _FakeEvent(0), None, 7, start=_FakeEvent(start),
+                      _FakeEvent(0), 7, start=_FakeEvent(start),
                       prev=_FakeEvent(end), t_enq=t_enq, tid=tid)
              for i, (end, start, t_enq) in enumerate(
                  [(10.0, 12.0, 5_000_000), (10.0, 14.0, 5_000_200)])]
