@@ -100,7 +100,8 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--biases", default="")
-    ap.add_argument("--gain", type=float, default=None)
+    ap.add_argument("--gain", type=float, default=None,
+                    help="the gain of every leaf the configuration gains")
     ap.add_argument("--weight-seed", type=int, default=None)
     ap.add_argument("--program-tf32", action="store_true")
     ap.add_argument("--compute", default=None,
@@ -122,7 +123,7 @@ def main(argv=None) -> int:
         conf = copy.deepcopy(base)
         conf["blank_bias"] = bias
         if args.gain is not None:
-            conf["gain"] = {"model.joint.out.kernel": args.gain}
+            conf["gain"] = dict.fromkeys(base.get("gain", {}), args.gain)
         if args.weight_seed is not None:
             conf["weight_seed"] = args.weight_seed
         if args.compute:

@@ -12,6 +12,38 @@ name `BENCHMARK.json` gives it:
     benchmark/traffic/<generator>.py    a load generator and the entry the
                                         window drives (class Traffic)
     benchmark/metrics/<metric>.py       a per-layer metric's reader
+    benchmark/families/<model.name>.py  the model's architecture, by the
+                                        configuration's conf.model.name
+
+A family file holds all that the harness knows of one architecture:
+
+    plan(conf)                    [(name, shape, mean, std)] of every leaf,
+                                  the weights' plan (`benchmark/weights.py`
+                                  draws it and has the leaf helpers)
+    BLANK_LEAF                    (leaf, index): where `draw` writes the
+                                  configuration's pinned blank bias
+    build(conf, leaves, device)   the program's bundle (`ASRBundle`) with
+                                  those leaves, the port imported lazily
+    reference(leaves, conf, prec) the plain reference's (model, lm or None)
+                                  from `benchmark/reference/`, with
+                                  `encode`, `pred_init`, `pred_step`,
+                                  `predict`, `joint`, `vocab_sz` and the
+                                  LM's `init` and `step`; `prec` lowers
+                                  its products for the control
+    geometry(conf)                {"n_stack", "downsample", "bos", "blank",
+                                  "eos"}: the frontend's frame stacking and
+                                  the special ids the check needs
+    flops(conf)                   {"frame", "eval", "lm_token", "chunk_s"}:
+                                  FLOPs of a decoded frame (frontend and
+                                  encoder), of a predictor step with its
+                                  joint evaluation, of an LM token, and the
+                                  seconds of audio a frame covers
+    tiny(config)                  a copy of the configuration cut to a size
+                                  the CPU tests run in seconds
+
+A new architecture adds its family, its reference under
+`benchmark/reference/`, a configuration, traffic and a cell, and edits
+no file that is there.
 """
 
 from __future__ import annotations
@@ -41,6 +73,12 @@ def load_module(kind: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def family(conf: dict):
+    """The family module of a configuration's `conf`, by its model's
+    name."""
+    return load_module("families", conf["model"]["name"])
 
 
 def manifest() -> dict:

@@ -35,7 +35,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from .model import LM, Frontend, Transducer
+from .model import Frontend
 
 NEG = -1e30
 
@@ -109,27 +109,28 @@ def split_served(served: list[Served], *, eos: int, step_ms: int,
 
 
 class Judge:
-    """The reference's side of a stream cell's check."""
+    """The reference's side of a stream cell's check. `family` is the
+    configuration's model family (`benchmark/families/`): it gives the
+    reference's model and LM and the frontend's geometry."""
 
-    def __init__(self, leaves: dict, conf: dict, scfg: dict, device,
+    def __init__(self, family, leaves: dict, conf: dict, scfg: dict, device,
                  prec=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        geo = family.geometry(conf)
         fe = dict(sr=conf["sr"], n_fft=conf["melkwargs"]["n_fft"],
                   n_mels=conf["melkwargs"]["n_mels"],
                   win_length=conf["win_length"], hop_length=conf["hop_length"],
-                  n_stack=10, downsample=8)
+                  n_stack=geo["n_stack"], downsample=geo["downsample"])
         self.frontend = Frontend(fe, device)
-        self.model = Transducer(leaves, conf, prec)
-        self.exact = Transducer(leaves, conf) if prec else self.model
-        has_lm = bool((conf.get("lm") or {}).get("enable"))
-        self.lm = LM(leaves, conf, "bf16" if prec else None) if has_lm else None
-        self.exact_lm = (LM(leaves, conf) if prec else self.lm) if has_lm else None
+        self.model, self.lm = family.reference(leaves, conf, prec)
+        self.exact, self.exact_lm = (family.reference(leaves, conf) if prec
+                                     else (self.model, self.lm))
         self.device = device
         self.nb = scfg["n_buffer"]
         self.chunk = scfg["chunk_samples"]
         self.max_iters = scfg["max_iters"]
-        self.bos, self.blank, self.eos = 2, 0, scfg["eos"]
+        self.bos, self.blank, self.eos = geo["bos"], geo["blank"], scfg["eos"]
         self.K = scfg.get("beam_width", 0)
         self.cap = scfg.get("beam_buf_tokens", 64)
         self.lm_alpha = scfg.get("lm_alpha", 0.1)
@@ -253,7 +254,7 @@ class Judge:
         before = sum(len(s.delivered) for s in u.segs)
         return u.emitted[before:]
 
-    def _beam_run(self, m: Transducer, lm, enc, counts, segs, forced=None):
+    def _beam_run(self, m, lm, enc, counts, segs, forced=None):
         """The engine's streaming beam over every segment at once, from the
         encoder's outputs enc [B, T, H]. Free-running (forced None) it
         commits as the engine does and returns (every step's committed
@@ -266,7 +267,7 @@ class Judge:
         h, pst = m.pred_step(bos, m.pred_init(B * K))
         lm_lp, lst = (lm.step(bos, lm.init(B * K, dev)) if lm is not None
                       else (None, None))
-        V = m.w["joint.out.bias"].shape[0]
+        V = m.vocab_sz
         st = dict(pst=pst, h=h.reshape(B, K, -1),
                   scores=torch.full((B, K), NEG, device=dev),
                   y=torch.zeros((B, K, cap), dtype=torch.long, device=dev),

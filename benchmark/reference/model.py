@@ -134,6 +134,7 @@ class Transducer:
         self.w = {k[len("model."):]: v for k, v in leaves.items()
                   if k.startswith("model.")}
         m = conf["model"]
+        self.vocab_sz = m["vocab_sz"]
         self.enc_layers = m["encoder"]["num_layers"]
         self.pred_layers = m["predictor"]["num_layers"]
         self.prec = prec

@@ -53,7 +53,7 @@ for _var, _dir in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
 
 class Bench:
     """One run's shared state: the cell's files, the seed, the device,
-    the weights, and the spans."""
+    the model's family, the weights, and the spans."""
 
     def __init__(self, workload: str, seed: int, device, config=None,
                  traffic=None, phases=None):
@@ -67,6 +67,7 @@ class Bench:
         self.cell = core.load_json("workloads", workload)
         self.config = config or core.load_json("configs", self.cell["config"])
         self.traffic = traffic or core.load_json("traffic", self.cell["traffic"])
+        self.family = core.family(self.config["conf"])
         self.seed = int(seed)
         self.device = torch.device(device)
         self.spans = core.Spans()
@@ -79,7 +80,8 @@ class Bench:
         # a configuration that pins its weights' seed serves one model
         # whatever the run's seed; the run's seed then makes the traffic
         self.weight_seed = int(self.config.get("weight_seed", self.seed))
-        self.leaves = W.draw(W.plan(conf), self.weight_seed, self.device,
+        self.leaves = W.draw(self.family.plan(conf), self.weight_seed,
+                             self.device, self.family.BLANK_LEAF,
                              self.config["blank_bias"], self.config.get("gain"))
         self.mark("weights")
 

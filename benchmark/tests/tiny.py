@@ -4,7 +4,6 @@ For the CPU tests only; the cells run at their published widths."""
 
 from __future__ import annotations
 
-import copy
 import os
 
 import torch
@@ -14,16 +13,11 @@ from benchmark.run import Bench
 
 
 def tiny_config(config: dict, compute: str | None = None) -> dict:
-    c = copy.deepcopy(config)
-    conf = c["conf"]
-    conf["melkwargs"]["n_mels"] = 16
-    conf["model"].update(feature_sz=160, embed_sz=24, hidden_sz=32, out_sz=32,
-                         joint_sz=32, vocab_sz=64)
-    conf["model"]["encoder"]["num_layers"] = 2
+    """The configuration cut by its family's `tiny`; `compute`, the
+    towers' compute dtype in place of the configuration's."""
+    c = core.family(config["conf"]).tiny(config)
     if compute:
-        conf["dtypes"]["compute"] = compute
-    if (conf.get("lm") or {}).get("enable"):
-        conf["lm"].update(vocab_sz=64, embed_sz=16, hidden_sz=16, num_layers=2)
+        c["conf"]["dtypes"]["compute"] = compute
     return c
 
 
@@ -37,7 +31,7 @@ def tiny_bench(workload: str, seed: int, *, bias: float = 0.7,
     # tests name are ones whose tiny models emit)
     config.pop("weight_seed", None)
     config["blank_bias"] = bias
-    config["gain"] = {"model.joint.out.kernel": gain}
+    config["gain"] = dict.fromkeys(config.get("gain", {}), gain)
     traffic = dict(core.load_json("traffic", cell["traffic"]), streams=streams,
                    utt_s=[0.5, 2.0], pool=64, sample_utts=8)
     return Bench(workload, seed, "cpu", config=config, traffic=traffic)

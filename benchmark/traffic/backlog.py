@@ -40,26 +40,7 @@ import numpy as np
 import torch
 
 from benchmark import audio as A
-from benchmark import weights as W
 from benchmark.reference.check import Judge, Served, split_served
-
-
-def build_bundle(conf: dict, leaves: dict, device):
-    """The program's bundle at the configuration, with the benchmark's
-    weights copied into its model (and LM)."""
-    from libreasr_tpu_torch.api import ASRBundle
-    from libreasr_tpu_torch.data.language import get_language
-    from libreasr_tpu_torch.models.lm import LM, LMConfig
-    from libreasr_tpu_torch.models.transducer import Transducer, TransducerConfig
-
-    model = Transducer(TransducerConfig.from_config(conf), device=device)
-    W.load_into(model, leaves, "model")
-    lm = None
-    if (conf.get("lm") or {}).get("enable"):
-        lm = LM(LMConfig.from_config(conf), device=device)
-        W.load_into(lm, leaves, "lm")
-    lang, _ = get_language()
-    return ASRBundle(conf, model, lang, device, lm)
 
 
 # what a compared number reads when there was nothing to compare
@@ -81,7 +62,7 @@ class Traffic:
 
         b, p = self.b, self.p
         conf = b.config["conf"]
-        self.bundle = build_bundle(conf, b.leaves, b.device)
+        self.bundle = b.family.build(conf, b.leaves, b.device)
         b.mark("bundle")
         self.scfg = StreamingConfig(
             sr=conf["sr"], n_buffer=p["n_buffer"],
@@ -325,7 +306,8 @@ class Traffic:
         return dict(n_buffer=s.n_buffer, chunk_samples=s.chunk_samples,
                     max_iters=s.max_iters, beam_width=s.beam_width,
                     beam_buf_tokens=s.beam_buf_tokens, lm_alpha=s.lm_alpha,
-                    eos=2, step_ms=s.chunk_ms * s.n_buffer,
+                    eos=self.b.family.geometry(self.b.config["conf"])["eos"],
+                    step_ms=s.chunk_ms * s.n_buffer,
                     thresh_ms=s.reset_thresh_ms)
 
     def judge_numbers(self, prec=None) -> tuple[dict, list]:
@@ -340,8 +322,8 @@ class Traffic:
         faults = split_served(served, eos=sc["eos"], step_ms=sc["step_ms"],
                               thresh_ms=sc["thresh_ms"])
         segs = [sg for u in served for sg in u.segs]
-        judge = Judge(self.b.leaves, self.b.config["conf"], sc, self.b.device,
-                      prec=prec)
+        judge = Judge(self.b.family, self.b.leaves, self.b.config["conf"], sc,
+                      self.b.device, prec=prec)
         if sc["beam_width"] > 1:
             r = judge.beam_gaps(served, segs)
             nums = {k: r[k] for k in ("gap", "mismatch", "steps")}
